@@ -72,21 +72,22 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Sum of a and of b over the block; every thread gets both totals. Safe to
-// call repeatedly: the trailing barrier keeps the next call from overwriting
-// the scratch before every thread has read it.
-template <int kThreads>
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
+// Sum of a and of b (float or double) over the block; every thread gets both
+// totals. Safe to call repeatedly: the trailing barrier keeps the next call
+// from overwriting the scratch before every thread has read it.
+template <int kThreads, typename T>
+__device__ __forceinline__ void block_sum2(T& a, T& b) {
   static_assert(kThreads % kWarp == 0 && kThreads <= 1024, "block size");
   constexpr int kWarps = kThreads / kWarp;
-  __shared__ float part_a[kWarps], part_b[kWarps];
-  __shared__ float total_a, total_b;
+  __shared__ T part_a[kWarps], part_b[kWarps];
+  __shared__ T total_a, total_b;
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   a = warp_sum(a);
   b = warp_sum(b);
@@ -96,8 +97,8 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
   __syncthreads();
   if (warp == 0) {
-    float ta = lane < kWarps ? part_a[lane] : 0.f;
-    float tb = lane < kWarps ? part_b[lane] : 0.f;
+    T ta = lane < kWarps ? part_a[lane] : T(0);
+    T tb = lane < kWarps ? part_b[lane] : T(0);
     ta = warp_sum(ta);
     tb = warp_sum(tb);
     if (lane == 0) {

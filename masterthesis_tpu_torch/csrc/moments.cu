@@ -14,9 +14,15 @@
 // Design: NCHW makes each (b, c) plane one contiguous run of H*W elements,
 // so one block owns one plane. It streams the plane with 16-byte vector
 // loads, kUnroll loads in flight per thread to cover HBM latency, converts to
-// f32 and accumulates in registers; a warp-shuffle and shared-memory tree
-// then reduces the block. No atomics and no second pass: each plane's result
-// is written once, in a fixed order, so it is the same from run to run. The
+// f32 and accumulates in f64 registers; a warp-shuffle and shared-memory tree
+// then reduces the block, and the f64 totals are rounded once to f32. No
+// atomics and no second pass: each plane's result is written once, in a fixed
+// order, so it is the same from run to run. Summing in f64 makes the f32
+// result the correctly rounded sum in all but vanishingly rare cases,
+// whatever the order, so the plain version (f64 sums in torch) gives the same
+// bits, and the int8 chain that quantizes with these statistics does not
+// flip a value between the two. The f64 adds cost nothing here: the pass is
+// bound by bytes by a wide margin. The
 // TPU kernel's (S, B, C) view existed for XLA's conv-output layout; the
 // port's convs write NCHW, which this kernel reads as it is.
 #include "common.cuh"
@@ -32,7 +38,7 @@ __global__ void __launch_bounds__(kThreads)
                    float* __restrict__ sumsq, int64_t hw) {
   using V = mt::Vec<T>;
   const T* p = x + static_cast<int64_t>(blockIdx.x) * hw;
-  float s = 0.f, q = 0.f;
+  double s = 0.0, q = 0.0;
   int64_t tail = 0;
   if (mt::aligned16(p)) {
     const uint4* pv = reinterpret_cast<const uint4*>(p);
@@ -48,8 +54,9 @@ __global__ void __launch_bounds__(kThreads)
         V::unpack(v[u], f);
 #pragma unroll
         for (int e = 0; e < V::kElems; ++e) {
-          s += f[e];
-          q = fmaf(f[e], f[e], q);
+          const double d = f[e];
+          s += d;
+          q = fma(d, d, q);
         }
       }
     }
@@ -58,8 +65,9 @@ __global__ void __launch_bounds__(kThreads)
       V::unpack(__ldg(pv + i), f);
 #pragma unroll
       for (int e = 0; e < V::kElems; ++e) {
-        s += f[e];
-        q = fmaf(f[e], f[e], q);
+        const double d = f[e];
+        s += d;
+        q = fma(d, d, q);
       }
     }
     tail = nvec * V::kElems;
@@ -67,14 +75,14 @@ __global__ void __launch_bounds__(kThreads)
   // elements the vector loop did not take: a ragged end, or a whole plane
   // that does not start on a 16-byte boundary
   for (int64_t i = tail + threadIdx.x; i < hw; i += kThreads) {
-    const float f = mt::to_float(p[i]);
-    s += f;
-    q = fmaf(f, f, q);
+    const double d = mt::to_float(p[i]);
+    s += d;
+    q = fma(d, d, q);
   }
   mt::block_sum2<kThreads>(s, q);
   if (threadIdx.x == 0) {
-    sum[blockIdx.x] = s;
-    sumsq[blockIdx.x] = q;
+    sum[blockIdx.x] = __double2float_rn(s);
+    sumsq[blockIdx.x] = __double2float_rn(q);
   }
 }
 

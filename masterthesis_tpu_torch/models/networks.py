@@ -20,8 +20,10 @@ from masterthesis_tpu_torch.models.blocks import (
     GaussianNoise,
     ResnetBlock,
     UpsampleBlock,
+    apply_pending,
     get_activation,
     global_avg_pool,
+    split_pending,
 )
 
 MAX_FILTER_SIZE = 256
@@ -53,10 +55,16 @@ class ContentEncoder(nn.Module):
             setattr(self, f"res{i}", ResnetBlock(d, norm=norm, activation="relu", dtype=dtype))
         self.noise = GaussianNoise()
 
-    def forward(self, x):
-        h = self.stem(x)
+    def forward(self, x, serving: bool = False):
+        """``serving``: the int8 chain. The stem and the downs defer their
+        instance norm and activation into the next down conv's quantize
+        prologue, with the downs' statistics from their kernels; the last
+        down's is applied inline before the resblocks."""
+        h, pending = split_pending(self.stem(x, defer_norm=serving))
         for i in range(self.num_downs):
-            h = getattr(self, f"down{i}")(h)
+            h, pending = split_pending(getattr(self, f"down{i}")(h, pending, defer_norm=serving))
+        if pending is not None:
+            h = apply_pending(h, pending, h.dtype)
         for i in range(self.n_blocks):
             h = getattr(self, f"res{i}")(h)
         return self.noise(h)
@@ -133,13 +141,18 @@ class _DecoderTail(nn.Module):
                 up_type=up_type, dtype=dtype,
             ))
             d //= 2
-        self.num_ups = num_ups
+        self.num_ups, self.norm_type, self.activation = num_ups, norm, activation
         self.head = UpsampleBlock(d, output_dim, 1, 1, 0, activation="tanh", dtype=dtype)
 
     def forward(self, h):
+        # int8 serving: each upsample hands its LayerNorm + relu to the next
+        # kernel's prologue, the last one to the head's (inert on the float
+        # path: only an int8 upsample returns the statistics to defer)
+        fusible = self.norm_type == "layer" and self.activation in ("relu", None)
+        pending = None
         for i in range(self.num_ups):
-            h = getattr(self, f"up{i}")(h)
-        return self.head(h)
+            h, pending = split_pending(getattr(self, f"up{i}")(h, pending, defer_norm=fusible))
+        return self.head(h, pending)
 
 
 class AdaINDecoder(nn.Module):

@@ -20,9 +20,10 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 
 
 def moments_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, C, H, W) -> (sum, sumsq) over H, W, both f32 (B, C)."""
-    x32 = x.float()
-    return x32.sum(dim=(2, 3)), (x32 * x32).sum(dim=(2, 3))
+    """(B, C, H, W) -> (sum, sumsq) over H, W, both f32 (B, C): summed in
+    f64 and rounded once, as the kernel does."""
+    x64 = x.double()
+    return x64.sum(dim=(2, 3)).float(), (x64 * x64).sum(dim=(2, 3)).float()
 
 
 def _library() -> ctypes.CDLL:

@@ -88,8 +88,29 @@ class LayerNorm(nn.Module):
             self.register_parameter("scale", None)
             self.register_parameter("bias", None)
 
-    def forward(self, x):
-        return layer_norm(x, self.scale, self.bias, self.eps)
+    def forward(self, x, stats=None, defer: bool = False):
+        """``stats``: f32 per-(sample, channel) (sum, sumsq) of x, (B, C)
+        each, from the int8 serving conv that made x; they replace the
+        moments pass. ``defer`` (needs ``stats``): return the whole norm as a
+        per-(sample, channel) affine (a, b), for the next kernel's prologue,
+        instead of applying it."""
+        if stats is None:
+            if defer:
+                raise ValueError("LayerNorm(defer=True) needs the stats of x")
+            return layer_norm(x, self.scale, self.bias, self.eps)
+        b, c, h, w = x.shape
+        n = float(c * h * w)
+        mean = stats[0].sum(dim=1) / n
+        var = (stats[1].sum(dim=1) / n - mean.square()).clamp_min(0.0)
+        inv = torch.rsqrt(var + self.eps)
+        g = self.scale.float() if self.scale is not None else torch.ones(c, device=x.device)
+        beta = self.bias.float() if self.bias is not None else torch.zeros(c, device=x.device)
+        a = g[None, :] * inv[:, None]
+        shift = beta[None, :] - mean[:, None] * a
+        if defer:
+            return a, shift
+        y = x.float() * a[:, :, None, None] + shift[:, :, None, None]
+        return y.to(x.dtype)
 
 
 class AdaptiveInstanceNorm(nn.Module):

@@ -16,6 +16,11 @@ so each port parameter finds its leaf by its own path. Per leaf:
 
 It raises on a leaf it does not consume and on a port parameter it leaves
 unset, so a model whose shape differs from the tree's cannot load silently.
+
+``quant_from_jax(quant_cols, model)`` does the same for the JAX package's
+int8 amax tree (``TranslationModel.quant_cols``: ``{net: {"down0": {"conv":
+{"amax_in": scalar}}}}``), giving the port's tree for ``model.load_int8``
+(``{net: {"down0.conv.amax_in": tensor}}``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from masterthesis_tpu_torch.models.blocks import Conv2d, ConvTranspose2d, Dense
+from masterthesis_tpu_torch.models.quantize import LEAF, int8_convs
 from masterthesis_tpu_torch.ops.norms import LayerNorm
 
 
@@ -98,4 +104,28 @@ def params_from_jax(tree: dict, model) -> dict[str, dict[str, torch.Tensor]]:
         if unused:
             raise KeyError(f"{net_name}: JAX leaves with no port parameter: {unused}")
         out[net_name] = sd
+    return out
+
+
+def quant_from_jax(quant_cols: dict, model) -> dict[str, dict[str, torch.Tensor]]:
+    """The port's amax tree from the JAX quant collections, per net."""
+    out = {}
+    for net_name, tree in quant_cols.items():
+        if net_name not in model.nets:
+            raise KeyError(f"JAX quant tree for {net_name}, which the port does not have")
+        leaves = _flatten(tree)
+        consumed, amax = set(), {}
+        for path in int8_convs(model.nets[net_name]):
+            leaf = f"{path.replace('.', '/')}/{LEAF}"
+            if leaf not in leaves:
+                raise KeyError(f"{net_name}: no JAX leaf {leaf} for the int8 conv {path}")
+            value = np.asarray(leaves[leaf], dtype=np.float32)
+            if value.shape != ():
+                raise ValueError(f"{net_name}/{leaf}: amax must be a scalar, got {value.shape}")
+            amax[f"{path}.{LEAF}"] = torch.tensor(float(value))
+            consumed.add(leaf)
+        unused = sorted(set(leaves) - consumed)
+        if unused:
+            raise KeyError(f"{net_name}: JAX amax leaves with no port conv: {unused}")
+        out[net_name] = amax
     return out

@@ -45,8 +45,9 @@ def test_moments_plain_matches_pallas_moments(layout, axes):
     x = _nhwc((2, 32, 32, 64), seed=0)
     mean, var = pallas_moments(jnp.asarray(x), axes, interpret=True, layout=layout)
     t_mean, t_var = norms.moments(_t(x), per_sample=axes == (1, 2, 3))
-    # both one-pass f32 sums, summed in another order: the JAX package's own
-    # tolerances for this kernel against the two-pass reference
+    # both one-pass sums (the port's in f64, JAX's in f32), in another order:
+    # the JAX package's own tolerances for this kernel against the two-pass
+    # reference
     np.testing.assert_allclose(_np(t_mean), np.asarray(mean), atol=1e-5)
     np.testing.assert_allclose(_np(t_var), np.asarray(var), atol=1e-4, rtol=1e-4)
 
