@@ -4,6 +4,7 @@ against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also a torch.profiler breakdown of one forward
+                                       # (f32, bf16, int8) and of one training main step
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -45,7 +46,27 @@ against its plain PyTorch version.
    finite, in [-1, 1], above 25 dB PSNR from the float forward, and within
    1e-5 of the same int8 forward through the plain versions (every int8
    operand and statistic equal; only the head's sum order differs).
-6. Last lines: the card, the ``{"kernels": [...]}`` line, then
+6. ``train``: AdaINModel's training main path at the JAX package's
+   flagship training config (``bench.py``: 256px, dim 64, latent 8, 4
+   domains, batch 8 per side, bf16, the content discriminator with d_iter
+   3, the reference GAN step, ``--fused_resblock auto``). Kernels 9 and 10
+   (``resblock_fwd``/``resblock_bwd``) are first held against their plain
+   versions at the step's shapes, (16, 256, 64, 64) and (32, 256, 64, 64)
+   bf16, within 2e-2 of each tensor's largest magnitude, and timed beside
+   their bound (bf16 operations over the 989 TFLOP/s dense peak), the plain
+   version and the port's composed block (cuDNN bf16 convs, the AdaIN
+   kernel, torch elementwise; its autograd for the backward). A small f32
+   main step on the card must match the same step on the CPU (losses within
+   1e-4, at most 1 % of params beyond 0.1 lr). Then a warm-up main step,
+   three timed main steps and a timed d_iter cycle (main + 2 content
+   steps), with the counts set to 0 before and read after: every main step
+   launches kernel 9 32 times and kernel 10 24 times. Losses must be finite,
+   the main steps must move every net but the content discriminator, the
+   cycle every net; the same first step with ``--fused_resblock off`` from
+   the same weights and draws must give losses within 3 %. Prints main-step
+   it/s, schedule img/s (2 x batch per iteration), seconds per step and
+   peak device memory.
+7. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -64,13 +85,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from masterthesis_tpu_torch.arguments import default_test_args
+from masterthesis_tpu_torch.arguments import default_test_args, default_train_args
 from masterthesis_tpu_torch.models import AdaINModel
+from masterthesis_tpu_torch.models.translation import StepDraws
+from masterthesis_tpu_torch.ops import norms
 from masterthesis_tpu_torch.ops.kernels import adain as kadain
 from masterthesis_tpu_torch.ops.kernels import build
 from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
+from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, published
@@ -110,6 +134,33 @@ INT8_PER_FORWARD = {"int8_downconv": 2, "int8_resblock": 8, "int8_deconv": 2, "h
 FLIP_SHARE, FLIP_MAX = 0.05, 2e-2
 HEAD_TOL = 1e-5
 PSNR_MIN_DB = 25.0  # the JAX package's own bar, tests/test_int8_serving.py
+# training: AdaINModel's main step at the JAX package's flagship training
+# config (bench.py:180-185), with the reference GAN step and the whole-block
+# resblock kernels on the card
+BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense, published
+TRAIN_ARGS = dict(crop_size=256, dim=64, latent_dim=8, num_domains=4, batch_size=B,
+                  compute_dtype="bfloat16", use_dis_content=True, d_iter=3, gan_mode="vanilla",
+                  gan_step="reference", fused_resblock="auto", seed=0)
+SMALL_TRAIN_ARGS = dict(crop_size=32, dim=32, latent_dim=4, num_domains=3, batch_size=2,
+                        use_dis_content=True, dis_content_layers=1, dis_content_final_kernel=2,
+                        compute_dtype="float32", seed=0)
+# (NCHW shape, calls per main step): 2B images through the encoder's blocks
+# (D fakes, G1 twice, G2: 16 calls) and G1's cycle and G2's decodes (8); 4B
+# through the D fakes' and G1's first decode (8). Backward: G1 and G2 only.
+RESBLOCK_FWD_SHAPES = [((2 * B, 256, 64, 64), 24), ((4 * B, 256, 64, 64), 8)]
+RESBLOCK_BWD_SHAPES = [((2 * B, 256, 64, 64), 20), ((4 * B, 256, 64, 64), 4)]
+FUSED_PER_STEP = {"resblock_fwd": 32, "resblock_bwd": 24}
+# kernel against plain version in bf16: a conv sum in another order can round
+# an h or dgrad value to the neighbouring bf16 value, which the next conv
+# carries on; relative to each tensor's largest magnitude
+RESBLOCK_TOL = 2e-2
+TRAIN_LOSS_TOL = 0.03  # fused against composed: the JAX package's own bar
+# the small f32 step on the card against the CPU: the CPU tests' loss bound;
+# params may differ by Adam steps of another sign where a decayed gradient is
+# near 0: the G phases' f32 gradients carry noise of about 1 % (the cycle
+# term, tests/torch_train_steps.py), and two CPU paths of the same step
+# (--fused_resblock on against off) leave 1.0e-3 of the params beyond 0.1 lr
+TRAIN_CPU_LOSS_TOL, TRAIN_CPU_FLIP_SHARE = 1e-4, 1e-2
 
 
 def log(obj) -> None:
@@ -222,13 +273,14 @@ def check_adain(name: str, dtype: torch.dtype) -> dict:
                      "masterthesis_tpu_torch/csrc/adain.cu", None)
 
 
-def summarize(kernel, dtype_name, rows, replaces, source, library, name=None) -> dict:
-    """Per-kernel, per-dtype entry; times are per forward: each shape's time
-    per call times the calls a forward makes at that shape."""
+def summarize(kernel, dtype_name, rows, replaces, source, library, name=None,
+              per="forward at B=8, 256px, dim 64", count="per_forward") -> dict:
+    """Per-kernel, per-dtype entry; times are per forward (or per main step):
+    each shape's time per call times the calls a forward makes at that shape."""
     def per_forward(key):
         if any(r.get(key) is None for r in rows):
             return None
-        return sum(r[key] * r["per_forward"] for r in rows)
+        return sum(r[key] * r[count] for r in rows)
 
     detail = dict(kernel=kernel, dtype=dtype_name, library=library, shapes=rows)
     log(detail)
@@ -237,7 +289,7 @@ def summarize(kernel, dtype_name, rows, replaces, source, library, name=None) ->
         launches=None, max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
         bound_ms=per_forward("bound_ms"), bound_by=rows[0]["bound_by"],
-        library_ms=per_forward("library_ms"), per="forward at B=8, 256px, dim 64",
+        library_ms=per_forward("library_ms"), per=per,
     )
     if "bf16_cudnn_ms" in rows[0]:
         entry["bf16_cudnn_ms"] = per_forward("bf16_cudnn_ms")
@@ -395,6 +447,96 @@ def check_head() -> dict:
         ))
     return summarize("head", "f32", rows, "masterthesis_tpu/ops/pallas/conv_int8.py:1429",
                      "masterthesis_tpu_torch/csrc/head.cu", None, name="head")
+
+
+# ------------------------------------------------------ training resblock --
+
+
+def _resblock_set(shape, seed):
+    b, c, h, w = shape
+    return (_randn(shape, torch.bfloat16, seed), _card_weight((c, c, 3, 3), seed + 1, 0.03),
+            _card_weight((c, c, 3, 3), seed + 2, 0.03), _card_weight((b, c), seed + 3, 0.3),
+            _card_weight((b, c), seed + 4, 0.3), _randn(shape, torch.bfloat16, seed + 5))
+
+
+def composed_block(x, w1, w2, gamma, beta):
+    """The port's composed path for the same block, as AdaINResnetBlock runs
+    it with ``--fused_resblock off``: reflect pad and cuDNN bf16 convs, the
+    AdaIN kernel, torch relu and residual."""
+    h = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), w1.to(x.dtype))
+    h = F.relu(norms.adain(h, gamma, beta))
+    h = F.conv2d(F.pad(h, (1, 1, 1, 1), mode="reflect"), w2.to(x.dtype))
+    return x + norms.adain(h, gamma, beta)
+
+
+def _composed_fwd_bwd(x, w1, w2, gamma, beta, g):
+    leaves = [t.detach().requires_grad_() for t in (x, w1, w2, gamma, beta)]
+    return torch.autograd.grad(composed_block(*leaves), leaves, g)
+
+
+def _rel_err(got, want) -> float:
+    """Largest error over the tensors, each relative to its largest |value|."""
+    return max((a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-12)
+               for a, b in zip(got, want))
+
+
+def check_resblock(kind: str) -> dict:
+    """Kernel 9 (``kind`` "fwd") or 10 ("bwd") at the main step's shapes, bf16,
+    with random (gamma, beta) as in an AdaIN block."""
+    fwd = kind == "fwd"
+    rows = []
+    for i, (shape, per_step) in enumerate(RESBLOCK_FWD_SHAPES if fwd else RESBLOCK_BWD_SHAPES):
+        b, c, h, w = shape
+        numel = math.prod(shape)
+        sets = [_resblock_set(shape, 900 + 10 * i + j)
+                for j in range(max(2, math.ceil(3 * L2_BYTES / (numel * 2 * (2 if fwd else 4)))))]
+        # the backward's inputs: each set with its forward's residuals
+        sets = [s + tuple(krb.resblock_fwd(*s[:5])[1:]) for s in sets]
+        x, w1, w2, gamma, beta, g, h1, h2, stats = sets[0]
+        if fwd:
+            got = krb.resblock_fwd(x, w1, w2, gamma, beta)
+            ref = krb.resblock_fwd_plain(x, w1, w2, gamma, beta)
+        else:
+            got = krb.resblock_bwd(x, h1, h2, g, stats, w1, w2, gamma, beta)
+            ref = krb.resblock_bwd_plain(x, h1, h2, g, stats, w1, w2, gamma, beta)
+        torch.cuda.synchronize()
+        err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+        rel = _rel_err(got, ref)
+        assert rel <= RESBLOCK_TOL, f"resblock {kind} {shape}: relative error {rel} > {RESBLOCK_TOL}"
+        conv_flops = 2 * b * h * w * 9 * c * c
+        wbytes, sbytes = 9 * c * c * 4, b * c * 4
+        if fwd:  # x, w1, w2, gamma, beta in; out, h1, h2, stats out
+            flops, nbytes = 2 * conv_flops, 2 * numel * 4 + 2 * wbytes + 2 * sbytes + 4 * sbytes
+            ms = device_ms(lambda *t: krb.resblock_fwd(*t[:5]), sets)
+            plain_ms = device_ms(lambda *t: krb.resblock_fwd_plain(*t[:5]), sets, iters=3)
+            library_ms = device_ms(lambda *t: composed_block(*t[:5]), sets)
+            extra = {}
+        else:  # x, h1, h2, g, stats, w1, w2, gamma, beta in; dx, dw1, dw2, dgamma, dbeta out
+            flops = 4 * conv_flops
+            nbytes = 2 * numel * 5 + 4 * sbytes + 4 * wbytes + 4 * sbytes
+            args = lambda t: (t[0], t[6], t[7], t[5], t[8], t[1], t[2], t[3], t[4])  # noqa: E731
+            ms = device_ms(lambda *t: krb.resblock_bwd(*args(t)), sets)
+            plain_ms = device_ms(lambda *t: krb.resblock_bwd_plain(*args(t)), sets, iters=3)
+            both = device_ms(lambda *t: _composed_fwd_bwd(*t[:6]), sets)
+            extra = dict(library_fwd_bwd_ms=both)
+            library_ms = both - device_ms(lambda *t: composed_block(*t[:5]), sets)
+        b_ms, by = bound(nbytes, flops, BF16_FLOPS)
+        rows.append(dict(
+            shape=list(shape), per_step=per_step, max_abs_err=err, max_rel_err=rel,
+            tol=dict(relative=RESBLOCK_TOL), flops=flops, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=by,
+            cuda_launches_per_call=7 if fwd else 13, **extra,
+        ))
+        del sets
+        torch.cuda.empty_cache()
+    name = f"resblock_{kind}"
+    return summarize(name, "bf16", rows,
+                     "masterthesis_tpu/ops/pallas/resblock_bf16.py:" + ("309" if fwd else "568"),
+                     "masterthesis_tpu_torch/csrc/resblock_bf16.cu",
+                     "the port's composed block (--fused_resblock off): cuDNN bf16 convs, "
+                     "the AdaIN kernel, torch elementwise" + ("" if fwd else "; autograd"),
+                     name=name, per="main step at batch 8 per side, 256px, dim 64, bf16",
+                     count="per_step")
 
 
 PLAIN = [
@@ -614,6 +756,172 @@ def serve(dtype_name: str, card: str) -> tuple[int, int]:
     return launches
 
 
+# ---------------------------------------------------------------- training --
+
+
+def train_batch(args, seed):
+    """A seeded batch of B images per side, NHWC in [-1, 1], one-hot labels."""
+    rng = np.random.default_rng(seed)
+    size, k, b = args["crop_size"], args["num_domains"], args["batch_size"]
+    y = np.eye(k, dtype=np.float32)
+    host = dict(x1=rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32),
+                x2=rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32),
+                y1=y[rng.integers(0, k, b)], y2=y[rng.integers(0, k, b)])
+    return host, {k_: torch.from_numpy(v).cuda() for k_, v in host.items()}
+
+
+def fused_counts() -> dict:
+    return {"resblock_fwd": krb.resblock_fwd.launches, "resblock_bwd": krb.resblock_bwd.launches}
+
+
+def _floats(logs) -> dict:
+    return {k: float(v) for k, v in logs.items()}
+
+
+def _snapshot(model) -> dict:
+    return {n: [p.detach().clone() for p in net.parameters()] for n, net in model.nets.items()}
+
+
+def _changed(model, before) -> dict:
+    """Per net: whether every parameter tensor moved."""
+    return {n: all(not torch.equal(p, q) for p, q in zip(net.parameters(), before[n]))
+            for n, net in model.nets.items()}
+
+
+def _timed_step(model, batch, it):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = model.optimize_parameters(batch, it)
+    torch.cuda.synchronize()
+    return _floats(logs), time.perf_counter() - t0
+
+
+def check_small_train_against_cpu() -> None:
+    """One f32 main step at the CPU tests' size on the card (kernels 9/10)
+    against the same step on the CPU (their plain versions), from the same
+    weights, batch and styles, without noise."""
+    host, dev = train_batch(SMALL_TRAIN_ARGS, seed=21)
+    rng = np.random.default_rng(22)
+    z = [rng.standard_normal((2, 4)).astype(np.float32) for _ in range(2)]
+    card = AdaINModel(default_train_args(fused_resblock="auto", **SMALL_TRAIN_ARGS))
+    cpu = AdaINModel(default_train_args(fused_resblock="on", **SMALL_TRAIN_ARGS), device="cpu")
+    before = fused_counts()
+    on_card = _floats(card.main_step(dev, StepDraws(z_sr=torch.from_numpy(z[0]).cuda(),
+                                                    z_sr2=torch.from_numpy(z[1]).cuda())))
+    delta = {k: v - before[k] for k, v in fused_counts().items()}
+    assert delta == FUSED_PER_STEP, f"small train step launches {delta}"
+    on_cpu = _floats(cpu.main_step(host, StepDraws(z_sr=torch.from_numpy(z[0]),
+                                                   z_sr2=torch.from_numpy(z[1]))))
+    loss_err = max(abs(on_card[k] - v) / max(abs(v), 1e-6) for k, v in on_cpu.items())
+    lr = on_cpu["lr"]
+    diffs = torch.cat([(p.detach().cpu() - q.detach()).abs().flatten()
+                       for n in cpu.nets for p, q in zip(card.nets[n].parameters(),
+                                                         cpu.nets[n].parameters())])
+    share = (diffs > 0.1 * lr).float().mean().item()
+    log(dict(phase="card_vs_cpu", dtype="f32 train step", max_rel_loss_err=loss_err,
+             param_share_beyond_0_1_lr=share, max_param_diff_in_lr=diffs.max().item() / lr,
+             tol=dict(loss=TRAIN_CPU_LOSS_TOL, share=TRAIN_CPU_FLIP_SHARE), launches=delta))
+    assert loss_err <= TRAIN_CPU_LOSS_TOL, f"train step card vs CPU: losses {loss_err}"
+    assert share <= TRAIN_CPU_FLIP_SHARE, f"train step card vs CPU: params {share}"
+
+
+def train(card: str) -> dict:
+    """The training main path at the flagship config: a warm-up main step,
+    three timed main steps, one timed d_iter cycle (main + 2 content steps);
+    then the same first step composed (``--fused_resblock off``) from the same
+    weights and draws. Returns the kernel 9/10 launches over the timed run."""
+    args = default_train_args(**TRAIN_ARGS)
+    _, batch = train_batch(TRAIN_ARGS, seed=31)
+    model = AdaINModel(args)
+    model.generator.manual_seed(1)
+    first, first_s = _timed_step(model, batch, 0)  # warm-up: cuDNN picks its algorithms
+
+    krb.resblock_fwd.launches = krb.resblock_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    before = _snapshot(model)
+    main_s, steps = [], []
+    for it in (3, 6, 9):
+        counts0 = fused_counts()
+        logs, secs = _timed_step(model, batch, it)
+        delta = {k: v - counts0[k] for k, v in fused_counts().items()}
+        assert delta == FUSED_PER_STEP, f"kernel 9/10 launches per main step {delta}"
+        main_s.append(secs)
+        steps.append(logs)
+    changed = _changed(model, before)
+    want = {n: n != "content_discriminator" for n in model.nets}
+    assert changed == want, f"main steps changed {changed}, expected {want}"
+    before = _snapshot(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cycle = [model.optimize_parameters(batch, it) for it in (12, 13, 14)]
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    assert set(cycle[1]) == set(cycle[2]) == {"d_content_cls"}
+    assert all(_changed(model, before).values()), "a d_iter cycle must move every net"
+    launched = fused_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1024**3
+    for logs in [first, *steps, *map(_floats, cycle)]:
+        bad = [k for k, v in logs.items() if not math.isfinite(v)]
+        assert not bad, f"non-finite losses {bad}"
+    del model
+    torch.cuda.empty_cache()
+
+    off = AdaINModel(default_train_args(**{**TRAIN_ARGS, "fused_resblock": "off"}))
+    off.generator.manual_seed(1)
+    counts0 = fused_counts()
+    composed, composed_first_s = _timed_step(off, batch, 0)
+    _, composed_s = _timed_step(off, batch, 3)
+    assert fused_counts() == counts0, "the composed step launched kernel 9 or 10"
+    gap = {k: abs(first[k] - v) / max(abs(v), 1.0) for k, v in composed.items()}
+    worst = max(gap, key=gap.get)
+    del off
+    torch.cuda.empty_cache()
+    log(dict(
+        phase="train", card=card, config={k: v for k, v in TRAIN_ARGS.items() if k != "seed"},
+        images_per_side=B, main_step_s=main_s, main_it_per_s=len(main_s) / sum(main_s),
+        cycle_s=cycle_s, schedule_img_per_s=3 * 2 * B / cycle_s, first_step_s=first_s,
+        composed_first_step_s=composed_first_s, composed_step_s=composed_s,
+        peak_memory_allocated_gb=peak_gb, launches=launched,
+        per_main_step=FUSED_PER_STEP, first_step_losses=first,
+        fused_vs_composed=dict(worst=worst, rel_gap=gap[worst], tol=TRAIN_LOSS_TOL),
+    ))
+    assert gap[worst] <= TRAIN_LOSS_TOL, f"fused vs composed {worst}: {gap[worst]}"
+    return launched
+
+
+def profile_train() -> None:
+    """Device time by kernel over one main step (``--profile``)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    model = AdaINModel(default_train_args(**TRAIN_ARGS))
+    _, batch = train_batch(TRAIN_ARGS, seed=31)
+    model.optimize_parameters(batch, 0)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, seconds = _timed_step(model, batch, 3)
+    _log_profile(prof, "train main step", seconds, 25)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _log_profile(prof, what, seconds, top_n=15) -> None:
+    rows = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows[e.key] = rows.get(e.key, 0.0) + us / 1e3
+    total = sum(rows.values())
+    top = sorted(rows.items(), key=lambda kv: -kv[1])[:top_n]
+    # one stream, so kernel times do not overlap; the profiler's own host
+    # overhead lengthens the wall time, so the idle share is an upper bound
+    log(dict(phase="profile", dtype=what, request_s=seconds, device_ms_total=total,
+             device_idle_share=1.0 - total / (seconds * 1e3),
+             top_kernels_ms=[[k[:90], v] for k, v in top]))
+
+
 def profile(dtype_name: str, int8: bool = False) -> None:
     """Device time by kernel over one forward_random (``--profile``)."""
     from torch.profiler import ProfilerActivity
@@ -627,20 +935,7 @@ def profile(dtype_name: str, int8: bool = False) -> None:
     model.forward_random(dev["img"], dev["z"], dev["c"])
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, seconds, _ = model.forward_random(dev["img"], dev["z"], dev["c"])
-    rows = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            rows[e.key] = rows.get(e.key, 0.0) + us / 1e3
-    total = sum(rows.values())
-    top = sorted(rows.items(), key=lambda kv: -kv[1])[:15]
-    # one stream, so kernel times do not overlap; the profiler's own host
-    # overhead lengthens request_s, so the idle share is an upper bound
-    log(dict(phase="profile", dtype="int8" if int8 else dtype_name, request_s=seconds,
-             device_ms_total=total, device_idle_share=1.0 - total / (seconds * 1e3),
-             top_kernels_ms=[[k[:90], v] for k, v in top]))
+    _log_profile(prof, "int8" if int8 else dtype_name, seconds)
 
 
 def main(argv) -> int:
@@ -672,9 +967,11 @@ def main(argv) -> int:
     int8_entries = [check_int8_conv("down"), check_int8_resblock(), check_int8_conv("deconv"),
                     check_head()]
     torch.cuda.empty_cache()
+    train_entries = [check_resblock("fwd"), check_resblock("bwd")]
     for dtype_name in DTYPES:
         check_small_against_cpu(dtype_name)
     check_small_int8_against_cpu()
+    check_small_train_against_cpu()
     for dtype_name in DTYPES:
         m, a = serve(dtype_name, card)
         for e in entries:
@@ -686,10 +983,15 @@ def main(argv) -> int:
     for e in int8_entries:
         e["launches"] = launched[e["name"]]
     entries += int8_entries
+    launched = train(card)
+    for e in train_entries:
+        e["launches"] = launched[e["name"]]
+    entries += train_entries
     if "--profile" in argv:
         for dtype_name in DTYPES:
             profile(dtype_name)
         profile("f32", int8=True)
+        profile_train()
     for e in entries:
         assert e["launches"], f"{e['name']} was not launched on the main path"
 

@@ -2,11 +2,17 @@
 
 The port's own copy of the JAX package's ``default_train_args`` /
 ``default_test_args`` and the parsers they read, so that a configuration
-means the same in both packages. The port serves inference only: of these
-flags it reads the model's shape (``dim``, ``latent_dim``, ``num_domains``,
-``input_dim``, ``crop_size``), ``enc_norm``/``dec_norm``/``up_type``,
-``compute_dtype``, ``init_type``/``init_gain`` and ``seed``; the rest are
-kept so that one namespace drives either package.
+means the same in both packages. The port reads the model's shape (``dim``,
+``latent_dim``, ``num_domains``, ``input_dim``, ``crop_size``),
+``enc_norm``/``dec_norm``/``up_type``, ``compute_dtype``,
+``init_type``/``init_gain`` and ``seed``, and for training the optimizer,
+schedule and loss flags, ``use_dis_content``/``d_iter``, the discriminators'
+shapes and ``fused_resblock`` ("auto": the whole-block resblock kernels on
+the card; "off"; tests also set "on", which routes CPU tensors through the
+kernels' plain versions, as the JAX package's tests set "interpret"). A
+training flag that selects a branch the port lacks raises
+``NotImplementedError`` when the model is built; the rest are kept so that
+one namespace drives either package.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """AdaINModel: style injected by AdaIN in the decoder's residual blocks.
 
-The generators of ``masterthesis_tpu/models/adain_model.py`` (inference
-only: no discriminators).
+The port of ``masterthesis_tpu/models/adain_model.py``: the generators and,
+for training, two discriminators and the content discriminator.
 """
 from __future__ import annotations
 
@@ -31,6 +31,21 @@ class AdaINModel(TranslationModel):
             num_domains=a.num_domains, latent_dim=a.latent_dim, up_type=a.up_type,
             norm=a.dec_norm, dtype=dtype,
         )
+        if self.is_train():
+            self._check_train_flags()
+            self.nets.discriminator1, self.nets.discriminator2 = (networks.Discriminator(
+                a.input_dim, dim=a.dim, norm=a.dis_norm, num_domains=a.num_domains,
+                image_size=a.crop_size, n_layers=a.dis_n_layers or 6, dtype=dtype,
+            ) for _ in range(2))
+            if a.use_dis_content:
+                self.nets.content_discriminator = networks.ContentDiscriminator(
+                    self.nets.content_encoder.output_dim, dim=self.nets.content_encoder.output_dim,
+                    num_domains=a.num_domains, n_layers=a.dis_content_layers or 3,
+                    kernel_size=a.dis_content_kernel or 7,
+                    final_kernel=a.dis_content_final_kernel or 4, dtype=dtype,
+                )
         for net in self.nets.values():
-            net.requires_grad_(False).to(self.device)
+            net.to(self.device)
+            if not self.is_train():
+                net.requires_grad_(False)
         self.initialize()

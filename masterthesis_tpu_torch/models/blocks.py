@@ -1,4 +1,4 @@
-"""Conv blocks on the AdaINModel inference path (NCHW).
+"""Conv blocks of AdaINModel and its discriminators (NCHW).
 
 The float branches of ``masterthesis_tpu/models/blocks.py``. Module and
 attribute names follow the Flax names, so a state_dict key reads like the
@@ -19,6 +19,16 @@ LayerNorm through ``ops/kernels/head.py``. A block that gets ``defer_norm``
 returns ``(y, pending)``: its norm and activation as a per-(sample, channel)
 affine ``{"scale", "shift", "relu", "alpha"}`` that the next conv applies in
 its quantize prologue.
+
+Training. Inside ``resblock_train.fused_train_trace`` (the main training
+step), a ``ResnetBlock`` with instance norm and relu, or an
+``AdaINResnetBlock`` with relu or no activation, whose input passes the JAX
+package's gate (``resblock_train_eligible``: C % 128 == 0, H, W >= 8, a byte
+cap) runs as one differentiable whole-block op, kernels 9 and 10
+(``ops/kernels/resblock_train.py``), as ``blocks.py`` ``_fused_train`` of the
+JAX package does; the same blocks route there, so the two packages compare
+like with like. Elsewhere the blocks compose, and autograd goes through the
+norms' Functions.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from torch import nn
 from masterthesis_tpu_torch.ops import norms
 from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kint8
+from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
 from masterthesis_tpu_torch.ops.norms import AdaptiveInstanceNorm, InstanceNorm, LayerNorm
 
 ACTIVATIONS = {
@@ -55,6 +66,11 @@ def pad2d(x: torch.Tensor, pad: int, padding_type: Optional[str]) -> torch.Tenso
         return x
     if padding_type not in ("reflect", "replicate"):
         raise NotImplementedError(f"padding type '{padding_type}' is not supported at the moment")
+    if padding_type == "reflect" and pad == 1 and 1 in x.shape[2:]:
+        # jnp.pad reflects an axis of one value into copies of it (a small
+        # discriminator's last maps); torch refuses, so that axis replicates
+        h_mode, w_mode = ("replicate" if n == 1 else "reflect" for n in x.shape[2:])
+        return F.pad(F.pad(x, (0, 0, 1, 1), mode=h_mode), (1, 1, 0, 0), mode=w_mode)
     return F.pad(x, (pad, pad, pad, pad), mode=padding_type)
 
 
@@ -354,6 +370,12 @@ class DownResnetBlock(nn.Module):
         return h + s
 
 
+def _fused_train(x: torch.Tensor, padding_type: Optional[str]) -> bool:
+    """The JAX package's routing of a training resblock to the whole-block op."""
+    return (krb.fused_train_active(x) and padding_type in ("reflect", "zero", None)
+            and krb.resblock_train_eligible(x))
+
+
 class ResnetBlock(nn.Module):
     """conv -> norm -> act -> conv -> norm, plus the input."""
 
@@ -365,12 +387,18 @@ class ResnetBlock(nn.Module):
                                padding_type=padding_type, dtype=dtype)
         self.conv2 = ConvBlock(features, features, 3, 1, 1, norm=norm,
                                padding_type=padding_type, dtype=dtype)
-        self.int8_ok = norm == "instance" and activation == "relu"
+        self.padding_type, self.dtype = padding_type, dtype
+        self.fusible = norm == "instance" and activation == "relu"
 
     def forward(self, x):
-        if self.int8_ok and self.conv1.conv.int8 and self.conv2.conv.int8:
+        if self.fusible and self.conv1.conv.int8 and self.conv2.conv.int8:
             zero = torch.zeros(x.shape[:2], device=x.device, dtype=torch.float32)
             return kint8.resblock(x, self.conv1.conv.quant(), self.conv2.conv.quant(), zero, zero)
+        if self.fusible and _fused_train(x, self.padding_type):
+            # instance norm: the block's affine is gamma = beta = 0
+            zero = torch.zeros(x.shape[:2], device=x.device, dtype=torch.float32)
+            return krb.fused_resblock(x.to(self.dtype), self.conv1.conv.weight,
+                                      self.conv2.conv.weight, zero, zero, self.padding_type)
         return x + self.conv2(self.conv1(x))
 
 
@@ -382,19 +410,29 @@ class AdaINResnetBlock(nn.Module):
                  activation: Optional[str] = "relu", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.adain = AdaptiveInstanceNorm(features, style_dim, dtype=dtype)
-        self.activation = activation
+        self.activation, self.padding_type, self.dtype = activation, padding_type, dtype
         self.act = get_activation(activation)
         self.conv1 = ConvBlock(features, features, 3, 1, 1, padding_type=padding_type, dtype=dtype)
         self.conv2 = ConvBlock(features, features, 3, 1, 1, padding_type=padding_type, dtype=dtype)
 
+    def _style_affine(self, z):
+        """(gamma, beta) of the shared style projection in f32, matmul then
+        bias as in JAX."""
+        p = self.adain.style_proj
+        h = z.float() @ p.weight.float().t() + p.bias.float()
+        return (t.contiguous() for t in h.chunk(2, dim=-1))
+
     def forward(self, x, z):
-        if self.activation in ("relu", None) and self.conv1.conv.int8 and self.conv2.conv.int8:
-            # the shared style projection in f32, matmul then bias as in JAX
-            p = self.adain.style_proj
-            h = z.float() @ p.weight.float().t() + p.bias.float()
-            gamma, beta = (t.contiguous() for t in h.chunk(2, dim=-1))
+        fusible = self.activation in ("relu", None)
+        if fusible and self.conv1.conv.int8 and self.conv2.conv.int8:
+            gamma, beta = self._style_affine(z)
             return kint8.resblock(x, self.conv1.conv.quant(), self.conv2.conv.quant(),
                                   gamma, beta, relu_mid=self.activation == "relu")
+        if fusible and _fused_train(x, self.padding_type):
+            gamma, beta = self._style_affine(z)
+            return krb.fused_resblock(x.to(self.dtype), self.conv1.conv.weight,
+                                      self.conv2.conv.weight, gamma, beta, self.padding_type,
+                                      relu_mid=self.activation == "relu")
         h = self.act(self.adain(self.conv1(x), z))
         # no activation after the second AdaIN
         h = self.adain(self.conv2(h), z)
@@ -402,8 +440,8 @@ class AdaINResnetBlock(nn.Module):
 
 
 class GaussianNoise(nn.Module):
-    """Additive noise while training; the identity at inference, which is
-    all the port runs."""
+    """Adds ``noise``, a standard normal draw of x's shape that the caller
+    makes while training, in x's dtype; the identity without one."""
 
-    def forward(self, x):
-        return x
+    def forward(self, x, noise: Optional[torch.Tensor] = None):
+        return x if noise is None else x + noise.to(x.dtype)

@@ -1,9 +1,13 @@
-"""Abstract model: the net registry, its device and its weights.
+"""Abstract model: the net registry, its device, its weights and, for
+training, its optimizer state.
 
-The inference subset of ``masterthesis_tpu/models/model.py``: nets are
-``nn.Module``s on one device, built with the JAX package's init scheme from
-a seeded ``torch.Generator`` (:meth:`Model.initialize`) or loaded from
-converted JAX params (:meth:`Model.load_params`, ``tools/convert_jax.py``).
+The port of ``masterthesis_tpu/models/model.py``: nets are ``nn.Module``s on
+one device, built with the JAX package's init scheme from a seeded
+``torch.Generator`` (:meth:`Model.initialize`) or loaded from converted JAX
+params (:meth:`Model.load_params`, ``tools/convert_jax.py``). A training
+model (``args.mode`` "train") also holds a :class:`TrainState` (the global
+step and each net's Adam moments), the lr schedule, and a generator on its
+device from which its training steps draw.
 """
 from __future__ import annotations
 
@@ -11,9 +15,8 @@ import torch
 from torch import nn
 
 from masterthesis_tpu_torch.arguments import AttributeDict
-from masterthesis_tpu_torch.models.blocks import Conv2d, ConvTranspose2d
-from masterthesis_tpu_torch.ops.initializers import conv_kernel, uniform_fan_in
-from masterthesis_tpu_torch.ops.norms import LayerNorm
+from masterthesis_tpu_torch.models.functions import init_net, make_lr_schedule
+from masterthesis_tpu_torch.models.state import AdamState, TrainState
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,24 +31,6 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-@torch.no_grad()
-def init_net(net: nn.Module, generator: torch.Generator, init_type=None,
-             init_gain: float = 0.02) -> None:
-    """Draw every parameter of ``net`` by the JAX package's scheme, in module order."""
-    for m in net.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d)):
-            m.weight.copy_(conv_kernel(m.weight.shape, m.fan_in, generator, init_type, init_gain))
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.Linear):
-            m.weight.copy_(uniform_fan_in(m.weight.shape, m.in_features, generator))
-            if m.bias is not None:
-                m.bias.copy_(uniform_fan_in(m.bias.shape, m.in_features, generator))
-        elif isinstance(m, LayerNorm) and m.scale is not None:
-            m.scale.fill_(1.0)
-            m.bias.zero_()
-
-
 class Model:
     """Base model: nets by name on ``self.device``."""
 
@@ -53,9 +38,20 @@ class Model:
         self.args = args
         self.device = resolve_device(device)
         self.nets: dict[str, nn.Module] = AttributeDict()
+        self.state: TrainState | None = None
+        self.generator: torch.Generator | None = None
+        self.schedule = make_lr_schedule(
+            lr=args.lr or 1e-4, lr_policy=args.lr_policy or "step",
+            n_iters=args.n_iters or 1_000_000, n_iter_decay=args.n_iter_decay or 600_000,
+        )
+
+    def is_train(self) -> bool:
+        return "train" in (self.args.mode or "train")
 
     def initialize(self, seed=None) -> None:
-        """Seeded init of every net (``args.seed`` unless ``seed`` is given)."""
+        """Seeded init of every net (``args.seed`` unless ``seed`` is given);
+        for training also fresh optimizer state at step 0 and the step's
+        generator, on the model's device, seeded likewise."""
         a = self.args
         if seed is None:
             seed = getattr(a, "seed", None) or 0
@@ -64,6 +60,22 @@ class Model:
         init_gain = float(getattr(a, "init_gain", None) or 0.02)
         for net in self.nets.values():
             init_net(net, g, init_type, init_gain)
+        if self.is_train():
+            self.state = TrainState(0, {
+                name: AdamState.zeros(net.parameters()) for name, net in self.nets.items()
+            })
+            self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def optimizer_config(self, name: str) -> dict:
+        """Adam's settings for net ``name``: the content discriminator's
+        gradients are clipped to global norm 5, as in the JAX package."""
+        a = self.args
+        return dict(
+            beta1=0.5 if a.beta1 is None else float(a.beta1),
+            beta2=0.999 if a.beta2 is None else float(a.beta2),
+            weight_decay=1e-4 if a.wd is None else float(a.wd),
+            clip_norm=5.0 if name == "content_discriminator" else None,
+        )
 
     def load_params(self, state_dicts: dict) -> None:
         """Load one state_dict per net; every net and every key must be there."""

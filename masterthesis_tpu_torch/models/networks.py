@@ -1,9 +1,11 @@
-"""The nets of AdaINModel's inference path (NCHW).
+"""The nets of AdaINModel (NCHW).
 
 Ports of ``masterthesis_tpu/models/networks.py``: ``ContentEncoder``,
 ``ReparameterizedStyleEncoder``, ``_StyleMLP``, ``_DecoderTail`` and
-``AdaINDecoder``, with the Flax child names (``stem``, ``down0``, ``res0``,
-``linear.fc0``, ``dec1_0``, ``dec2.up0``, ``dec2.head``).
+``AdaINDecoder``, and for training ``Discriminator`` and
+``ContentDiscriminator``, with the Flax child names (``stem``, ``down0``,
+``res0``, ``linear.fc0``, ``dec1_0``, ``dec2.up0``, ``dec2.head``,
+``layer0``, ``patch_head``, ``cls_head``, ``head``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from torch import nn
 
 from masterthesis_tpu_torch.models.blocks import (
     AdaINResnetBlock,
+    Conv2d,
     ConvBlock,
     Dense,
     DownResnetBlock,
@@ -55,11 +58,19 @@ class ContentEncoder(nn.Module):
             setattr(self, f"res{i}", ResnetBlock(d, norm=norm, activation="relu", dtype=dtype))
         self.noise = GaussianNoise()
 
-    def forward(self, x, serving: bool = False):
+    def code_shape(self, x_shape) -> tuple[int, int, int, int]:
+        """The NCHW shape of the content code of an NCHW input shape."""
+        n, _, h, w = x_shape
+        for _ in range(self.num_downs):
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        return n, self.output_dim, h, w
+
+    def forward(self, x, serving: bool = False, noise: Optional[torch.Tensor] = None):
         """``serving``: the int8 chain. The stem and the downs defer their
         instance norm and activation into the next down conv's quantize
         prologue, with the downs' statistics from their kernels; the last
-        down's is applied inline before the resblocks."""
+        down's is applied inline before the resblocks. ``noise``: the training
+        noise on the code (:meth:`code_shape`), or None."""
         h, pending = split_pending(self.stem(x, defer_norm=serving))
         for i in range(self.num_downs):
             h, pending = split_pending(getattr(self, f"down{i}")(h, pending, defer_norm=serving))
@@ -67,7 +78,7 @@ class ContentEncoder(nn.Module):
             h = apply_pending(h, pending, h.dtype)
         for i in range(self.n_blocks):
             h = getattr(self, f"res{i}")(h)
-        return self.noise(h)
+        return self.noise(h, noise)
 
 
 class ReparameterizedStyleEncoder(nn.Module):
@@ -178,3 +189,64 @@ class AdaINDecoder(nn.Module):
         for i in range(self.n_blocks):
             h = getattr(self, f"dec1_{i}")(h, style)
         return self.dec2(h)
+
+
+class Discriminator(nn.Module):
+    """PatchGAN discriminator with a domain classifier; returns
+    (patch logits (N, 1, h, w), class logits (N, num_domains)).
+
+    ``n_layers`` stride-2 3x3 convs (the last without a norm), then a 1x1
+    patch head with zero padding 1 and no bias, and a class head whose kernel
+    covers the remaining map (``image_size / 2**n_layers``), averaged."""
+
+    def __init__(self, input_dim: int = 3, dim: int = 64, n_layers: int = 6,
+                 num_domains: int = 2, norm: Optional[str] = None, activation: str = "lrelu",
+                 padding_type: str = "reflect", use_bias: bool = True, image_size: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        common = dict(use_bias=use_bias, activation=activation, padding_type=padding_type,
+                      dtype=dtype)
+        d = dim
+        self.layer0 = ConvBlock(input_dim, d, 3, 2, 1, norm=norm, **common)
+        for i in range(n_layers - 2):
+            setattr(self, f"layer{i + 1}", ConvBlock(d, 2 * d, 3, 2, 1, norm=norm, **common))
+            d *= 2
+        setattr(self, f"layer{n_layers - 1}", ConvBlock(d, d, 3, 2, 1, **common))
+        self.n_layers = n_layers
+        self.patch_head = Conv2d(d, 1, 1, 1, 1, use_bias=False, dtype=dtype)
+        k = max(1, int(image_size / (2**n_layers)))
+        self.cls_head = Conv2d(d, num_domains, k, 1, 0, use_bias=False, dtype=dtype)
+
+    def forward(self, x):
+        h = x
+        for i in range(self.n_layers):
+            h = getattr(self, f"layer{i}")(h)
+        return self.patch_head(h), global_avg_pool(self.cls_head(h))
+
+
+class ContentDiscriminator(nn.Module):
+    """Domain classifier on content codes: ``n_layers`` stride-2 convs with
+    norm, a VALID ``final_kernel`` conv (always named ``layer3``), a 1x1
+    head, averaged to (N, num_domains) logits."""
+
+    def __init__(self, input_dim: int = 256, dim: int = 256, num_domains: int = 3,
+                 norm: Optional[str] = "instance", activation: str = "lrelu",
+                 padding_type: str = "reflect", use_bias: bool = True, n_layers: int = 3,
+                 kernel_size: int = 7, final_kernel: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        common = dict(use_bias=use_bias, activation=activation, padding_type=padding_type,
+                      dtype=dtype)
+        d = input_dim
+        for i in range(n_layers):
+            setattr(self, f"layer{i}", ConvBlock(d, dim, kernel_size, 2, 1, norm=norm, **common))
+            d = dim
+        self.layer3 = ConvBlock(d, dim, final_kernel, 1, 0, **common)
+        self.head = Conv2d(dim, num_domains, 1, 1, 0, use_bias=True, dtype=dtype)
+        self.n_layers = n_layers
+
+    def forward(self, x):
+        h = x
+        for i in range(self.n_layers):
+            h = getattr(self, f"layer{i}")(h)
+        return global_avg_pool(self.head(self.layer3(h)))

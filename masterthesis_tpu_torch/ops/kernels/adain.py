@@ -43,12 +43,8 @@ def _library() -> ctypes.CDLL:
 
 
 def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):
-    """x (B, C, H, W) f32 or bf16, gamma and beta f32 (B, C) -> x's shape and dtype.
-
-    Forward only: raises if a gradient is required.
-    """
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta)):
-        raise RuntimeError("adain has no backward yet; call it under torch.inference_mode()")
+    """x (B, C, H, W) f32 or bf16, gamma and beta f32 (B, C) -> x's shape and
+    dtype. Its gradient is ``ops/norms.py``'s."""
     if x.device.type == "cpu":
         return adain_plain(x, gamma, beta, eps)
     if x.device.type != "cuda":

@@ -37,11 +37,7 @@ def _library() -> ctypes.CDLL:
 
 def moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, C, H, W) f32 or bf16 -> (sum, sumsq) over H, W, both f32 (B, C).
-
-    Forward only: raises if a gradient is required.
-    """
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("moments has no backward yet; call it under torch.inference_mode()")
+    Its gradient is ``ops/norms.py``'s."""
     if x.device.type == "cpu":
         return moments_plain(x)
     if x.device.type != "cuda":

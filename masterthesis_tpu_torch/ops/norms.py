@@ -13,8 +13,15 @@ it. Every statistics pass is one launch of the moments kernel
 ``MT_PALLAS_MOMENTS=1``: mean and the one-pass variance max(E[x^2] - mean^2, 0)
 come from its f32 sums. AdaIN is one launch of the AdaIN kernel
 (``ops/kernels/adain.py``), as with ``MT_ENABLE_PALLAS=1``. The normalize
-itself is plain torch. Inference only: the wrappers raise when a gradient is
-required.
+itself is plain torch.
+
+Gradients. Statistics are a ``torch.autograd.Function`` whose backward is the
+JAX package's ``_moments_bwd`` (``ops/pallas/moments.py:267-277``):
+dx = (dmean + 2 (x - mean) dvar) / N; autograd through the normalize then
+gives the analytic instance- and layer-norm VJPs of ``ops/norms.py``. AdaIN
+is a Function whose backward is ``_fused_adain_bwd`` (``ops/pallas/adain.py``),
+over centered statistics. Both backwards are elementwise torch, as in the JAX
+package, where they are jnp and no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -28,19 +35,33 @@ from masterthesis_tpu_torch.ops.kernels import moments as kmoments
 EPS = 1e-5
 
 
+class _Moments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, per_sample):
+        s1, s2 = kmoments.moments(x)
+        b, c, h, w = x.shape
+        n = h * w
+        if per_sample:
+            s1 = s1.sum(dim=1, keepdim=True)
+            s2 = s2.sum(dim=1, keepdim=True)
+            n *= c
+        mean = (s1 / n)[:, :, None, None]
+        var = (s2 / n)[:, :, None, None] - mean.square()
+        ctx.save_for_backward(x, mean)
+        ctx.n = n
+        return mean, var.clamp_min(0.0)
+
+    @staticmethod
+    def backward(ctx, dmean, dvar):
+        x, mean = ctx.saved_tensors
+        dx = (dmean + 2.0 * (x.float() - mean) * dvar) / ctx.n
+        return dx.to(x.dtype), None
+
+
 def moments(x: torch.Tensor, per_sample: bool = False):
     """f32 mean and variance of NCHW ``x`` over (H, W), shaped (B, C, 1, 1),
     or over (C, H, W) when ``per_sample``, shaped (B, 1, 1, 1)."""
-    s1, s2 = kmoments.moments(x)
-    b, c, h, w = x.shape
-    n = h * w
-    if per_sample:
-        s1 = s1.sum(dim=1, keepdim=True)
-        s2 = s2.sum(dim=1, keepdim=True)
-        n *= c
-    mean = s1 / n
-    var = (s2 / n - mean.square()).clamp_min(0.0)
-    return mean[:, :, None, None], var[:, :, None, None]
+    return _Moments.apply(x, per_sample)
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
@@ -59,9 +80,30 @@ def layer_norm(x: torch.Tensor, scale=None, bias=None, eps: float = EPS) -> torc
     return y.to(x.dtype)
 
 
+class _AdaIN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return kadain.adain(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        x32, g32 = x.float(), g.float()
+        mean = x32.mean(dim=(2, 3), keepdim=True)
+        rstd = torch.rsqrt((x32 - mean).square().mean(dim=(2, 3), keepdim=True) + ctx.eps)
+        x_hat = (x32 - mean) * rstd
+        gx = g32 * x_hat
+        scale = (1.0 + gamma)[:, :, None, None] * rstd
+        dx = scale * (g32 - g32.mean(dim=(2, 3), keepdim=True)
+                      - x_hat * gx.mean(dim=(2, 3), keepdim=True))
+        return dx.to(x.dtype), gx.sum(dim=(2, 3)), g32.sum(dim=(2, 3)), None
+
+
 def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = EPS):
     """``(1 + gamma) * IN(x) + beta``; gamma and beta are (B, C)."""
-    return kadain.adain(x, gamma.float().contiguous(), beta.float().contiguous(), eps)
+    return _AdaIN.apply(x, gamma.float().contiguous(), beta.float().contiguous(), eps)
 
 
 class InstanceNorm(nn.Module):

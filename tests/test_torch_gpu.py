@@ -108,5 +108,5 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         kadain.adain(x, g.bfloat16(), g)
     with pytest.raises(ValueError):
         kadain.adain(_input((1, 1, 256, 256), torch.float32, cuda), g[:1, :1], g[:1, :1])
-    with pytest.raises(RuntimeError):
-        kmoments.moments(x.requires_grad_())
+    with pytest.raises(ValueError):
+        kmoments.moments(x.double())

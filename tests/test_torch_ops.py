@@ -19,6 +19,7 @@ from masterthesis_tpu.ops.pallas.adain import fused_adain
 from masterthesis_tpu.ops.pallas.moments import pallas_moments
 from masterthesis_tpu_torch.ops import norms
 from masterthesis_tpu_torch.ops.kernels import adain as kadain
+from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
 
 torch.set_num_threads(2)
@@ -139,13 +140,20 @@ def test_wrappers_take_the_plain_version_on_the_cpu(monkeypatch):
 
 
 def test_wrappers_raise_when_grad_is_required():
+    """The serving-only head has no backward and says so; the moments and
+    AdaIN wrappers take a gradient-carrying input, whose gradient the
+    ``ops/norms.py`` Functions supply."""
     x = torch.zeros(1, 2, 4, 4, requires_grad=True)
+    pending = {"scale": torch.ones(1, 2), "shift": torch.zeros(1, 2), "relu": True, "alpha": 0.0}
     with pytest.raises(RuntimeError, match="backward"):
-        kmoments.moments(x)
-    with pytest.raises(RuntimeError, match="backward"):
-        kadain.adain(x, torch.zeros(1, 2), torch.zeros(1, 2))
+        khead.head(x, pending, torch.ones(3, 2))
     with torch.no_grad():
-        kmoments.moments(x)  # no grad wanted: fine
+        khead.head(x, pending, torch.ones(3, 2))  # no grad wanted: fine
+    kmoments.moments(x)
+    kadain.adain(x, torch.zeros(1, 2), torch.zeros(1, 2))
+    mean, var = norms.moments(x)
+    (mean.sum() + var.sum()).backward()
+    assert x.grad is not None and x.grad.shape == x.shape
 
 
 def test_wrappers_refuse_other_devices():
