@@ -4,7 +4,8 @@ against its plain PyTorch version.
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also a torch.profiler breakdown of one forward
-                                       # (f32, bf16, int8) and of one training main step
+                                       # (f32, bf16, int8; BaseModel A int8) and of one
+                                       # training main step
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -17,9 +18,14 @@ against its plain PyTorch version.
    fit in L2) beside the plain version's, the library yardstick's where one
    PyTorch call computes the same function, and the bound (bytes over
    3.35 TB/s, or f32 operations over 67 TFLOP/s: the H100 SXM's published
-   rates). One JSON line per kernel and dtype.
+   rates). One JSON line per kernel and dtype. AdaIN's library yardstick is
+   ``F.instance_norm`` on the (1, B*C, H, W) view with weight 1 + gamma and
+   bias beta, which computes the same function.
    The int8 kernels likewise, in f32 (the int8 path's compute dtype), at
-   each shape of the int8 forward: the quantized operands and the int32
+   each shape of the int8 forwards (kernel 4, the stride-1 3x3 conv, at
+   BaseModel A's (8, 256, 64, 64) -> 256, and held exact also with a
+   prologue and statistics and at DecoderConcat's unaligned 268 channels
+   with zero padding): the quantized operands and the int32
    sums must equal the plain version's exactly given the same input and
    prologue affine (the sums checked with unit scales, where the f32 output
    holds them exactly); then each wrapper's f32 output and statistics must
@@ -46,7 +52,16 @@ against its plain PyTorch version.
    finite, in [-1, 1], above 25 dB PSNR from the float forward, and within
    1e-5 of the same int8 forward through the plain versions (every int8
    operand and statistic equal; only the head's sum order differs).
-6. ``train``: AdaINModel's training main path at the JAX package's
+6. ``base_serve``: BaseModel at the same shape, config A (the CLI
+   default: plain style encoder, ``Decoder`` with ``DecResnetBlock``s) and B
+   (``--concat --reparam``, the JAX bench's BaseModel config), each served
+   as in 4 (f32, bf16; 21 moments launches per float forward) and 5 (int8:
+   A launches 2 down convs, 4 resblocks, 8 stride-1 convs (kernel 4), 2
+   transposed convs, 1 head, 9 moments; B 2 down convs, 8 resblocks (four
+   at DecoderConcat's 268 channels), 2 transposed convs at 276 -> 138 and
+   146 -> 73, 1 moments), with the same checks, and a small config-A model
+   on the card against the CPU, float and int8.
+7. ``train``: AdaINModel's training main path at the JAX package's
    flagship training config (``bench.py``: 256px, dim 64, latent 8, 4
    domains, batch 8 per side, bf16, the content discriminator with d_iter
    3, the reference GAN step, ``--fused_resblock auto``). Kernels 9 and 10
@@ -66,7 +81,7 @@ against its plain PyTorch version.
    the same weights and draws must give losses within 3 %. Prints main-step
    it/s, schedule img/s (2 x batch per iteration), seconds per step and
    peak device memory.
-7. Last lines: the card, the ``{"kernels": [...]}`` line, then
+8. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -86,7 +101,7 @@ import torch
 import torch.nn.functional as F
 
 from masterthesis_tpu_torch.arguments import default_test_args, default_train_args
-from masterthesis_tpu_torch.models import AdaINModel
+from masterthesis_tpu_torch.models import AdaINModel, BaseModel
 from masterthesis_tpu_torch.models.translation import StepDraws
 from masterthesis_tpu_torch.ops import norms
 from masterthesis_tpu_torch.ops.kernels import adain as kadain
@@ -122,8 +137,24 @@ DOWN_SHAPES = [((B, 64, 256, 256), 128, 1), ((B, 128, 128, 128), 256, 1)]
 RES_SHAPES = [((B, 256, 64, 64), 256, 8)]  # 4 encoder blocks, 4 AdaIN blocks
 DECONV_SHAPES = [((B, 256, 64, 64), 128, 1), ((B, 128, 128, 128), 64, 1)]
 HEAD_SHAPES = [((B, 64, 256, 256), 3, 1)]
-INT8_PER_FORWARD = {"int8_downconv": 2, "int8_resblock": 8, "int8_deconv": 2, "head": 1,
-                    "moments": 1}
+CONV3X3_SHAPES = [((B, 256, 64, 64), 256, 8)]  # BaseModel A: conv1/conv2 of 4 DecResnetBlocks
+# kernel 4 is also held to its plain version at DecoderConcat's unaligned width
+CONV3X3_UNALIGNED = ((B, 268, 64, 64), 268)
+INT8_PER_FORWARD = {"int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 0, "int8_deconv": 2,
+                    "head": 1, "moments": 1}
+# BaseModel serving: A is the CLI default (plain style encoder, Decoder with
+# DecResnetBlocks); B is --concat --reparam, the JAX bench's BaseModel config
+# (bench.py:107-159). Both at ARGS, with --dec_norm layer, --up_type transpose.
+BASE_CONFIGS = {"A": {}, "B": dict(concat=True, reparam=True)}
+# float: 11 encoder norms, 8 decoder instance norms, 2 LayerNorms
+BASE_FLOAT_PER_FORWARD = (21, 0)
+BASE_INT8_PER_FORWARD = {
+    "A": {"int8_downconv": 2, "int8_resblock": 4, "int8_conv3x3": 8, "int8_deconv": 2, "head": 1,
+          "moments": 9},
+    # dec_share and dec1_0..2 at C=268 run kernel 6; the 1x1 dec4 stays float
+    "B": {"int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 0, "int8_deconv": 2, "head": 0,
+          "moments": 1},
+}
 # The int8 chain on the card against the CPU: the float stem conv and the
 # style projection sum in another order there (cuDNN/cuBLAS against the
 # CPU's), so an int8 value at a rounding boundary can flip; bound the share
@@ -262,15 +293,29 @@ def check_adain(name: str, dtype: torch.dtype) -> dict:
             ok = bool(((out.float() - ref.float()).abs() <= 1e-2 + 1e-2 * ref.float().abs()).all())
         assert ok, f"adain {name} {shape}: error {err} > {tol}"
         b_ms, by = bound(2 * nbytes + 2 * bc[0] * bc[1] * 4, 6 * numel)
+        # the library yardstick: AdaIN is instance norm of the (1, B*C, H, W)
+        # view with per-plane weight 1 + gamma and bias beta, one call
+        lib_sets = [(t.view(1, -1, *shape[2:]), (1.0 + g).flatten(), bt.flatten())
+                    for t, g, bt in sets]
+        lib = library_adain(*lib_sets[0]).view(shape)
+        torch.cuda.synchronize()
         rows.append(dict(
             shape=list(shape), per_forward=per_forward, max_abs_err=err, tol=tol,
             ms=device_ms(kadain.adain, sets),
             plain_ms=device_ms(kadain.adain_plain, sets),
-            library_ms=None,  # no single PyTorch call computes AdaIN
+            library_ms=device_ms(library_adain, lib_sets),
+            library_max_abs_err=(lib.float() - ref.float()).abs().max().item(),
             bound_ms=b_ms, bound_by=by,
         ))
     return summarize("adain", name, rows, "masterthesis_tpu/ops/pallas/adain.py:80",
-                     "masterthesis_tpu_torch/csrc/adain.cu", None)
+                     "masterthesis_tpu_torch/csrc/adain.cu", LIBRARY_ADAIN)
+
+
+LIBRARY_ADAIN = "F.instance_norm(x.view(1, B*C, H, W), weight=(1+gamma).flatten(), bias=beta.flatten())"
+
+
+def library_adain(x, weight, bias):
+    return F.instance_norm(x, weight=weight, bias=bias, eps=norms.EPS)
 
 
 def summarize(kernel, dtype_name, rows, replaces, source, library, name=None,
@@ -325,51 +370,93 @@ def _card_weight(shape, seed, scale=0.05):
     return torch.randn(shape, generator=g, device="cuda") * scale
 
 
+INT8_CONVS = {  # kind: (shapes, wrapper name, TPU kernel, statistics on the path)
+    "down": (DOWN_SHAPES, "downconv", "masterthesis_tpu/ops/pallas/conv_int8.py:1303", True),
+    "conv3x3": (CONV3X3_SHAPES, "conv3x3", "masterthesis_tpu/ops/pallas/conv_int8.py:187", False),
+    "deconv": (DECONV_SHAPES, "deconv", "masterthesis_tpu/ops/pallas/conv_int8.py:577", True),
+}
+
+
+def _path_pending(kind, i, b, c):
+    """The prologue the path gives the conv: down0 takes the stem's IN +
+    lrelu, down1 down0's IN + relu; up0 has no prologue, up1 takes up0's
+    LayerNorm + relu; BaseModel's stride-1 convs have none."""
+    if kind == "conv3x3" or (kind == "deconv" and i == 0):
+        return None
+    return _card_pending(b, c, 200 + i, 0.01 if kind == "down" and i == 0 else 0.0)
+
+
+def _conv3x3_exact_cases(x, qc, shape) -> dict:
+    """Kernel 4 with a prologue and statistics at the path's shape, and at
+    DecoderConcat's unaligned width with zero padding: operands, sums, y and
+    statistics equal to the plain version's."""
+    b, c = shape[:2]
+    out = {}
+    pending = _card_pending(b, c, 250, 0.0)
+    ushape, uco = CONV3X3_UNALIGNED
+    ux = _randn(ushape, torch.float32, 260)
+    upending = _card_pending(ushape[0], ushape[1], 261, 0.01)
+    uqc = kq.quant_conv(_card_weight((uco, ushape[1], 3, 3), 262),
+                        _card_weight((uco,), 263, 0.1),
+                        kq.prologue_plain(ux, upending).abs().amax(), 1, None)
+    for name, (t, q, p) in {"prologue_stats": (x, qc, pending),
+                            f"unaligned_{ushape[1]}_zero_pad": (ux, uqc, upending)}.items():
+        exact = _check_exact(t, q, p)
+        got, want = kq.conv3x3(t, q, p, with_stats=True), kq.conv_plain(t, q, p, True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), f"conv3x3 {name}: differs"
+        out[name] = dict(**exact, outputs_and_stats_equal=True, shape=list(t.shape),
+                         cp=q.cp, co=q.cout)
+    return out
+
+
 def check_int8_conv(kind: str) -> dict:
-    """Kernel 7 (``kind`` "down") or kernel 5 ("deconv") at the forward's shapes."""
-    down = kind == "down"
-    shapes, wrapper = (DOWN_SHAPES, kq.downconv) if down else (DECONV_SHAPES, kq.deconv)
+    """Kernel 7 ("down"), 4 ("conv3x3") or 5 ("deconv") at the path's shapes."""
+    shapes, wname, replaces, stats = INT8_CONVS[kind]
+    wrapper = getattr(kq, wname)
     rows = []
     for i, (shape, co, per_forward) in enumerate(shapes):
         b, c, h, w = shape
         numel = math.prod(shape)
         sets = copies(lambda j: (_randn(shape, torch.float32, 100 + 10 * i + j),), 4 * numel)
         x = sets[0][0]
-        # down0 takes the stem's IN + lrelu, down1 down0's IN + relu; up0
-        # has no prologue, up1 takes up0's LayerNorm + relu
-        pending = None if (not down and i == 0) else _card_pending(b, c, 200 + i, 0.01 if down and i == 0 else 0.0)
+        pending = _path_pending(kind, i, b, c)
         amax = kq.prologue_plain(x, pending).abs().amax()
-        wshape = (co, c, 3, 3) if down else (c, co, 3, 3)
+        wshape = (c, co, 3, 3) if kind == "deconv" else (co, c, 3, 3)
         weight, bias = _card_weight(wshape, 300 + i), _card_weight((co,), 400 + i, 0.1)
-        qc = kq.quant_conv(weight, bias, amax, 2, "reflect") if down else kq.quant_deconv(weight, bias, amax)
+        qc = (kq.quant_deconv(weight, bias, amax) if kind == "deconv"
+              else kq.quant_conv(weight, bias, amax, 2 if kind == "down" else 1, "reflect"))
         exact = _check_exact(x, qc, pending)
-        y, s1, s2 = wrapper(x, qc, pending, with_stats=True)
-        ry, rs1, rs2 = kq.conv_plain(x, qc, pending, True)
+        if kind == "conv3x3":
+            exact["cases"] = _conv3x3_exact_cases(x, qc, shape)
+        got = wrapper(x, qc, pending, with_stats=stats)
+        want = kq.conv_plain(x, qc, pending, stats)
         torch.cuda.synchronize()
-        err = (y - ry).abs().max().item()
+        got, want = (got, want) if stats else ((got,), (want,))
+        err = (got[0] - want[0]).abs().max().item()
         assert err == 0.0, f"{kind} {shape}: output differs from the plain version's by {err}"
-        assert torch.equal(s1, rs1) and torch.equal(s2, rs2), f"{kind} {shape}: statistics differ"
-        out_numel = y.numel()
-        macs = b * c * co * 9 * (h * w if not down else (h // 2) * (w // 2))
-        nbytes = 4 * (numel + out_numel) + qc.w.numel() + 8 * b * co + (8 * b * c if pending else 0)
+        assert all(torch.equal(g, r) for g, r in zip(got[1:], want[1:])), f"{kind} {shape}: statistics differ"
+        out_numel = got[0].numel()
+        macs = b * c * co * 9 * ((h // 2) * (w // 2) if kind == "down" else h * w)
+        nbytes = (4 * (numel + out_numel) + qc.w.numel() + (8 * b * co if stats else 0)
+                  + (8 * b * c if pending else 0))
         b_ms, by = bound(nbytes, 2 * macs, INT8_OPS)
         wb = weight.bfloat16()
         bf_sets = [(t[0].bfloat16(),) for t in sets]
-        cudnn = ((lambda t: F.conv2d(t, wb, None, 2, 1)) if down
-                 else (lambda t: F.conv_transpose2d(t, wb, None, 2, 1, 1)))
+        cudnn = {"down": lambda t: F.conv2d(t, wb, None, 2, 1),
+                 "conv3x3": lambda t: F.conv2d(t, wb, None, 1, 1),
+                 "deconv": lambda t: F.conv_transpose2d(t, wb, None, 2, 1, 1)}[kind]
         rows.append(dict(
             shape=list(shape), co=co, per_forward=per_forward, prologue=pending is not None,
-            **exact, max_abs_err=err, tol=0.0, stats_equal=True,
-            macs=macs, ms=device_ms(lambda t: wrapper(t, qc, pending, with_stats=True), sets),
-            plain_ms=device_ms(lambda t: kq.conv_plain(t, qc, pending, True), sets, iters=5),
+            **exact, max_abs_err=err, tol=0.0, stats=stats, stats_equal=stats or None,
+            macs=macs, ms=device_ms(lambda t: wrapper(t, qc, pending, with_stats=stats), sets),
+            plain_ms=device_ms(lambda t: kq.conv_plain(t, qc, pending, stats), sets, iters=5),
             bf16_cudnn_ms=device_ms(cudnn, bf_sets), library_ms=None,
             bound_ms=b_ms, bound_by=by,
         ))
-    if down:
-        return summarize("int8_downconv", "f32", rows, "masterthesis_tpu/ops/pallas/conv_int8.py:1303",
-                         "masterthesis_tpu_torch/csrc/int8_conv.cu", None, name="int8_downconv")
-    return summarize("int8_deconv", "f32", rows, "masterthesis_tpu/ops/pallas/conv_int8.py:577",
-                     "masterthesis_tpu_torch/csrc/int8_conv.cu", None, name="int8_deconv")
+    name = f"int8_{wname}"
+    return summarize(name, "f32", rows, replaces, "masterthesis_tpu_torch/csrc/int8_conv.cu", None,
+                     name=name)
 
 
 def _flips(out, ref) -> tuple[float, float]:
@@ -541,7 +628,7 @@ def check_resblock(kind: str) -> dict:
 
 PLAIN = [
     (kmoments, "moments", kmoments.moments_plain), (kadain, "adain", kadain.adain_plain),
-    (kq, "downconv", kq.conv_plain), (kq, "deconv", kq.conv_plain),
+    (kq, "downconv", kq.conv_plain), (kq, "conv3x3", kq.conv_plain), (kq, "deconv", kq.conv_plain),
     (kq, "resblock", kq.resblock_plain), (khead, "head", khead.head_plain),
 ]
 
@@ -565,8 +652,8 @@ def counts():
 
 def int8_counts() -> dict:
     return {"int8_downconv": kq.downconv.launches, "int8_resblock": kq.resblock.launches,
-            "int8_deconv": kq.deconv.launches, "head": khead.head.launches,
-            "moments": kmoments.moments.launches}
+            "int8_conv3x3": kq.conv3x3.launches, "int8_deconv": kq.deconv.launches,
+            "head": khead.head.launches, "moments": kmoments.moments.launches}
 
 
 def zero_counts() -> None:
@@ -598,14 +685,14 @@ def check_image(out, shape, what):
     assert -1.0 <= lo and hi <= 1.0, f"{what}: output outside [-1, 1]: [{lo}, {hi}]"
 
 
-def check_small_against_cpu(dtype_name: str) -> None:
-    args = default_test_args(compute_dtype=compute_dtype(dtype_name), **SMALL_ARGS)
+def check_small_against_cpu(dtype_name: str, model_cls=AdaINModel, flags=None) -> None:
+    args = default_test_args(compute_dtype=compute_dtype(dtype_name), **(flags or {}), **SMALL_ARGS)
     host, dev = request_inputs(SMALL_ARGS, seed=7)
-    on_card, _, _ = AdaINModel(args).forward_random(dev["img"], dev["z"], dev["c"])
-    on_cpu, _, _ = AdaINModel(args, device="cpu").forward_random(host["img"], host["z"], host["c"])
+    on_card, _, _ = model_cls(args).forward_random(dev["img"], dev["z"], dev["c"])
+    on_cpu, _, _ = model_cls(args, device="cpu").forward_random(host["img"], host["z"], host["c"])
     err = (on_card.float().cpu() - on_cpu.float()).abs().max().item()
-    log(dict(phase="card_vs_cpu", dtype=dtype_name, shape=list(on_cpu.shape),
-             max_abs_err=err, tol=CPU_TOL[dtype_name]))
+    log(dict(phase="card_vs_cpu", model=model_cls.__name__, flags=flags or {}, dtype=dtype_name,
+             shape=list(on_cpu.shape), max_abs_err=err, tol=CPU_TOL[dtype_name]))
     assert err <= CPU_TOL[dtype_name], f"card vs CPU {dtype_name}: {err}"
 
 
@@ -615,28 +702,30 @@ def calibration_batches(args, seeds=(11, 12)):
     return [b["img"] for b in batches], [b["c"] for b in batches], [b["z"] for b in batches]
 
 
-def check_small_int8_against_cpu() -> None:
+def check_small_int8_against_cpu(model_cls=AdaINModel, flags=None) -> None:
     """One amax tree, calibrated on the CPU, on both devices."""
-    args = default_test_args(**SMALL_ARGS)
+    args = default_test_args(**(flags or {}), **SMALL_ARGS)
     host, dev = request_inputs(SMALL_ARGS, seed=7)
-    on_cpu = AdaINModel(args, device="cpu")
+    on_cpu = model_cls(args, device="cpu")
     quant = on_cpu.calibrate_int8([host["img"]], [host["c"]], [host["z"]])
-    on_card = AdaINModel(args)
+    on_card = model_cls(args)
     on_card.load_int8(quant)
     out, _, _ = on_card.forward_random(dev["img"], dev["z"], dev["c"])
     ref, _, _ = on_cpu.forward_random(host["img"], host["z"], host["c"])
     err, share = _flips(out.cpu(), ref)
-    log(dict(phase="card_vs_cpu", dtype="int8", shape=list(ref.shape), max_abs_err=err,
+    log(dict(phase="card_vs_cpu", model=model_cls.__name__, flags=flags or {}, dtype="int8",
+             shape=list(ref.shape), max_abs_err=err,
              share_differing=share, tol=dict(max=FLIP_MAX, share=FLIP_SHARE)))
     assert err <= FLIP_MAX and share <= FLIP_SHARE, f"int8 card vs CPU: {err}, {share}"
 
 
-def int8_serve(card: str) -> dict:
-    """The int8 main path: calibrate, then serve the ``serve`` requests in
+def int8_serve(card: str, model_cls=AdaINModel, flags=None, per_forward=INT8_PER_FORWARD,
+               phase="int8_serve", reps=3) -> dict:
+    """An int8 main path: calibrate, then serve the ``serve`` requests in
     turns with the float f32 model of the same weights. Returns the int8
     kernels' launches over the int8 forwards."""
-    args = default_test_args(compute_dtype="float32", **ARGS)
-    model_f, model_q = AdaINModel(args), AdaINModel(args)  # the same seeded weights
+    args = default_test_args(compute_dtype="float32", **(flags or {}), **ARGS)
+    model_f, model_q = model_cls(args), model_cls(args)  # the same seeded weights
     _, dev = request_inputs(ARGS, seed=1)
     shape = (B, ARGS["crop_size"], ARGS["crop_size"], 3)
     t0 = time.perf_counter()
@@ -645,13 +734,13 @@ def int8_serve(card: str) -> dict:
     calibrate_s = time.perf_counter() - t0
 
     zero_counts()
-    launched = dict.fromkeys(INT8_PER_FORWARD, 0)
+    launched = dict.fromkeys(per_forward, 0)
 
     def checked(fn, *a, **kw):
         before = int8_counts()
         out = fn(*a, **kw)
         delta = {k: v - before[k] for k, v in int8_counts().items()}
-        assert delta == INT8_PER_FORWARD, f"int8 launches per forward {delta}"
+        assert delta == per_forward, f"{phase}: int8 launches per forward {delta}"
         for k, v in delta.items():
             launched[k] += v
         return out
@@ -667,7 +756,7 @@ def int8_serve(card: str) -> dict:
     secs = {"int8": [], "float": []}
     outs = {}
     for kind in ("float", "int8", "int8", "float"):
-        for _ in range(3):
+        for _ in range(reps):
             out, seconds, mem = int8_request() if kind == "int8" else float_request()
             secs[kind].append(seconds)
             outs[kind] = out
@@ -678,15 +767,16 @@ def int8_serve(card: str) -> dict:
         plain_out, plain_s, _ = model_q.forward_random(dev["img"], dev["z"], dev["c"])
 
     for what, out in (("int8", outs["int8"]), ("float", outs["float"]), ("plain", plain_out)):
-        check_image(out, shape, f"int8 forward_random {what}")
-    check_image(ref_out, shape, "int8 forward_reference")
+        check_image(out, shape, f"{phase} forward_random {what}")
+    check_image(ref_out, shape, f"{phase} forward_reference")
     mse = (outs["int8"] - outs["float"]).square().mean().item()
     psnr = 10 * math.log10(4.0 / max(mse, 1e-12))
-    assert psnr > PSNR_MIN_DB, f"int8 vs float PSNR {psnr} dB"
+    assert psnr > PSNR_MIN_DB, f"{phase}: int8 vs float PSNR {psnr} dB"
     err, share = _flips(outs["int8"], plain_out)
-    assert err <= HEAD_TOL, f"int8 kernels vs plain: max {err}, share {share}"
+    assert err <= HEAD_TOL, f"{phase}: int8 kernels vs plain: max {err}, share {share}"
     log(dict(
-        phase="int8_serve", card=card, batch=B, requests=len(secs["int8"]) + 2,
+        phase=phase, model=model_cls.__name__, flags=flags or {}, card=card, batch=B,
+        requests=len(secs["int8"]) + 2,
         img_per_s=B * len(secs["int8"]) / sum(secs["int8"]),
         img_per_s_float_f32=B * len(secs["float"]) / sum(secs["float"]),
         request_s=secs["int8"], request_s_float_f32=secs["float"],
@@ -694,15 +784,18 @@ def int8_serve(card: str) -> dict:
         calibration_batches=2, amax_leaves={k: len(v) for k, v in quant.items()},
         memory_reserved_gb=mem, psnr_vs_float_db=psnr, psnr_min_db=PSNR_MIN_DB,
         max_abs_err_vs_plain=err, share_differing_vs_plain=share,
-        tol=HEAD_TOL, launches=launched, per_forward=INT8_PER_FORWARD,
+        tol=HEAD_TOL, launches=launched, per_forward=per_forward,
     ))
     return launched
 
 
-def serve(dtype_name: str, card: str) -> tuple[int, int]:
-    """The main path in one dtype; returns its (moments, adain) launch counts."""
-    args = default_test_args(compute_dtype=compute_dtype(dtype_name), **ARGS)
-    model = AdaINModel(args)
+def serve(dtype_name: str, card: str, model_cls=AdaINModel, flags=None,
+          per_forward=(MOMENTS_PER_FORWARD, ADAIN_PER_FORWARD), phase="serve",
+          reps=3) -> tuple[int, int]:
+    """A float main path in one dtype; returns its (moments, adain) launch
+    counts."""
+    args = default_test_args(compute_dtype=compute_dtype(dtype_name), **(flags or {}), **ARGS)
+    model = model_cls(args)
     _, dev = request_inputs(ARGS, seed=1)
     shape = (B, ARGS["crop_size"], ARGS["crop_size"], 3)
 
@@ -710,9 +803,8 @@ def serve(dtype_name: str, card: str) -> tuple[int, int]:
         before = counts()
         out, seconds, mem = model.forward_random(dev["img"], dev["z"], dev["c"])
         after = counts()
-        assert (after[0] - before[0], after[1] - before[1]) == (
-            MOMENTS_PER_FORWARD, ADAIN_PER_FORWARD
-        ), f"launches per forward {after[0] - before[0]}, {after[1] - before[1]}"
+        delta = (after[0] - before[0], after[1] - before[1])
+        assert delta == per_forward, f"{phase}: launches per forward {delta}"
         return out, seconds, mem
 
     def plain_request():
@@ -726,34 +818,54 @@ def serve(dtype_name: str, card: str) -> tuple[int, int]:
     secs = {"kernel": [], "plain": []}
     outs = {}
     for kind in ("plain", "kernel", "kernel", "plain"):
-        for _ in range(3):
+        for _ in range(reps):
             out, seconds, mem = kernel_request() if kind == "kernel" else plain_request()
             secs[kind].append(seconds)
             outs[kind] = out
     before = counts()
     gen = torch.Generator(device="cuda").manual_seed(2)
     ref_out, ref_s, _ = model.forward_reference(dev["img"], dev["ref"], dev["c"], generator=gen)
-    launches = counts()  # the whole run: warm-up, 6 random requests, 1 reference
-    assert (launches[0] - before[0], launches[1] - before[1]) == (
-        MOMENTS_PER_FORWARD, ADAIN_PER_FORWARD
-    )
+    launches = counts()  # the whole run: warm-up, the random requests, 1 reference
+    assert (launches[0] - before[0], launches[1] - before[1]) == per_forward
 
     for kind, out in outs.items():
-        check_image(out, shape, f"forward_random {dtype_name} {kind}")
-    check_image(ref_out, shape, f"forward_reference {dtype_name}")
+        check_image(out, shape, f"{phase} forward_random {dtype_name} {kind}")
+    check_image(ref_out, shape, f"{phase} forward_reference {dtype_name}")
     err = (outs["kernel"].float() - outs["plain"].float()).abs().max().item()
-    assert err <= MODEL_TOL[dtype_name], f"kernels vs plain {dtype_name}: {err}"
+    assert err <= MODEL_TOL[dtype_name], f"{phase}: kernels vs plain {dtype_name}: {err}"
     log(dict(
-        phase="serve", dtype=dtype_name, card=card, batch=B, requests=len(secs["kernel"]) + 2,
+        phase=phase, model=model_cls.__name__, flags=flags or {}, dtype=dtype_name, card=card,
+        batch=B, requests=len(secs["kernel"]) + 2,
         img_per_s=B * len(secs["kernel"]) / sum(secs["kernel"]),
         img_per_s_plain=B * len(secs["plain"]) / sum(secs["plain"]),
         request_s=secs["kernel"], request_s_plain=secs["plain"],
         reference_request_s=ref_s, memory_reserved_gb=mem,
         max_abs_err_vs_plain=err, tol=MODEL_TOL[dtype_name],
         launches=dict(moments=launches[0], adain=launches[1]),
-        per_forward=dict(moments=MOMENTS_PER_FORWARD, adain=ADAIN_PER_FORWARD),
+        per_forward=dict(moments=per_forward[0], adain=per_forward[1]),
     ))
+    del model
+    torch.cuda.empty_cache()
     return launches
+
+
+def base_serve(card: str) -> dict:
+    """BaseModel's main paths: configs A and B, each served in f32 and bf16
+    (checked against the plain versions on the card) and in int8 (in turns
+    with the f32 float model), with the counts checked per forward. Returns
+    the int8 launches of both configs, by kernel."""
+    check_small_against_cpu("f32", BaseModel, BASE_CONFIGS["A"])
+    check_small_int8_against_cpu(BaseModel, BASE_CONFIGS["A"])
+    launched = {}
+    for name, flags in BASE_CONFIGS.items():
+        for dtype_name in DTYPES:
+            serve(dtype_name, card, BaseModel, flags, BASE_FLOAT_PER_FORWARD,
+                  f"base_serve/{name}", reps=2)
+        got = int8_serve(card, BaseModel, flags, BASE_INT8_PER_FORWARD[name],
+                         f"base_int8_serve/{name}", reps=2)
+        launched = {k: launched.get(k, 0) + v for k, v in got.items()}
+        torch.cuda.empty_cache()
+    return launched
 
 
 # ---------------------------------------------------------------- training --
@@ -922,20 +1034,22 @@ def _log_profile(prof, what, seconds, top_n=15) -> None:
              top_kernels_ms=[[k[:90], v] for k, v in top]))
 
 
-def profile(dtype_name: str, int8: bool = False) -> None:
+def profile(dtype_name: str, int8: bool = False, model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one forward_random (``--profile``)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    args = default_test_args(compute_dtype=compute_dtype(dtype_name), **ARGS)
-    model = AdaINModel(args)
+    args = default_test_args(compute_dtype=compute_dtype(dtype_name), **(flags or {}), **ARGS)
+    model = model_cls(args)
     if int8:
         model.calibrate_int8(*calibration_batches(ARGS))
     _, dev = request_inputs(ARGS, seed=1)
     model.forward_random(dev["img"], dev["z"], dev["c"])
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, seconds, _ = model.forward_random(dev["img"], dev["z"], dev["c"])
-    _log_profile(prof, "int8" if int8 else dtype_name, seconds)
+    what = "int8" if int8 else dtype_name
+    _log_profile(prof, what if model_cls is AdaINModel else f"{model_cls.__name__} {flags} {what}",
+                 seconds)
 
 
 def main(argv) -> int:
@@ -964,8 +1078,8 @@ def main(argv) -> int:
     for dtype_name, dtype in DTYPES.items():
         entries.append(check_moments(dtype_name, dtype))
         entries.append(check_adain(dtype_name, dtype))
-    int8_entries = [check_int8_conv("down"), check_int8_resblock(), check_int8_conv("deconv"),
-                    check_head()]
+    int8_entries = [check_int8_conv("down"), check_int8_resblock(), check_int8_conv("conv3x3"),
+                    check_int8_conv("deconv"), check_head()]
     torch.cuda.empty_cache()
     train_entries = [check_resblock("fwd"), check_resblock("bwd")]
     for dtype_name in DTYPES:
@@ -980,8 +1094,9 @@ def main(argv) -> int:
             elif e["name"] == f"adain/{dtype_name}":
                 e["launches"] = a
     launched = int8_serve(card)
+    base_launched = base_serve(card)  # kernel 4 runs on BaseModel's path only
     for e in int8_entries:
-        e["launches"] = launched[e["name"]]
+        e["launches"] = (base_launched if e["name"] == "int8_conv3x3" else launched)[e["name"]]
     entries += int8_entries
     launched = train(card)
     for e in train_entries:
@@ -991,6 +1106,7 @@ def main(argv) -> int:
         for dtype_name in DTYPES:
             profile(dtype_name)
         profile("f32", int8=True)
+        profile("f32", True, BaseModel, BASE_CONFIGS["A"])
         profile_train()
     for e in entries:
         assert e["launches"], f"{e['name']} was not launched on the main path"

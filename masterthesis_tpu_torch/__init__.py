@@ -1,6 +1,8 @@
 """PyTorch + CUDA port of masterthesis_tpu for NVIDIA Hopper.
 
 Imports torch, numpy and the standard library only: nothing of JAX, Flax or
-the JAX package. The first slice serves AdaINModel's float forward, with the
-norm statistics and AdaIN as CUDA kernels (``ops/kernels``).
+the JAX package. It serves AdaINModel and BaseModel (float f32/bf16, and
+int8 after calibration) and trains AdaINModel; every TPU kernel of the JAX
+package has its hand-written CUDA counterpart under ``csrc/``, wrapped with
+its plain PyTorch version in ``ops/kernels``.
 """

@@ -1,8 +1,12 @@
-// int8 serving convolutions: one implicit-GEMM template for the stride-2
-// down conv, the two stride-1 convs of the residual block, and the sub-pixel
-// transposed conv.
+// int8 serving convolutions: one implicit-GEMM template for the stride-1
+// 3x3 conv, the stride-2 down conv, the two stride-1 convs of the residual
+// block, and the sub-pixel transposed conv. Four TPU kernels come from this
+// one source.
 //
 // Replaces masterthesis_tpu/ops/pallas/conv_int8.py:
+//   pallas_int8_conv3x3  (:187)   -> quant_pad (optional prologue, reflect or
+//                                    zero pad) + conv (3x3, stride 1)
+//                                    [+ stats]
 //   pallas_int8_downconv (:1303)  -> quant_pad + conv (3x3, stride 2) [+ stats]
 //   pallas_int8_resblock (:989)   -> quant_pad, conv, stats (forms conv2's
 //                                    prologue affine), quant_pad, conv,
@@ -10,12 +14,17 @@
 //   pallas_int8_deconv   (:577)   -> quant_pad (zero pad at the end) + conv
 //                                    (2x2 taps to 4 phases, interleaving
 //                                    store) [+ stats]
+// The stride-1 conv needed no new code: it is the resblock's conv launch
+// called alone. Channels are zero-padded to a multiple of 32 (one mma
+// k-step) in the operands, and any number of output rows is guarded, so
+// unaligned widths (BaseModel's 268/276/146-channel convs) run as they are.
 // The wrappers are masterthesis_tpu_torch/ops/kernels/int8_conv.py, whose
 // plain versions do the same arithmetic with torch ops.
 //
-// Bound. The resblock convs are bound by operations (19.33 G MACs each at
-// 8x256x64x64, against ~67 MB of f32 in and out); the down convs and the
-// transposed convs by bytes (their f32 input and output, 134-201 MB, against
+// Bound. The resblock is bound by operations (two convs of 19.33 G MACs at
+// 8x256x64x64, against ~67 MB of f32 in and out); a stride-1 conv alone by
+// bytes, by a hair (67.7 MB against 19.33 G MACs: 0.0202 against 0.0195 ms
+// on an H100 SXM); the down convs and the transposed convs by bytes (their f32 input and output, 134-201 MB, against
 // 9.66 G MACs). This first version is a simple, right design: the int8
 // products run on the tensor cores through mma.sync m16n8k32 (int32
 // accumulate), fed from shared memory double-buffered through registers, and

@@ -1,4 +1,4 @@
-"""Conv blocks of AdaINModel and its discriminators (NCHW).
+"""Conv blocks of AdaINModel, BaseModel and their discriminators (NCHW).
 
 The float branches of ``masterthesis_tpu/models/blocks.py``. Module and
 attribute names follow the Flax names, so a state_dict key reads like the
@@ -13,8 +13,8 @@ any Pallas kernel.
 int8 serving (``TranslationModel.calibrate_int8``). While ``calib_amax`` is
 set, a conv records the running max |input| (after any pending affine), as
 the JAX convs sow ``amax_in``; the installed ``amax_in`` then routes the
-stride-2 3x3 convs, the resblocks and the k3/s2/p1/op1 transposed convs
-through ``ops/kernels/int8_conv.py``, and the 1x1 head after a deferred
+3x3 pad-1 convs (stride 1 and 2), the resblocks and the k3/s2/p1/op1
+transposed convs through ``ops/kernels/int8_conv.py``, and the 1x1 head after a deferred
 LayerNorm through ``ops/kernels/head.py``. A block that gets ``defer_norm``
 returns ``(y, pending)``: its norm and activation as a per-(sample, channel)
 affine ``{"scale", "shift", "relu", "alpha"}`` that the next conv applies in
@@ -72,6 +72,14 @@ def pad2d(x: torch.Tensor, pad: int, padding_type: Optional[str]) -> torch.Tenso
         h_mode, w_mode = ("replicate" if n == 1 else "reflect" for n in x.shape[2:])
         return F.pad(F.pad(x, (0, 0, 1, 1), mode=h_mode), (1, 1, 0, 0), mode=w_mode)
     return F.pad(x, (pad, pad, pad, pad), mode=padding_type)
+
+
+def concat_label(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Broadcast per-sample codes (N, K), one-hot domains or a style, over
+    H, W and concat them after x on channels."""
+    n, _, h, w = x.shape
+    c_map = c[:, :, None, None].expand(n, c.shape[1], h, w).to(x.dtype)
+    return torch.cat([x, c_map], dim=1)
 
 
 def avg_pool2d(x, window: int, stride: int, padding: int = 0, count_include_pad: bool = True):
@@ -145,11 +153,11 @@ class Conv2d(_Int8State):
     """Conv with torch-style int padding, or an explicit reflect/replicate pad
     in front of an unpadded conv. Weight OIHW.
 
-    int8: a 3x3/s2/p1 conv with ``amax_in`` runs :func:`kint8.downconv`,
-    with the per-(sample, channel) stats when ``serving_stats`` (set by a
-    ConvBlock with instance norm). The stride-1 3x3 convs of this model run
-    int8 inside their resblock's kernel; alone they stay float (the int8
-    stride-1 conv is the BaseModel slice's kernel)."""
+    int8: a 3x3/p1 conv with ``amax_in`` runs :func:`kint8.conv3x3`
+    (stride 1) or :func:`kint8.downconv` (stride 2), with the
+    per-(sample, channel) stats when ``serving_stats`` (set by a ConvBlock
+    with instance norm), as the JAX ``_int8_eligible`` convs do off the TPU.
+    Other convs (the 7x7 stem, the 1x1 mix convs) calibrate but stay float."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, use_bias: bool = True, padding_type: Optional[str] = None,
@@ -173,11 +181,12 @@ class Conv2d(_Int8State):
     def forward(self, x, pending: Optional[dict] = None):
         """``pending``: a deferred norm from the previous block, applied in
         the int8 kernel's prologue or else inline. Returns y, or
-        (y, sum, sumsq) from the int8 down conv with ``serving_stats``."""
+        (y, sum, sumsq) from an int8 conv with ``serving_stats``."""
         if self.calib_amax is not None:
             self.record_amax(apply_pending(x, pending, self.dtype) if pending is not None else x)
-        if self.int8 and (self.kernel_size, self.stride, self.padding) == (3, 2, 1):
-            return kint8.downconv(x, self.quant(), pending, self.serving_stats)
+        if self.int8 and (self.kernel_size, self.padding) == (3, 1) and self.stride in (1, 2):
+            conv = kint8.conv3x3 if self.stride == 1 else kint8.downconv
+            return conv(x, self.quant(), pending, self.serving_stats)
         if pending is not None:
             x = apply_pending(x, pending, self.dtype)
         pad = self.padding
@@ -377,18 +386,23 @@ def _fused_train(x: torch.Tensor, padding_type: Optional[str]) -> bool:
 
 
 class ResnetBlock(nn.Module):
-    """conv -> norm -> act -> conv -> norm, plus the input."""
+    """conv -> norm -> act -> conv -> norm, plus the input.
+
+    ``dropout`` is inert at serving (the JAX block's dropout is
+    deterministic there); as in the JAX package it keeps the block off the
+    whole-block int8 and training kernels, so its int8 convs compose through
+    :func:`kint8.conv3x3` with statistics."""
 
     def __init__(self, features: int, norm: Optional[str] = "instance",
                  padding_type: Optional[str] = "reflect", activation: Optional[str] = "relu",
-                 dtype: torch.dtype = torch.float32):
+                 dropout: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv1 = ConvBlock(features, features, 3, 1, 1, norm=norm, activation=activation,
                                padding_type=padding_type, dtype=dtype)
         self.conv2 = ConvBlock(features, features, 3, 1, 1, norm=norm,
                                padding_type=padding_type, dtype=dtype)
         self.padding_type, self.dtype = padding_type, dtype
-        self.fusible = norm == "instance" and activation == "relu"
+        self.fusible = norm == "instance" and activation == "relu" and not dropout
 
     def forward(self, x):
         if self.fusible and self.conv1.conv.int8 and self.conv2.conv.int8:
@@ -437,6 +451,36 @@ class AdaINResnetBlock(nn.Module):
         # no activation after the second AdaIN
         h = self.adain(self.conv2(h), z)
         return x + h
+
+
+class DecResnetBlock(nn.Module):
+    """BaseModel's decoder block: conv -> IN -> mix -> conv -> IN -> mix,
+    plus the input, reflect padded. ``mix`` concatenates the block's style
+    chunk, broadcast over H, W, after h ([h, z]) and runs two 1x1 convs with
+    bias, each followed by relu. The 3x3 convs have no norm of their own
+    (``norm1`` and ``norm2`` are separate modules), so int8 runs them
+    through :func:`kint8.conv3x3` without prologue or statistics, and the
+    norms take a moments launch each. ``dropout`` is inert at serving and
+    routes nothing here."""
+
+    def __init__(self, features: int, style_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cat = features + style_dim
+        self.conv1 = ConvBlock(features, features, 3, 1, 1, padding_type="reflect", dtype=dtype)
+        self.norm1 = InstanceNorm()
+        self.block1_a = Conv2d(cat, cat, 1, dtype=dtype)
+        self.block1_b = Conv2d(cat, features, 1, dtype=dtype)
+        self.conv2 = ConvBlock(features, features, 3, 1, 1, padding_type="reflect", dtype=dtype)
+        self.norm2 = InstanceNorm()
+        self.block2_a = Conv2d(cat, cat, 1, dtype=dtype)
+        self.block2_b = Conv2d(cat, features, 1, dtype=dtype)
+
+    def forward(self, x, z):
+        def mix(a, b, h):
+            return F.relu(b(F.relu(a(concat_label(h, z)))))
+
+        h = mix(self.block1_a, self.block1_b, self.norm1(self.conv1(x)))
+        return x + mix(self.block2_a, self.block2_b, self.norm2(self.conv2(h)))
 
 
 class GaussianNoise(nn.Module):

@@ -1,11 +1,14 @@
-"""The nets of AdaINModel (NCHW).
+"""The nets of AdaINModel and BaseModel (NCHW).
 
 Ports of ``masterthesis_tpu/models/networks.py``: ``ContentEncoder``,
-``ReparameterizedStyleEncoder``, ``_StyleMLP``, ``_DecoderTail`` and
-``AdaINDecoder``, and for training ``Discriminator`` and
-``ContentDiscriminator``, with the Flax child names (``stem``, ``down0``,
-``res0``, ``linear.fc0``, ``dec1_0``, ``dec2.up0``, ``dec2.head``,
-``layer0``, ``patch_head``, ``cls_head``, ``head``).
+``StyleEncoder``, ``ReparameterizedStyleEncoder``, ``_StyleMLP``,
+``_DecoderTail``, ``AdaINDecoder``, ``Decoder`` and ``DecoderConcat``, and
+for training ``Discriminator`` and ``ContentDiscriminator``, with the Flax
+child names (``stem``, ``down0``, ``res0``, ``head``, ``linear.fc0``,
+``dec1_0``, ``dec2.up0``, ``dec2.head``, ``dec_share``, ``dec3``, ``dec4``,
+``layer0``, ``patch_head``, ``cls_head``). Channel concats follow the JAX
+order: [x, c] for the domain map, [h, z] for the style map, and
+DecoderConcat's [content, c, z].
 """
 from __future__ import annotations
 
@@ -18,25 +21,20 @@ from masterthesis_tpu_torch.models.blocks import (
     AdaINResnetBlock,
     Conv2d,
     ConvBlock,
+    DecResnetBlock,
     Dense,
     DownResnetBlock,
     GaussianNoise,
     ResnetBlock,
     UpsampleBlock,
     apply_pending,
+    concat_label,
     get_activation,
     global_avg_pool,
     split_pending,
 )
 
 MAX_FILTER_SIZE = 256
-
-
-def concat_label(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Broadcast one-hot domain labels (N, K) over H, W and concat on channels."""
-    n, _, h, w = x.shape
-    c_map = c[:, :, None, None].expand(n, c.shape[1], h, w).to(x.dtype)
-    return torch.cat([x, c_map], dim=1)
 
 
 class ContentEncoder(nn.Module):
@@ -79,6 +77,33 @@ class ContentEncoder(nn.Module):
         for i in range(self.n_blocks):
             h = getattr(self, f"res{i}")(h)
         return self.noise(h, noise)
+
+
+class StyleEncoder(nn.Module):
+    """BaseModel's plain style encoder: a 7x7 stem over [x, c], ``num_downs``
+    4x4/s2 reflect-padded downs (no norm, no bias), global average pooling
+    and a 1x1 head with bias to the latent code."""
+
+    def __init__(self, input_dim: int = 3, output_dim: int = 8, dim: int = 64,
+                 num_downs: int = 4, num_domains: int = 2, activation: str = "relu",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        common = dict(padding_type="reflect", activation=activation, dtype=dtype)
+        self.stem = ConvBlock(input_dim + num_domains, dim, 7, 1, 3, **common)
+        d = dim
+        for i in range(num_downs):
+            setattr(self, f"down{i}", ConvBlock(min(MAX_FILTER_SIZE, d), min(MAX_FILTER_SIZE, d * 2),
+                                                4, 2, 1, **common))
+            d *= 2
+        self.num_downs = num_downs
+        self.head = Conv2d(min(MAX_FILTER_SIZE, d), output_dim, 1, dtype=dtype)
+
+    def forward(self, x, c):
+        h = self.stem(concat_label(x, c))
+        for i in range(self.num_downs):
+            h = getattr(self, f"down{i}")(h)
+        h = self.head(global_avg_pool(h)[:, :, None, None])
+        return h.reshape(h.shape[0], -1)
 
 
 class ReparameterizedStyleEncoder(nn.Module):
@@ -189,6 +214,68 @@ class AdaINDecoder(nn.Module):
         for i in range(self.n_blocks):
             h = getattr(self, f"dec1_{i}")(h, style)
         return self.dec2(h)
+
+
+class Decoder(nn.Module):
+    """BaseModel's default decoder: the style MLP's output, split into one
+    ``dim``-wide chunk per block, feeds n_blocks DecResnetBlocks, then the
+    upsampling tail. (The JAX module's ``dropout`` routes nothing at serving
+    here: the blocks' convs run kernel 4 either way.)"""
+
+    def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 4,
+                 num_domains: int = 2, num_ups: int = 2, latent_dim: int = 8,
+                 up_type: str = "transpose", norm: Optional[str] = "layer",
+                 activation: Optional[str] = "relu", use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.linear = _StyleMLP(latent_dim + num_domains, dim * n_blocks, dtype=dtype)
+        for i in range(n_blocks):
+            setattr(self, f"dec1_{i}", DecResnetBlock(dim, dim, dtype=dtype))
+        self.dim, self.n_blocks = dim, n_blocks
+        self.dec2 = _DecoderTail(output_dim, dim, num_ups, up_type, norm, activation,
+                                 use_bias, dtype=dtype)
+
+    def forward(self, x, z, c):
+        chunks = self.linear(z, c)
+        h = x
+        for i in range(self.n_blocks):
+            h = getattr(self, f"dec1_{i}")(h, chunks[:, i * self.dim:(i + 1) * self.dim])
+        return self.dec2(h)
+
+
+class DecoderConcat(nn.Module):
+    """BaseModel's ``--concat`` decoder: a shared resblock, then [h, c, z]
+    through n_blocks resblocks, and z concatenated again before each of two
+    transposed-conv upsamples and the 1x1 tanh head (``dec4``, no bias).
+    With dim 256, latent 8 and 4 domains the widths are 268 (resblocks),
+    276 -> 138, 146 -> 73 and 81 -> 3."""
+
+    def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 3,
+                 num_domains: int = 2, latent_dim: int = 8, up_type: str = "transpose",
+                 dropout: bool = False, norm: Optional[str] = "layer",
+                 activation: Optional[str] = "relu", use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dec_share = ResnetBlock(dim, dtype=dtype)
+        nch = dim + latent_dim + num_domains
+        for i in range(n_blocks):
+            setattr(self, f"dec1_{i}", ResnetBlock(nch, dropout=dropout, dtype=dtype))
+        self.n_blocks = n_blocks
+        up = dict(use_bias=use_bias, norm=norm, activation=activation, up_type=up_type, dtype=dtype)
+        nch += latent_dim
+        self.dec2 = UpsampleBlock(nch, nch // 2, 3, 2, 1, 1, **up)
+        nch = nch // 2 + latent_dim
+        self.dec3 = UpsampleBlock(nch, nch // 2, 3, 2, 1, 1, **up)
+        self.dec4 = UpsampleBlock(nch // 2 + latent_dim, output_dim, 1, 1, 0, activation="tanh",
+                                  dtype=dtype)
+
+    def forward(self, x, z, c):
+        h = concat_label(concat_label(self.dec_share(x), c), z)
+        for i in range(self.n_blocks):
+            h = getattr(self, f"dec1_{i}")(h)
+        h = self.dec2(concat_label(h, z))
+        h = self.dec3(concat_label(h, z))
+        return self.dec4(concat_label(h, z))
 
 
 class Discriminator(nn.Module):

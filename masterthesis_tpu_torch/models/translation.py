@@ -87,7 +87,11 @@ def _nhwc(img: torch.Tensor) -> torch.Tensor:
 
 
 class TranslationModel(Model):
-    """Shared inference logic; subclasses build the nets."""
+    """Shared inference logic; subclasses build the nets. ``reparam``: the
+    style encoder returns (z, mu, logvar) and takes a VAE draw; without it,
+    z alone."""
+
+    reparam = True
 
     def __init__(self, args, device=None):
         super().__init__(args, device)
@@ -101,7 +105,10 @@ class TranslationModel(Model):
         return self.nets.content_encoder(img, serving=serving, noise=noise)
 
     def encode_style(self, img: torch.Tensor, c: torch.Tensor, eps=None):
-        """(z, mu, logvar); ``eps`` None gives z = mu."""
+        """(z, mu, logvar); ``eps`` None gives z = mu. The plain encoder
+        (``reparam`` off) ignores ``eps`` and gives (z, None, None)."""
+        if not self.reparam:
+            return self.nets.style_encoder(img, c), None, None
         return self.nets.style_encoder(img, c, eps)
 
     def decode(self, z_c: torch.Tensor, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -353,7 +360,7 @@ class TranslationModel(Model):
     def _timed(self, fn, *args):
         start = time.perf_counter()
         with torch.inference_mode():
-            out = fn(*(self._tensor(a) for a in args))
+            out = fn(*(None if a is None else self._tensor(a) for a in args))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out, time.perf_counter() - start, self._device_memory_gb()
@@ -370,8 +377,11 @@ class TranslationModel(Model):
     def forward_reference(self, img_src, img_ref, c_trg, eps=None, generator=None):
         """Translate with a reference image's style; returns (images, seconds,
         device_mem_GB). The VAE draw is ``eps`` (B, latent) if given, else
-        normal draws from ``generator`` (default: seed 0 on the model's device)."""
-        if eps is None:
+        normal draws from ``generator`` (default: seed 0 on the model's
+        device); a model without ``reparam`` draws nothing and ignores ``eps``."""
+        if not self.reparam:
+            eps = None
+        elif eps is None:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             eps = self.get_z_random(len(img_src), generator)

@@ -1,10 +1,12 @@
-"""int8 serving convolutions: the down conv, the whole residual block and the
-transposed conv of AdaINModel's int8 forward.
+"""int8 serving convolutions: the stride-1 and stride-2 3x3 convs, the whole
+residual block and the transposed conv of the int8 forwards.
 
-Three wrappers, one CUDA source (``csrc/int8_conv.cu``):
+Four wrappers, one CUDA source (``csrc/int8_conv.cu``):
 
-- :func:`downconv` replaces ``masterthesis_tpu/ops/pallas/conv_int8.py``
-  ``pallas_int8_downconv`` (3x3, stride 2, pad 1);
+- :func:`conv3x3` replaces ``masterthesis_tpu/ops/pallas/conv_int8.py``
+  ``pallas_int8_conv3x3`` (3x3, stride 1, pad 1: BaseModel's decoder
+  resblock convs and the convs of a composed int8 resblock);
+- :func:`downconv` replaces ``pallas_int8_downconv`` (3x3, stride 2, pad 1);
 - :func:`resblock` replaces ``pallas_int8_resblock`` (q -> conv1 -> IN/AdaIN
   -> relu -> q -> conv2 -> norm -> + x), as two stride-1 convs of the same
   template;
@@ -23,7 +25,7 @@ on the CPU, whatever the summation order).
 
 On a CPU tensor each wrapper runs its plain version, which does the same
 arithmetic with torch ops: the integer conv runs in float64, which is exact
-(|acc| <= 9 * 256 * 127^2 < 2^53; f32 would not be, past 2^24). On a CUDA
+(|acc| <= 9 * Cp * 127^2, far below 2^53; f32 would not be, past 2^24). On a CUDA
 tensor it launches the kernels or raises. Each wrapper counts its calls that
 launch the kernels in ``<wrapper>.launches``.
 """
@@ -134,8 +136,8 @@ def _kernel_layout(w_rhwc: torch.Tensor) -> torch.Tensor:
 
 
 def quant_conv(weight: torch.Tensor, bias, amax, stride: int, padding_type: Optional[str]) -> QuantConv:
-    """A 3x3, pad-1 Conv2d (weight OIHW) quantized for :func:`downconv` or a
-    resblock conv. ``padding_type`` None is zero padding, as in the JAX
+    """A 3x3, pad-1 Conv2d (weight OIHW) quantized for :func:`conv3x3`,
+    :func:`downconv` or a resblock conv. ``padding_type`` None is zero padding, as in the JAX
     package; 'replicate' has no kernel and is refused."""
     if padding_type not in (None, "zero", "reflect"):
         raise NotImplementedError(f"int8 conv: padding '{padding_type}' has no kernel")
@@ -421,6 +423,20 @@ def _conv(what: str, x: torch.Tensor, qc: QuantConv, pending, with_stats: bool):
     return conv_padded_cuda(quant_pad_cuda(x, qc, pending), qc, with_stats), True
 
 
+def conv3x3(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
+            with_stats: bool = False):
+    """3x3/s1/p1 int8 conv of NCHW f32 ``x`` -> y (B, Co, H, W) f32, and with
+    ``with_stats`` its per-(sample, channel) (sum, sumsq). ``pending`` as in
+    :func:`downconv`. The channel padding to a multiple of 32 is the
+    template's own, so any C and Co run on the kernel."""
+    if qc.stride != 1 or qc.phases != 1:
+        raise ValueError("conv3x3 takes a stride-1 QuantConv from quant_conv")
+    out, launched = _conv("int8 conv3x3", x, qc, pending, with_stats)
+    if launched:
+        conv3x3.launches += 1
+    return out
+
+
 def downconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
              with_stats: bool = False):
     """3x3/s2/p1 int8 conv of NCHW f32 ``x`` -> y (B, Co, H/2, W/2) f32, and
@@ -491,6 +507,7 @@ def with_unit_scale(qc: QuantConv) -> QuantConv:
     return replace(qc, scale=torch.ones_like(qc.scale), bias=None)
 
 
+conv3x3.launches = 0
 downconv.launches = 0
 deconv.launches = 0
 resblock.launches = 0

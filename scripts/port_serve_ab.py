@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Float serving A/B of two checkouts of the PyTorch port on one NVIDIA card.
+"""Serving A/B of two checkouts of the PyTorch port on one NVIDIA card.
 
     python3 scripts/port_serve_ab.py PARENT_DIR CHANGE_DIR [--rounds 3]
 
-Runs ``chip_smoke.py``'s float ``serve`` phase alone (bf16, then f32: the
-flagship AdaINModel at B=8, 256px, dim 64), each time in a fresh process
+Runs ``chip_smoke.py``'s ``serve`` phase (bf16, then f32) and its
+``int8_serve`` phase alone (the flagship AdaINModel at B=8, 256px, dim 64),
+each time in a fresh process
 from the root of one checkout, in the order parent, change, change, parent
 per round. Prints one JSON line per process and dtype: the side, img/s, and
 the median and least request ms. Each checkout builds its own kernels at
@@ -28,7 +29,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 build.build()
 card = cs.card_line()
 for dtype in sys.argv[1:]:
-    cs.serve(dtype, card)
+    cs.int8_serve(card) if dtype == "int8" else cs.serve(dtype, card)
 """
 
 
@@ -41,10 +42,10 @@ def run(side: str, root: str, dtypes) -> None:
         if not line.startswith("{"):
             continue
         d = json.loads(line)
-        if d.get("phase") != "serve":
+        if d.get("phase") not in ("serve", "int8_serve"):
             continue
         ms = sorted(1e3 * s for s in d["request_s"])
-        print(json.dumps(dict(side=side, dtype=d["dtype"], img_per_s=d["img_per_s"],
+        print(json.dumps(dict(side=side, dtype=d.get("dtype", "int8"), img_per_s=d["img_per_s"],
                               median_ms=statistics.median(ms), min_ms=ms[0], card=d["card"])),
               flush=True)
 
@@ -57,7 +58,7 @@ def main(argv) -> int:
     a = p.parse_args(argv)
     for _ in range(a.rounds):
         for side in ("parent", "change", "change", "parent"):
-            run(side, getattr(a, side), ("bf16", "f32"))
+            run(side, getattr(a, side), ("bf16", "f32", "int8"))
     return 0
 
 

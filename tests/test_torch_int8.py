@@ -436,9 +436,10 @@ def test_int8_needs_compute_dtype_float32(setup):
 def test_every_int8_conv_goes_through_the_kernel_wrappers(setup, int8_model, entry, monkeypatch):
     """Per int8 forward: 2 down convs, 8 resblocks (4 encoder, 4 AdaIN),
     2 transposed convs and 1 head go through the four int8 wrappers, and the
-    only norm statistics pass left is the stem's, one moments call. The card
-    counts the same launches (chip_smoke.py)."""
-    calls = dict.fromkeys(("downconv", "resblock", "deconv", "head", "moments"), 0)
+    only norm statistics pass left is the stem's, one moments call. No
+    stride-1 conv runs alone (kernel 4): all run inside their resblock. The
+    card counts the same launches (chip_smoke.py)."""
+    calls = dict.fromkeys(("downconv", "resblock", "conv3x3", "deconv", "head", "moments"), 0)
 
     def counting(module, name):
         real = getattr(module, name)
@@ -448,7 +449,7 @@ def test_every_int8_conv_goes_through_the_kernel_wrappers(setup, int8_model, ent
             return real(*a, **kw)
         monkeypatch.setattr(module, name, wrapper)
 
-    for name in ("downconv", "resblock", "deconv"):
+    for name in ("downconv", "resblock", "conv3x3", "deconv"):
         counting(kq, name)
     counting(khead, "head")
     counting(kmoments, "moments")
@@ -457,4 +458,5 @@ def test_every_int8_conv_goes_through_the_kernel_wrappers(setup, int8_model, ent
         int8_model.forward_random(s.inputs["img"], s.inputs["z"], s.inputs["c"])
     else:
         int8_model.forward_reference(s.inputs["img"], s.inputs["ref"], s.inputs["c"])
-    assert calls == {"downconv": 2, "resblock": 8, "deconv": 2, "head": 1, "moments": 1}
+    assert calls == {"downconv": 2, "resblock": 8, "conv3x3": 0, "deconv": 2, "head": 1,
+                     "moments": 1}
