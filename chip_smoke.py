@@ -67,10 +67,13 @@ against its plain PyTorch version.
    3, the reference GAN step, ``--fused_resblock auto``). Kernels 9 and 10
    (``resblock_fwd``/``resblock_bwd``) are first held against their plain
    versions at the step's shapes, (16, 256, 64, 64) and (32, 256, 64, 64)
-   bf16, within 2e-2 of each tensor's largest magnitude, and timed beside
-   their bound (bf16 operations over the 989 TFLOP/s dense peak), the plain
-   version and the port's composed block (cuDNN bf16 convs, the AdaIN
-   kernel, torch elementwise; its autograd for the backward). A small f32
+   bf16, and at ragged shapes (odd B, H x W off the M-tile, W != 64),
+   within 2e-2 of each tensor's largest magnitude; two calls must give the
+   same bits. They are timed beside their bound (bf16 operations over the
+   989 TFLOP/s dense peak), the plain version and the port's composed block
+   (cuDNN bf16 convs, the AdaIN kernel, torch elementwise; its autograd for
+   the backward), and each of their launches at (16, 256, 64, 64) beside its
+   own bound (``resblock_breakdown``). A small f32
    main step on the card must match the same step on the CPU (losses within
    1e-4, at most 1 % of params beyond 0.1 lr). Then a warm-up main step,
    three timed main steps and a timed d_iter cycle (main + 2 content
@@ -78,9 +81,10 @@ against its plain PyTorch version.
    launches kernel 9 32 times and kernel 10 24 times. Losses must be finite,
    the main steps must move every net but the content discriminator, the
    cycle every net; the same first step with ``--fused_resblock off`` from
-   the same weights and draws must give losses within 3 %. Prints main-step
-   it/s, schedule img/s (2 x batch per iteration), seconds per step and
-   peak device memory.
+   the same weights and draws must give losses within 3 %, and three more
+   composed main steps are timed beside the fused ones. Prints main-step
+   it/s (fused and composed), schedule img/s (2 x batch per iteration),
+   seconds per step and peak device memory.
 8. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
@@ -185,6 +189,9 @@ FUSED_PER_STEP = {"resblock_fwd": 32, "resblock_bwd": 24}
 # an h or dgrad value to the neighbouring bf16 value, which the next conv
 # carries on; relative to each tensor's largest magnitude
 RESBLOCK_TOL = 2e-2
+# kernels 9 and 10 are also held to their plain versions at ragged shapes: odd
+# batches, H x W not a multiple of the conv's 128-row M-tile, W != 64
+RESBLOCK_RAGGED_SHAPES = [(3, 128, 12, 20), (1, 256, 24, 40)]
 TRAIN_LOSS_TOL = 0.03  # fused against composed: the JAX package's own bar
 # the small f32 step on the card against the CPU: the CPU tests' loss bound;
 # params may differ by Adam steps of another sign where a decayed gradient is
@@ -586,10 +593,14 @@ def check_resblock(kind: str) -> dict:
         else:
             got = krb.resblock_bwd(x, h1, h2, g, stats, w1, w2, gamma, beta)
             ref = krb.resblock_bwd_plain(x, h1, h2, g, stats, w1, w2, gamma, beta)
+        again = (krb.resblock_fwd(x, w1, w2, gamma, beta) if fwd
+                 else krb.resblock_bwd(x, h1, h2, g, stats, w1, w2, gamma, beta))
         torch.cuda.synchronize()
         err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
         rel = _rel_err(got, ref)
         assert rel <= RESBLOCK_TOL, f"resblock {kind} {shape}: relative error {rel} > {RESBLOCK_TOL}"
+        repeats = all(torch.equal(a, r) for a, r in zip(got, again))
+        assert repeats, f"resblock {kind} {shape}: two calls differ"
         conv_flops = 2 * b * h * w * 9 * c * c
         wbytes, sbytes = 9 * c * c * 4, b * c * 4
         if fwd:  # x, w1, w2, gamma, beta in; out, h1, h2, stats out
@@ -611,11 +622,27 @@ def check_resblock(kind: str) -> dict:
         rows.append(dict(
             shape=list(shape), per_step=per_step, max_abs_err=err, max_rel_err=rel,
             tol=dict(relative=RESBLOCK_TOL), flops=flops, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=b_ms, bound_by=by,
-            cuda_launches_per_call=7 if fwd else 13, **extra,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=by, bit_equal_repeat=repeats,
+            cuda_launches_per_call=7 if fwd else 12, **extra,
         ))
         del sets
         torch.cuda.empty_cache()
+    ragged = []
+    for i, shape in enumerate(RESBLOCK_RAGGED_SHAPES):
+        x, w1, w2, gamma, beta, g = _resblock_set(shape, 950 + i)
+        _, h1, h2, stats = krb.resblock_fwd(x, w1, w2, gamma, beta)
+        runs = [krb.resblock_fwd(x, w1, w2, gamma, beta) if fwd
+                else krb.resblock_bwd(x, h1, h2, g, stats, w1, w2, gamma, beta) for _ in range(2)]
+        ref = (krb.resblock_fwd_plain(x, w1, w2, gamma, beta) if fwd
+               else krb.resblock_bwd_plain(x, h1, h2, g, stats, w1, w2, gamma, beta))
+        torch.cuda.synchronize()
+        rel = _rel_err(runs[0], ref)
+        repeats = all(torch.equal(a, r) for a, r in zip(*runs))
+        ragged.append(dict(shape=list(shape), max_rel_err=rel, bit_equal_repeat=repeats))
+        assert rel <= RESBLOCK_TOL, f"resblock {kind} {shape}: relative error {rel} > {RESBLOCK_TOL}"
+        assert repeats, f"resblock {kind} {shape}: two calls differ"
+    log(dict(phase="resblock_ragged", kernel=f"resblock_{kind}", tol=dict(relative=RESBLOCK_TOL),
+             shapes=ragged))
     name = f"resblock_{kind}"
     return summarize(name, "bf16", rows,
                      "masterthesis_tpu/ops/pallas/resblock_bf16.py:" + ("309" if fwd else "568"),
@@ -624,6 +651,90 @@ def check_resblock(kind: str) -> dict:
                      "the AdaIN kernel, torch elementwise" + ("" if fwd else "; autograd"),
                      name=name, per="main step at batch 8 per side, 256px, dim 64, bf16",
                      count="per_step")
+
+
+def resblock_breakdown() -> list:
+    """Device ms per launch of kernels 9 and 10 at the main step's (16, 256,
+    64, 64) bf16, each beside its own bound (bytes: each input read once,
+    each output written once; operations: the bf16 MACs), on two rotating
+    sets of buffers that together exceed L2."""
+    b, c, h, w = RESBLOCK_FWD_SHAPES[0][0]
+    dt = torch.bfloat16
+    run = krb._Launcher(dt, torch.device("cuda"))
+    act, padded, wide = (b * hh * ww * c * 2 for hh, ww in ((h, w), (h + 2, w + 2),
+                                                          (h + 4, w + 4)))
+    stat, wbytes = b * c * 4, 9 * c * c * 2
+    conv_flops = 2 * b * h * w * 9 * c * c
+    dgrad_flops = 2 * b * (h + 2) * (w + 2) * 9 * c * c
+
+    def buffers(seed):
+        x, w1, w2, gamma, beta, g = _resblock_set((b, c, h, w), seed)
+        e = lambda *shape: torch.empty(shape, device="cuda", dtype=dt)  # noqa: E731
+        s = dict(x=x, g=g, gamma=gamma.float(), beta=beta.float(), t1=krb._taps(w1, dt),
+                 t2=krb._taps_flipped(w2, dt), pad=e(b, h + 2, w + 2, c), wide=e(b, h + 4, w + 4, c),
+                 dh=e(b, h + 4, w + 4, c), dp=e(b, h + 2, w + 2, c), h1=e(b, h, w, c),
+                 gh=e(b, h, w, c), out=torch.empty_like(x),
+                 dw=torch.empty((c, c, 3, 3), device="cuda"),
+                 **{k: torch.empty((b, c), device="cuda") for k in ("m", "r", "s1", "s2")})
+        for step in steps:  # every buffer holds finite values before the timing
+            step[3](s)
+        return s
+
+    steps = [  # (kernel, launch, bound (bytes, flops), fn)
+        (9, "pad (NCHW x in)", (act + padded, 0),
+         lambda s: run("pad", s["x"], s["pad"], None, None, None, None, 0, b, h, w, c, 1, 0, 1)),
+        (9, "conv (wgmma)", (padded + wbytes + act, conv_flops),
+         lambda s: run("conv", s["pad"], s["t1"], s["h1"], b, h + 2, w + 2, c, c)),
+        (9, "stats", (act + 2 * stat, 0),
+         lambda s: run("stats", s["h1"], s["m"], s["r"], b, h * w, c, 1e-5)),
+        (9, "pad (norm + relu)", (act + padded + 4 * stat, 0),
+         lambda s: run("pad", s["h1"], s["pad"], s["m"], s["r"], s["gamma"], s["beta"], 1, b, h, w,
+                       c, 1, 0, 0)),
+        (9, "residual (NCHW out)", (3 * act + 4 * stat, 0),
+         lambda s: run("residual", s["x"], s["h1"], s["m"], s["r"], s["gamma"], s["beta"],
+                       s["out"], b, h * w, c)),
+        (10, "g NCHW -> NHWC", (2 * act, 0),
+         lambda s: run("nhwc", s["g"], s["gh"], b, c, h, w)),
+        (10, "norm_bwd sums (g)", (2 * act + 4 * stat, 0),
+         lambda s: run("norm_bwd", s["gh"], 0, 1, s["h1"], s["m"], s["r"], s["gamma"], s["beta"],
+                       0, s["s1"], s["s2"], None, b, h, w, c)),
+        (10, "norm_bwd apply (g)", (2 * act + wide + 6 * stat, 0),
+         lambda s: run("norm_bwd", s["gh"], 0, 1, s["h1"], s["m"], s["r"], s["gamma"], s["beta"],
+                       0, s["s1"], s["s2"], s["dh"], b, h, w, c)),
+        (10, "pad (norm + relu, ringed)", (act + wide + 4 * stat, 0),
+         lambda s: run("pad", s["h1"], s["wide"], s["m"], s["r"], s["gamma"], s["beta"], 1, b, h,
+                       w, c, 1, 1, 0)),
+        (10, "wgrad (wgmma, cluster)", (2 * wide + 9 * c * c * 4, conv_flops),
+         lambda s: run("wgrad", s["wide"], s["dh"], s["dw"], b, h, w, c, c)),
+        (10, "conv (dgrad, wgmma)", (wide + wbytes + padded, dgrad_flops),
+         lambda s: run("conv", s["dh"], s["t2"], s["dp"], b, h + 4, w + 4, c, c)),
+        (10, "norm_bwd sums (folded)", (padded + act + 4 * stat, 0),
+         lambda s: run("norm_bwd", s["dp"], 1, 1, s["h1"], s["m"], s["r"], s["gamma"], s["beta"],
+                       1, s["s1"], s["s2"], None, b, h, w, c)),
+        (10, "norm_bwd apply (folded)", (padded + act + wide + 6 * stat, 0),
+         lambda s: run("norm_bwd", s["dp"], 1, 1, s["h1"], s["m"], s["r"], s["gamma"], s["beta"],
+                       1, s["s1"], s["s2"], s["dh"], b, h, w, c)),
+        (10, "pad (NCHW x in, ringed)", (act + wide, 0),
+         lambda s: run("pad", s["x"], s["wide"], None, None, None, None, 0, b, h, w, c, 1, 1, 1)),
+        (10, "dx (NCHW out)", (act + padded + act, 0),
+         lambda s: run("dx", s["g"], s["dp"], s["out"], b, h, w, c, 1)),
+    ]
+    sets = [buffers(970 + i) for i in range(2)]
+    rows = []
+    for kernel, name, (nbytes, flops), fn in steps:
+        b_ms, by = bound(nbytes, flops, BF16_FLOPS)
+        ms = device_ms(fn, [(s,) for s in sets])
+        rows.append(dict(kernel=kernel, launch=name, ms=ms, bound_ms=b_ms, bound_by=by,
+                         over_bound=ms / b_ms))
+    per = {k: sum(r["ms"] * (2 if r["launch"].startswith(("conv", "stats", "wgrad")) else 1)
+                  for r in rows if r["kernel"] == k) for k in (9, 10)}
+    log(dict(phase="resblock_breakdown", shape=[b, c, h, w], dtype="bf16",
+             wgrad_splits=krb.wgrad_splits(b, c, h, w), launches=rows,
+             sum_per_call_ms={"resblock_fwd": per[9], "resblock_bwd": per[10]},
+             note="conv, stats and wgrad run twice per call; the others once"))
+    del sets
+    torch.cuda.empty_cache()
+    return rows
 
 
 PLAIN = [
@@ -982,7 +1093,7 @@ def train(card: str) -> dict:
     off.generator.manual_seed(1)
     counts0 = fused_counts()
     composed, composed_first_s = _timed_step(off, batch, 0)
-    _, composed_s = _timed_step(off, batch, 3)
+    composed_s = [_timed_step(off, batch, it)[1] for it in (3, 6, 9)]
     assert fused_counts() == counts0, "the composed step launched kernel 9 or 10"
     gap = {k: abs(first[k] - v) / max(abs(v), 1.0) for k, v in composed.items()}
     worst = max(gap, key=gap.get)
@@ -993,6 +1104,7 @@ def train(card: str) -> dict:
         images_per_side=B, main_step_s=main_s, main_it_per_s=len(main_s) / sum(main_s),
         cycle_s=cycle_s, schedule_img_per_s=3 * 2 * B / cycle_s, first_step_s=first_s,
         composed_first_step_s=composed_first_s, composed_step_s=composed_s,
+        composed_it_per_s=len(composed_s) / sum(composed_s),
         peak_memory_allocated_gb=peak_gb, launches=launched,
         per_main_step=FUSED_PER_STEP, first_step_losses=first,
         fused_vs_composed=dict(worst=worst, rel_gap=gap[worst], tol=TRAIN_LOSS_TOL),
@@ -1082,6 +1194,7 @@ def main(argv) -> int:
                     check_int8_conv("deconv"), check_head()]
     torch.cuda.empty_cache()
     train_entries = [check_resblock("fwd"), check_resblock("bwd")]
+    resblock_breakdown()
     for dtype_name in DTYPES:
         check_small_against_cpu(dtype_name)
     check_small_int8_against_cpu()

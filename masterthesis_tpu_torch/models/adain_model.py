@@ -29,7 +29,7 @@ class AdaINModel(TranslationModel):
         self.nets.decoder = networks.AdaINDecoder(
             output_dim=a.input_dim, dim=self.nets.content_encoder.output_dim,
             num_domains=a.num_domains, latent_dim=a.latent_dim, up_type=a.up_type,
-            norm=a.dec_norm, dtype=dtype,
+            norm=a.dec_norm, dropout=bool(a.use_dropout), dtype=dtype,
         )
         if self.is_train():
             self._check_train_flags()

@@ -418,13 +418,21 @@ class ResnetBlock(nn.Module):
 
 class AdaINResnetBlock(nn.Module):
     """Residual block with one AdaIN, shared by both convs (its style
-    projection too)."""
+    projection too).
+
+    ``dropout`` is inert at serving, as the JAX block's deterministic
+    dropout; as in the JAX package it keeps the block off the whole-block
+    int8 and training kernels, so its int8 convs compose through
+    :func:`kint8.conv3x3` with the AdaIN after each. Training with it raises
+    (``_UNPORTED``) until the dropout draw is ported."""
 
     def __init__(self, features: int, style_dim: int, padding_type: Optional[str] = "reflect",
-                 activation: Optional[str] = "relu", dtype: torch.dtype = torch.float32):
+                 activation: Optional[str] = "relu", dropout: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.adain = AdaptiveInstanceNorm(features, style_dim, dtype=dtype)
         self.activation, self.padding_type, self.dtype = activation, padding_type, dtype
+        self.fusible = activation in ("relu", None) and not dropout
         self.act = get_activation(activation)
         self.conv1 = ConvBlock(features, features, 3, 1, 1, padding_type=padding_type, dtype=dtype)
         self.conv2 = ConvBlock(features, features, 3, 1, 1, padding_type=padding_type, dtype=dtype)
@@ -437,12 +445,11 @@ class AdaINResnetBlock(nn.Module):
         return (t.contiguous() for t in h.chunk(2, dim=-1))
 
     def forward(self, x, z):
-        fusible = self.activation in ("relu", None)
-        if fusible and self.conv1.conv.int8 and self.conv2.conv.int8:
+        if self.fusible and self.conv1.conv.int8 and self.conv2.conv.int8:
             gamma, beta = self._style_affine(z)
             return kint8.resblock(x, self.conv1.conv.quant(), self.conv2.conv.quant(),
                                   gamma, beta, relu_mid=self.activation == "relu")
-        if fusible and _fused_train(x, self.padding_type):
+        if self.fusible and _fused_train(x, self.padding_type):
             gamma, beta = self._style_affine(z)
             return krb.fused_resblock(x.to(self.dtype), self.conv1.conv.weight,
                                       self.conv2.conv.weight, gamma, beta, self.padding_type,

@@ -193,17 +193,18 @@ class _DecoderTail(nn.Module):
 
 class AdaINDecoder(nn.Module):
     """One style code from the style MLP modulates n_blocks AdaIN resblocks,
-    then the upsampling tail."""
+    then the upsampling tail. ``dropout`` routes the blocks as in the JAX
+    package (see :class:`AdaINResnetBlock`)."""
 
     def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 4,
                  num_domains: int = 2, num_ups: int = 2, latent_dim: int = 8,
                  up_type: str = "transpose", norm: Optional[str] = "layer",
                  activation: Optional[str] = "relu", use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.linear = _StyleMLP(latent_dim + num_domains, dim, dtype=dtype)
         for i in range(n_blocks):
-            setattr(self, f"dec1_{i}", AdaINResnetBlock(dim, dim, dtype=dtype))
+            setattr(self, f"dec1_{i}", AdaINResnetBlock(dim, dim, dropout=dropout, dtype=dtype))
         self.n_blocks = n_blocks
         self.dec2 = _DecoderTail(output_dim, dim, num_ups, up_type, norm, activation,
                                  use_bias, dtype=dtype)

@@ -48,6 +48,7 @@ _UNPORTED = (
     (lambda a: a.vgg_loss is not None, "--vgg_loss", "A.6 (VGG weights)"),
     (lambda a: a.remat, "--remat", "A.6"),
     (lambda a: a.int8_train, "--int8_train", "A.6"),
+    (lambda a: a.use_dropout, "--use_dropout", "A.1 (the dropout draw)"),
 )
 
 

@@ -19,8 +19,11 @@ NHWC and stats (B, 4, C) f32 (mean1, rstd1, mean2, rstd2), as the JAX
 package's. On a CPU tensor a wrapper runs its plain version (torch ops, the
 same arithmetic: T operands with f32 sums in the convs, f64 statistics, the
 backward's casts to T); on a CUDA tensor it launches ``csrc/resblock_bf16.cu``
-(7 launches forward, 13 backward, over NHWC intermediates) or raises. The
-NCHW <-> NHWC permutes of the wrappers are part of their time.
+(7 launches forward, 12 backward, over NHWC intermediates; bf16 convs and
+wgrads on the tensor cores through wgmma and TMA) or raises. The passes that
+meet the NCHW activations change the layout on the way (the first pads read
+x, the residual and dx write NCHW; the backward copies g to NHWC with its
+own tiled pass).
 ``<wrapper>.launches`` counts the calls that launch the kernels,
 ``<plain>.calls`` the plain versions' calls.
 
@@ -43,7 +46,6 @@ from masterthesis_tpu_torch.ops.kernels import build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-WGRAD_CHUNK = 2048  # pixels per wgrad partial (csrc/resblock_bf16.cu wgrad_kernel)
 MODES = ("auto", "on", "off")
 
 _train_mode = None  # the fused_resblock mode inside a training step, else None
@@ -203,23 +205,30 @@ resblock_bwd_plain.calls = 0
 def _library() -> ctypes.CDLL:
     lib = build.load("resblock_bf16")
     sigs = {
-        "pad": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I64, _I32, _P],
+        "pad": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I64, _I32, _I32, _I32, _P],
         "conv": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
         "stats": [_P, _P, _P, _I64, _I64, _I64, _F32, _P],
         "residual": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
         "norm_bwd": [_P, _I32, _I32, _P, _P, _P, _P, _P, _I32, _P, _P, _P,
                      _I64, _I64, _I64, _I64, _P],
-        "wgrad": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P],
+        "wgrad": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
         "dx": [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P],
+        "nhwc": [_P, _P, _I64, _I64, _I64, _I64, _P],
     }
     for suffix in _DTYPES.values():
         for name, argtypes in sigs.items():
             fn = getattr(lib, f"mt_rb_{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    lib.mt_rb_wgrad_reduce.argtypes = [_P, _P, _I64, _I64, _I64, _P]
-    lib.mt_rb_wgrad_reduce.restype = ctypes.c_int
+    lib.mt_rb_wgrad_splits.argtypes = [_I64] * 5
+    lib.mt_rb_wgrad_splits.restype = ctypes.c_int
     return lib
+
+
+def wgrad_splits(b: int, c: int, h: int, w: int) -> int:
+    """The cluster size (K splits) of the bf16 wgrad at an NCHW shape: the
+    most, up to 8, whose clusters all run at once on this card."""
+    return _library().mt_rb_wgrad_splits(b, h, w, c, c)
 
 
 class _Launcher:
@@ -231,8 +240,7 @@ class _Launcher:
         self.stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
     def __call__(self, name, *args):
-        fn = getattr(self.lib, f"mt_rb_{name}_{self.suffix}" if name != "wgrad_reduce"
-                     else "mt_rb_wgrad_reduce")
+        fn = getattr(self.lib, f"mt_rb_{name}_{self.suffix}")
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         build.check(self.lib, fn(*ptrs, self.stream), f"resblock {name}")
 
@@ -243,8 +251,8 @@ def _check(x, w1, w2, gamma, beta, padding_type):
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"resblock: x must be 4-D f32 or bf16, got {tuple(x.shape)} {x.dtype}")
     b, c, h, w = x.shape
-    if c % 64 or h < 3 or w < 3:
-        raise ValueError(f"resblock: needs C % 64 == 0 and H, W >= 3, got {tuple(x.shape)}")
+    if c % 128 or h < 8 or w < 8:
+        raise ValueError(f"resblock: needs C % 128 == 0 and H, W >= 8, got {tuple(x.shape)}")
     for name, t in (("w1", w1), ("w2", w2)):
         if tuple(t.shape) != (c, c, 3, 3) or t.device != x.device:
             raise ValueError(f"resblock: {name} must be ({c}, {c}, 3, 3) on {x.device}")
@@ -286,19 +294,20 @@ def resblock_fwd(x, w1, w2, gamma, beta, padding_type="reflect", relu_mid=True, 
     gamma, beta = _f32(gamma), _f32(beta)
     run = _Launcher(dtype, x.device)
     with torch.cuda.device(x.device):
-        xh = _nhwc(x.detach())
+        x = x.detach().contiguous()
         pad = torch.empty((b, h + 2, w + 2, c), device=x.device, dtype=dtype)
-        h1, h2, out = (torch.empty_like(xh) for _ in range(3))
+        h1, h2 = (torch.empty((b, h, w, c), device=x.device, dtype=dtype) for _ in range(2))
+        out = torch.empty_like(x)
         m1, r1, m2, r2 = (torch.empty((b, c), device=x.device) for _ in range(4))
-        run("pad", xh, pad, None, None, None, None, 0, b, h, w, c, reflect)
+        run("pad", x, pad, None, None, None, None, 0, b, h, w, c, reflect, 0, 1)
         run("conv", pad, _taps(w1, dtype), h1, b, h + 2, w + 2, c, c)
         run("stats", h1, m1, r1, b, h * w, c, float(eps))
-        run("pad", h1, pad, m1, r1, gamma, beta, int(relu_mid), b, h, w, c, reflect)
+        run("pad", h1, pad, m1, r1, gamma, beta, int(relu_mid), b, h, w, c, reflect, 0, 0)
         run("conv", pad, _taps(w2, dtype), h2, b, h + 2, w + 2, c, c)
         run("stats", h2, m2, r2, b, h * w, c, float(eps))
-        run("residual", xh, h2, m2, r2, gamma, beta, out, b, h * w, c)
+        run("residual", x, h2, m2, r2, gamma, beta, out, b, h * w, c)
     resblock_fwd.launches += 1
-    return _nchw(out).contiguous(), h1, h2, torch.stack([m1, r1, m2, r2], dim=1)
+    return out, h1, h2, torch.stack([m1, r1, m2, r2], dim=1)
 
 
 resblock_fwd.launches = 0
@@ -320,37 +329,36 @@ def resblock_bwd(x, h1, h2, g, stats, w1, w2, gamma, beta, padding_type="reflect
     gamma, beta = _f32(gamma), _f32(beta)
     m1, r1, m2, r2 = (t.contiguous() for t in stats.unbind(dim=1))
     run = _Launcher(dtype, x.device)
-    pixels = b * h * w
-    splits = -(-pixels // WGRAD_CHUNK)
     with torch.cuda.device(x.device):
-        xh = _nhwc(x.detach())
-        gh = _nhwc(g.detach().to(dtype))
+        x = x.detach().contiguous()
+        g = g.detach().to(dtype).contiguous()
+        gh = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
+        run("nhwc", g, gh, b, c, h, w)
         sg, sgy, sd, sdy = (torch.empty((b, c), device=x.device) for _ in range(4))
+        # dh and the wgrad's conv inputs (padded, in a zero ring) share the
+        # (H+4, W+4) grid
         dh = torch.empty((b, h + 4, w + 4, c), device=x.device, dtype=dtype)
-        pad = torch.empty((b, h + 2, w + 2, c), device=x.device, dtype=dtype)
-        dp = torch.empty_like(pad)
-        part = torch.empty((splits, 9, c, c), device=x.device)
+        wide = torch.empty_like(dh)
+        dp = torch.empty((b, h + 2, w + 2, c), device=x.device, dtype=dtype)
         dw1, dw2 = (torch.empty((c, c, 3, 3), device=x.device) for _ in range(2))
-        dxh = torch.empty_like(xh)
+        dx = torch.empty_like(x)
         # norm2: dh2 (padded by 2) from g
         run("norm_bwd", gh, 0, reflect, h2, m2, r2, gamma, beta, 0, sg, sgy, None, b, h, w, c)
         run("norm_bwd", gh, 0, reflect, h2, m2, r2, gamma, beta, 0, sg, sgy, dh, b, h, w, c)
         # dW2 from a1 = relu(norm1(h1)), padded; da1 = dgrad of dh2, unfolded
-        run("pad", h1, pad, m1, r1, gamma, beta, relu, b, h, w, c, reflect)
-        run("wgrad", pad, dh, part, b, h, w, c, c, WGRAD_CHUNK, splits)
-        run("wgrad_reduce", part, dw2, splits, c, c)
+        run("pad", h1, wide, m1, r1, gamma, beta, relu, b, h, w, c, reflect, 1, 0)
+        run("wgrad", wide, dh, dw2, b, h, w, c, c)
         run("conv", dh, _taps_flipped(w2, dtype), dp, b, h + 4, w + 4, c, c)
         # norm1 through the pad adjoint and the relu mask: dh1 (padded by 2)
         run("norm_bwd", dp, 1, reflect, h1, m1, r1, gamma, beta, relu, sd, sdy, None, b, h, w, c)
         run("norm_bwd", dp, 1, reflect, h1, m1, r1, gamma, beta, relu, sd, sdy, dh, b, h, w, c)
         # dW1 from pad(x); dx = g + the folded dgrad of dh1
-        run("pad", xh, pad, None, None, None, None, 0, b, h, w, c, reflect)
-        run("wgrad", pad, dh, part, b, h, w, c, c, WGRAD_CHUNK, splits)
-        run("wgrad_reduce", part, dw1, splits, c, c)
+        run("pad", x, wide, None, None, None, None, 0, b, h, w, c, reflect, 1, 1)
+        run("wgrad", wide, dh, dw1, b, h, w, c, c)
         run("conv", dh, _taps_flipped(w1, dtype), dp, b, h + 4, w + 4, c, c)
-        run("dx", gh, dp, dxh, b, h, w, c, reflect)
+        run("dx", g, dp, dx, b, h, w, c, reflect)
     resblock_bwd.launches += 1
-    return _nchw(dxh).contiguous(), dw1, dw2, sgy + sdy, sg + sd
+    return dx, dw1, dw2, sgy + sdy, sg + sd
 
 
 resblock_bwd.launches = 0

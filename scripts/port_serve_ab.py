@@ -2,12 +2,14 @@
 """Serving A/B of two checkouts of the PyTorch port on one NVIDIA card.
 
     python3 scripts/port_serve_ab.py PARENT_DIR CHANGE_DIR [--rounds 3]
+        [--paths bf16 f32 int8 base_A_f32 base_B_f32]
 
-Runs ``chip_smoke.py``'s ``serve`` phase (bf16, then f32) and its
-``int8_serve`` phase alone (the flagship AdaINModel at B=8, 256px, dim 64),
-each time in a fresh process
+Runs ``chip_smoke.py``'s ``serve`` phase (bf16, f32) and its ``int8_serve``
+phase alone (the flagship AdaINModel at B=8, 256px, dim 64), and with
+``base_A_f32`` / ``base_B_f32`` its ``serve`` phase on BaseModel's configs
+A and B in f32, each time in a fresh process
 from the root of one checkout, in the order parent, change, change, parent
-per round. Prints one JSON line per process and dtype: the side, img/s, and
+per round. Prints one JSON line per process and path: the side, img/s, and
 the median and least request ms. Each checkout builds its own kernels at
 first use. Needs a CUDA card; without one the first process fails.
 """
@@ -28,8 +30,15 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 build.build()
 card = cs.card_line()
-for dtype in sys.argv[1:]:
-    cs.int8_serve(card) if dtype == "int8" else cs.serve(dtype, card)
+for path in sys.argv[1:]:
+    if path == "int8":
+        cs.int8_serve(card)
+    elif path.startswith("base_"):
+        cfg = path.split("_")[1]
+        cs.serve("f32", card, cs.BaseModel, cs.BASE_CONFIGS[cfg], cs.BASE_FLOAT_PER_FORWARD,
+                 f"base_serve/{cfg}", reps=2)
+    else:
+        cs.serve(path, card)
 """
 
 
@@ -42,10 +51,13 @@ def run(side: str, root: str, dtypes) -> None:
         if not line.startswith("{"):
             continue
         d = json.loads(line)
-        if d.get("phase") not in ("serve", "int8_serve"):
+        if d.get("phase") not in ("serve", "int8_serve", "base_serve/A", "base_serve/B"):
             continue
         ms = sorted(1e3 * s for s in d["request_s"])
-        print(json.dumps(dict(side=side, dtype=d.get("dtype", "int8"), img_per_s=d["img_per_s"],
+        path = d.get("dtype", "int8")
+        if d["phase"].startswith("base_"):
+            path = f"base_{d['phase'][-1]}_{path}"
+        print(json.dumps(dict(side=side, path=path, img_per_s=d["img_per_s"],
                               median_ms=statistics.median(ms), min_ms=ms[0], card=d["card"])),
               flush=True)
 
@@ -55,10 +67,12 @@ def main(argv) -> int:
     p.add_argument("parent")
     p.add_argument("change")
     p.add_argument("--rounds", type=int, default=3)
+    p.add_argument("--paths", nargs="+", default=["bf16", "f32", "int8"],
+                   choices=["bf16", "f32", "int8", "base_A_f32", "base_B_f32"])
     a = p.parse_args(argv)
     for _ in range(a.rounds):
         for side in ("parent", "change", "change", "parent"):
-            run(side, getattr(a, side), ("bf16", "f32", "int8"))
+            run(side, getattr(a, side), a.paths)
     return 0
 
 

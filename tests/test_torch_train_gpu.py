@@ -97,6 +97,31 @@ def test_resblock_kernels_match_plain_at_the_flagship_shape(cuda):
     _check((16, 256, 64, 64), torch.bfloat16, "reflect", True, True, cuda)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,padding", [
+    ((3, 128, 12, 20), "reflect"), ((1, 256, 24, 40), "zero"), ((5, 128, 9, 33), "reflect"),
+])
+def test_resblock_kernels_match_plain_at_ragged_shapes(cuda, dtype, shape, padding):
+    """Odd batches, H x W not a multiple of the 128-row M-tile (nor the
+    padded grids of the conv and the wgrad's 64-pixel slabs), W != 64."""
+    _check(shape, dtype, padding, True, True, cuda)
+
+
+@pytest.mark.parametrize("shape", [(3, 128, 12, 20), (16, 256, 64, 64)])
+def test_resblock_kernels_are_deterministic(cuda, shape):
+    """No float atomics: two calls on the same inputs give the same bits
+    (the wgrad's cluster adds its partials in rank order)."""
+    x, w1, w2, gamma, beta, g = _inputs(shape, torch.bfloat16, True, 7, cuda)
+    runs = []
+    for _ in range(2):
+        fwd = krb.resblock_fwd(x, w1, w2, gamma, beta)
+        bwd = krb.resblock_bwd(x, fwd[1], fwd[2], g, fwd[3], w1, w2, gamma, beta)
+        runs.append((*fwd, *bwd))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), i
+
+
 def test_gradients_flow_into_the_style_projection_and_z(cuda):
     """The AdaIN block through kernels 9/10 against the same block composed
     (cuDNN convs, the moments and AdaIN kernels, autograd through the norms'
@@ -125,7 +150,9 @@ def test_gradients_flow_into_the_style_projection_and_z(cuda):
 
 
 def test_resblock_kernels_refuse_what_they_cannot_take(cuda):
-    x, w1, w2, gamma, beta, _ = _inputs((2, 128, 8, 8), torch.float32, True, 1, cuda)
+    """What the routing gate (C % 128 == 0, H, W >= 8) does not pass, and
+    malformed arguments, raise before any launch."""
+    x, w1, w2, gamma, beta, g = _inputs((2, 128, 8, 8), torch.float32, True, 1, cuda)
     with pytest.raises(ValueError):
         krb.resblock_fwd(x.double(), w1, w2, gamma, beta)
     with pytest.raises(ValueError):
@@ -134,3 +161,11 @@ def test_resblock_kernels_refuse_what_they_cannot_take(cuda):
         krb.resblock_fwd(x, w1.cpu(), w2, gamma, beta)
     with pytest.raises(ValueError):
         krb.resblock_fwd(x, w1, w2, gamma, beta, padding_type="replicate")
+    for bad in ((2, 64, 8, 8), (2, 192, 8, 8), (2, 128, 7, 8), (2, 128, 8, 6)):
+        xb, w1b, w2b, gb, bb, gg = _inputs(bad, torch.bfloat16, True, 1, cuda)
+        with pytest.raises(ValueError, match="C % 128"):
+            krb.resblock_fwd(xb, w1b, w2b, gb, bb)
+        h = torch.zeros(bad[0], bad[2], bad[3], bad[1], device=cuda, dtype=torch.bfloat16)
+        stats = torch.zeros(bad[0], 4, bad[1], device=cuda)
+        with pytest.raises(ValueError, match="C % 128"):
+            krb.resblock_bwd(xb, h, h, gg, stats, w1b, w2b, gb, bb)
