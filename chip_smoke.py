@@ -24,8 +24,9 @@ against its plain PyTorch version.
    The int8 kernels likewise, in f32 (the int8 path's compute dtype), at
    each shape of the int8 forwards (kernel 4, the stride-1 3x3 conv, at
    BaseModel A's (8, 256, 64, 64) -> 256, and held exact also with a
-   prologue and statistics and at DecoderConcat's unaligned 268 channels
-   with zero padding): the quantized operands and the int32
+   prologue and statistics, at DecoderConcat's unaligned 268 channels
+   with zero padding and at a ragged shape, as is kernel 6, each also
+   against a second call): the quantized operands and the int32
    sums must equal the plain version's exactly given the same input and
    prologue affine (the sums checked with unit scales, where the f32 output
    holds them exactly); then each wrapper's f32 output and statistics must
@@ -34,6 +35,9 @@ against its plain PyTorch version.
    over the int8 tensor-core peak, 1,979 TOP/s, and bytes over 3.35 TB/s)
    and, for reference, cuDNN's bf16 float conv at the same shape (no single
    PyTorch call computes the int8 function, so ``library_ms`` is null).
+   ``int8_breakdown``: each launch of kernels 6 and 4 at (8, 256, 64, 64)
+   and at (8, 268, 64, 64) (a tail N tile's launch of its own) by its device
+   time (torch.profiler's kernel records) beside its own bound.
 4. Builds AdaINModel with its own seeded init at 256px, dim 64, latent 8,
    4 domains, and in f32 and bf16 serves B=8 ``forward_random`` requests and
    one ``forward_reference`` with the launch counts set to 0 just before and
@@ -142,8 +146,12 @@ RES_SHAPES = [((B, 256, 64, 64), 256, 8)]  # 4 encoder blocks, 4 AdaIN blocks
 DECONV_SHAPES = [((B, 256, 64, 64), 128, 1), ((B, 128, 128, 128), 64, 1)]
 HEAD_SHAPES = [((B, 64, 256, 256), 3, 1)]
 CONV3X3_SHAPES = [((B, 256, 64, 64), 256, 8)]  # BaseModel A: conv1/conv2 of 4 DecResnetBlocks
-# kernel 4 is also held to its plain version at DecoderConcat's unaligned width
+# kernels 4 and 6 are also held to their plain versions at DecoderConcat's
+# unaligned width and at a ragged shape that reaches every edge of the
+# stride-1 template: odd B, a tail k-slab (Cp 320), a second N tile, W + 2
+# above the 128-row M tile, Ho x Wp off it
 CONV3X3_UNALIGNED = ((B, 268, 64, 64), 268)
+INT8_RAGGED = ((3, 300, 9, 140), 300)
 INT8_PER_FORWARD = {"int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 0, "int8_deconv": 2,
                     "head": 1, "moments": 1}
 # BaseModel serving: A is the CLI default (plain style encoder, Decoder with
@@ -393,27 +401,36 @@ def _path_pending(kind, i, b, c):
     return _card_pending(b, c, 200 + i, 0.01 if kind == "down" and i == 0 else 0.0)
 
 
+def _zero_pad_case(shape, co, seed):
+    """x, a stride-1 zero-padded QuantConv with bias, and a prologue."""
+    x = _randn(shape, torch.float32, seed)
+    pending = _card_pending(shape[0], shape[1], seed + 1, 0.01)
+    qc = kq.quant_conv(_card_weight((co, shape[1], 3, 3), seed + 2),
+                       _card_weight((co,), seed + 3, 0.1),
+                       kq.prologue_plain(x, pending).abs().amax(), 1, None)
+    return x, qc, pending
+
+
 def _conv3x3_exact_cases(x, qc, shape) -> dict:
-    """Kernel 4 with a prologue and statistics at the path's shape, and at
-    DecoderConcat's unaligned width with zero padding: operands, sums, y and
-    statistics equal to the plain version's."""
+    """Kernel 4 with a prologue and statistics at the path's shape, at
+    DecoderConcat's unaligned width with zero padding and at the ragged
+    shape: operands, sums, y and statistics equal to the plain version's,
+    and a second call equal to the first."""
     b, c = shape[:2]
     out = {}
-    pending = _card_pending(b, c, 250, 0.0)
     ushape, uco = CONV3X3_UNALIGNED
-    ux = _randn(ushape, torch.float32, 260)
-    upending = _card_pending(ushape[0], ushape[1], 261, 0.01)
-    uqc = kq.quant_conv(_card_weight((uco, ushape[1], 3, 3), 262),
-                        _card_weight((uco,), 263, 0.1),
-                        kq.prologue_plain(ux, upending).abs().amax(), 1, None)
-    for name, (t, q, p) in {"prologue_stats": (x, qc, pending),
-                            f"unaligned_{ushape[1]}_zero_pad": (ux, uqc, upending)}.items():
+    rshape, rco = INT8_RAGGED
+    for name, (t, q, p) in {"prologue_stats": (x, qc, _card_pending(b, c, 250, 0.0)),
+                            f"unaligned_{ushape[1]}_zero_pad": _zero_pad_case(ushape, uco, 260),
+                            f"ragged_{rshape}": _zero_pad_case(rshape, rco, 265)}.items():
         exact = _check_exact(t, q, p)
         got, want = kq.conv3x3(t, q, p, with_stats=True), kq.conv_plain(t, q, p, True)
+        again = kq.conv3x3(t, q, p, with_stats=True)
         torch.cuda.synchronize()
         assert all(torch.equal(g, w) for g, w in zip(got, want)), f"conv3x3 {name}: differs"
-        out[name] = dict(**exact, outputs_and_stats_equal=True, shape=list(t.shape),
-                         cp=q.cp, co=q.cout)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), f"conv3x3 {name}: two calls differ"
+        out[name] = dict(**exact, outputs_and_stats_equal=True, bit_equal_repeat=True,
+                         shape=list(t.shape), cp=q.cp, co=q.cout)
     return out
 
 
@@ -471,8 +488,26 @@ def _flips(out, ref) -> tuple[float, float]:
     return diff.max().item(), (diff > 1e-4).float().mean().item()
 
 
+def _resblock_exact(shape, seed) -> dict:
+    """Kernel 6 at ``shape`` against its plain version, and a second call
+    against the first: both equal, or the script fails."""
+    b, c = shape[:2]
+    x = _randn(shape, torch.float32, seed)
+    gamma, beta = _card_weight((b, c), seed + 1, 0.3), _card_weight((b, c), seed + 2, 0.3)
+    q1 = kq.quant_conv(_card_weight((c, c, 3, 3), seed + 3), None, x.abs().amax(), 1, "reflect")
+    q2 = kq.quant_conv(_card_weight((c, c, 3, 3), seed + 4), None, 4.0, 1, None)
+    y = kq.resblock(x, q1, q2, gamma, beta)
+    again = kq.resblock(x, q1, q2, gamma, beta)
+    ref = kq.resblock_plain(x, q1, q2, gamma, beta)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref), f"resblock {shape}: differs from the plain version"
+    assert torch.equal(y, again), f"resblock {shape}: two calls differ"
+    return dict(shape=list(shape), cp=q1.cp, output_equal=True, bit_equal_repeat=True)
+
+
 def check_int8_resblock() -> dict:
-    """Kernel 6 at the forward's shape, with random (1 + gamma, beta)."""
+    """Kernel 6 at the forward's shape, with random (1 + gamma, beta); also
+    at DecoderConcat's 268 channels and at the ragged shape."""
     rows = []
     for i, (shape, co, per_forward) in enumerate(RES_SHAPES):
         b, c, h, w = shape
@@ -490,10 +525,13 @@ def check_int8_resblock() -> dict:
         q2 = kq.quant_conv(w2, None, kq.prologue_plain(h1, mid).abs().amax(), 1, "reflect")
         exact2 = _check_exact(h1, q2, mid)
         y = kq.resblock(x, q1, q2, gamma, beta)
+        again = kq.resblock(x, q1, q2, gamma, beta)
         ref = kq.resblock_plain(x, q1, q2, gamma, beta)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         assert err == 0.0, f"resblock {shape}: output differs from the plain version's by {err}"
+        assert torch.equal(y, again), f"resblock {shape}: two calls differ"
+        cases = [_resblock_exact(CONV3X3_UNALIGNED[0], 640), _resblock_exact(INT8_RAGGED[0], 650)]
 
         macs = 2 * b * h * w * c * co * 9
         nbytes = 8 * numel + q1.w.numel() + q2.w.numel() + 8 * b * c
@@ -502,7 +540,8 @@ def check_int8_resblock() -> dict:
         bf_sets = [(t[0].bfloat16(),) for t in sets]
         rows.append(dict(
             shape=list(shape), co=co, per_forward=per_forward,
-            conv1=exact1, conv2=exact2, max_abs_err=err, tol=0.0, macs=macs,
+            conv1=exact1, conv2=exact2, max_abs_err=err, tol=0.0, bit_equal_repeat=True,
+            cases=cases, macs=macs,
             ms=device_ms(lambda t: kq.resblock(t, q1, q2, gamma, beta), sets),
             plain_ms=device_ms(lambda t: kq.resblock_plain(t, q1, q2, gamma, beta), sets, iters=5),
             bf16_cudnn_ms=device_ms(
@@ -735,6 +774,112 @@ def resblock_breakdown() -> list:
     del sets
     torch.cuda.empty_cache()
     return rows
+
+
+def _launch_ms(plans, iters: int = 20) -> list:
+    """For each (fn, launches per call, sets) of ``plans``: the device ms of
+    each CUDA launch of one ``fn`` call, by its place in the call, over
+    ``iters`` calls rotating over ``sets``, and the kernels' names.
+    torch.profiler's kernel records, all plans in one session (a second
+    session in a process may record no kernels)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for fn, _, sets in plans:
+        for s in sets[:2]:
+            fn(*s)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn, _, sets in plans:
+            for i in range(iters):
+                fn(*sets[i % len(sets)])
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+    total = sum(n for _, n, _ in plans) * iters
+    assert len(kernels) == total, f"{len(kernels)} launches recorded, expected {total}"
+    out, first = [], 0
+    for _, n, _ in plans:
+        ks = kernels[first:first + n * iters]
+        first += n * iters
+        out.append(([sum(ks[c * n + p].time_range.elapsed_us() for c in range(iters)) / iters / 1e3
+                     for p in range(n)], [ks[p].name[:80] for p in range(n)]))
+    return out
+
+
+def int8_breakdown() -> dict:
+    """Device ms per launch of kernel 6 (``int8_resblock``) and kernel 4
+    (``int8_conv3x3``, without and with statistics) at (8, 256, 64, 64) f32
+    -> 256 and at DecoderConcat's (8, 268, 64, 64) -> 268, whose conv runs
+    the 256-wide N tile and a 12-row tail tile as two launches, each launch
+    beside its own bound (bytes: each input read once, each output written
+    once, over 3.35 TB/s; operations: 2 x the int8 MACs over 1,979 TOP/s),
+    on rotating inputs that exceed L2."""
+    cases = [_int8_breakdown_plans(CONV3X3_SHAPES[0][0], "reflect"),
+             _int8_breakdown_plans(CONV3X3_UNALIGNED[0], None)]
+    timed = iter(_launch_ms([(fn, len(steps), case["sets"]) for case in cases
+                             for fn, steps in case["plans"].values()]))
+    out = {}
+    for case in cases:
+        res = {}
+        for name, (fn, steps) in case["plans"].items():
+            ms, names = next(timed)
+            rows = []
+            for (launch, (nbytes, ops)), t, kname in zip(steps, ms, names):
+                b_ms, by = bound(nbytes, ops, INT8_OPS)
+                rows.append(dict(launch=launch, kernel=kname, ms=t, bound_ms=b_ms, bound_by=by,
+                                 over_bound=t / b_ms))
+            res[name] = dict(launches=rows, sum_ms=sum(ms), call_ms=device_ms(fn, case["sets"]),
+                             sum_bound_ms=sum(r["bound_ms"] for r in rows))
+        shape = case["shape"]
+        log(dict(phase="int8_breakdown", shape=list(shape), co=shape[1], cp=case["cp"],
+                 dtype="f32", stat_tiles=case["tiles"], **res))
+        out[shape[1]] = res
+    del cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_breakdown_plans(shape, padding) -> dict:
+    """Kernels 6 and 4 at ``shape`` -> as many channels: for each wrapper
+    call its launches in order, each with the (bytes, operations) it must
+    move and do, and the rotating input sets."""
+    b, c, h, w = shape
+    numel = math.prod(shape)
+    sets = copies(lambda j: (_randn(shape, torch.float32, 980 + j),), 4 * numel)
+    x = sets[0][0]
+    gamma, beta = _card_weight((b, c), 990, 0.3), _card_weight((b, c), 991, 0.3)
+    q1 = kq.quant_conv(_card_weight((c, c, 3, 3), 992), None, x.abs().amax(), 1, padding)
+    q2 = kq.quant_conv(_card_weight((c, c, 3, 3), 993), None, 4.0, 1, padding)
+    pending = _card_pending(b, c, 994, 0.0)
+    act, pad = 4 * numel, b * (h + 2) * (w + 2) * q1.cp  # f32 activation, padded int8 operand
+    stat = b * c * 4
+    # per-image int64 partials of the sums and the squares, one row per M tile
+    tiles, _ = kq.conv_tiling(q1, h + 2, w + 2)
+    partials = 2 * b * tiles * c * 8
+    # the conv's launches: the 256-wide N tiles in one, a tail tile in another
+    full, tail = divmod(c, 256)
+    convs = [(f" (N {n})" if tail else "",
+              (pad + n * 9 * q1.cp + b * h * w * n * 4, 2 * b * h * w * n * c * 9))
+             for n in (256 * full, tail) if n]
+
+    def conv_steps(k):
+        return [(f"conv{k}{n}", work) for n, work in convs]
+
+    qpad = (act + pad, 0)
+    stats_affine = (partials + 2 * c * 4 + 2 * stat + 4 * stat, 0)  # + gamma, beta in; a, b out
+    plans = {
+        "int8_resblock": (lambda t: kq.resblock(t, q1, q2, gamma, beta), [
+            ("quant_pad (x NCHW)", qpad), *conv_steps(1), ("stats1 + affine", stats_affine),
+            ("quant_pad (h1, affine + relu)", (act + pad + 2 * stat, 0)), *conv_steps(2),
+            ("stats2 + affine", stats_affine), ("residual (NCHW out)", (3 * act + 2 * stat, 0))]),
+        "int8_conv3x3": (lambda t: kq.conv3x3(t, q1), [("quant_pad (x NCHW)", qpad),
+                                                       *conv_steps("")]),
+        "int8_conv3x3 + stats": (lambda t: kq.conv3x3(t, q1, pending, with_stats=True), [
+            ("quant_pad (x NCHW, affine + relu)", (act + pad + 2 * stat, 0)), *conv_steps(""),
+            ("stats", (partials + 2 * c * 4 + 2 * stat, 0))]),
+    }
+    return dict(shape=shape, cp=q1.cp, tiles=tiles, sets=sets, plans=plans)
 
 
 PLAIN = [
@@ -1183,7 +1328,7 @@ def main(argv) -> int:
     log(dict(phase="build", seconds=time.perf_counter() - t0, built=sorted(logs)))
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 log(f"  {name}: {line.strip()}")
 
     entries = []
@@ -1192,6 +1337,7 @@ def main(argv) -> int:
         entries.append(check_adain(dtype_name, dtype))
     int8_entries = [check_int8_conv("down"), check_int8_resblock(), check_int8_conv("conv3x3"),
                     check_int8_conv("deconv"), check_head()]
+    int8_breakdown()
     torch.cuda.empty_cache()
     train_entries = [check_resblock("fwd"), check_resblock("bwd")]
     resblock_breakdown()

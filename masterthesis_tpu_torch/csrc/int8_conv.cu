@@ -1,34 +1,55 @@
-// int8 serving convolutions: one implicit-GEMM template for the stride-1
-// 3x3 conv, the stride-2 down conv, the two stride-1 convs of the residual
-// block, and the sub-pixel transposed conv. Four TPU kernels come from this
-// one source.
+// int8 serving convolutions: the stride-1 3x3 conv, the stride-2 down conv,
+// the two stride-1 convs of the residual block, and the sub-pixel transposed
+// conv. Four TPU kernels come from this one source.
 //
 // Replaces masterthesis_tpu/ops/pallas/conv_int8.py:
 //   pallas_int8_conv3x3  (:187)   -> quant_pad (optional prologue, reflect or
-//                                    zero pad) + conv (3x3, stride 1)
+//                                    zero pad) + conv (3x3, stride 1, wgmma)
 //                                    [+ stats]
-//   pallas_int8_downconv (:1303)  -> quant_pad + conv (3x3, stride 2) [+ stats]
-//   pallas_int8_resblock (:989)   -> quant_pad, conv, stats (forms conv2's
-//                                    prologue affine), quant_pad, conv,
-//                                    stats, residual
+//   pallas_int8_downconv (:1303)  -> quant_pad + conv (3x3, stride 2,
+//                                    mma.sync) [+ stats]
+//   pallas_int8_resblock (:989)   -> quant_pad, conv (wgmma, h1 stored NHWC),
+//                                    stats (forms conv2's prologue affine),
+//                                    quant_pad of NHWC h1, conv (wgmma, h2
+//                                    NHWC), stats, residual (NCHW out through
+//                                    shared-memory tiles)     (7 launches)
 //   pallas_int8_deconv   (:577)   -> quant_pad (zero pad at the end) + conv
 //                                    (2x2 taps to 4 phases, interleaving
-//                                    store) [+ stats]
-// The stride-1 conv needed no new code: it is the resblock's conv launch
-// called alone. Channels are zero-padded to a multiple of 32 (one mma
-// k-step) in the operands, and any number of output rows is guarded, so
-// unaligned widths (BaseModel's 268/276/146-channel convs) run as they are.
-// The wrappers are masterthesis_tpu_torch/ops/kernels/int8_conv.py, whose
-// plain versions do the same arithmetic with torch ops.
+//                                    store, mma.sync) [+ stats]
+// Channels are zero-padded to a multiple of 32 (K_ALIGN, one k32 step) in the
+// operands, and any number of output rows is guarded, so unaligned widths
+// (BaseModel's 268/276/146-channel convs) run as they are. The wrappers are
+// masterthesis_tpu_torch/ops/kernels/int8_conv.py, whose plain versions do the
+// same arithmetic with torch ops.
 //
-// Bound. The resblock is bound by operations (two convs of 19.33 G MACs at
-// 8x256x64x64, against ~67 MB of f32 in and out); a stride-1 conv alone by
-// bytes, by a hair (67.7 MB against 19.33 G MACs: 0.0202 against 0.0195 ms
-// on an H100 SXM); the down convs and the transposed convs by bytes (their f32 input and output, 134-201 MB, against
-// 9.66 G MACs). This first version is a simple, right design: the int8
-// products run on the tensor cores through mma.sync m16n8k32 (int32
-// accumulate), fed from shared memory double-buffered through registers, and
-// the f32 <-> int8 conversions are separate passes through device memory.
+// Two conv templates:
+// - stride 1, one phase (kernels 4 and 6): wgmma m64nNk32 s8 -> s32 fed by
+//   TMA, for sm_90a. M = output pixels over the padded grid's width (m = oy *
+//   Wp + ox), so for tap (ky, kx) an M tile's A rows are one contiguous run of
+//   the (B * Hp * Wp, Cp) int8 view from m0 + ky * Wp + kx: a plain 2-D TMA
+//   box, no im2col; the rows m >= Ho * Wp and the 2 columns ox >= Wo are
+//   masked in the epilogue (3 % extra products at 64 x 64). A block (one
+//   image's M tile of 128 x up to 256 output rows) has two consumer
+//   warpgroups and one producer warp that keeps TMA loads of 128-channel
+//   k-slabs (128 bytes, the 128-byte swizzle's width) in flight through a
+//   4-stage mbarrier ring; the weights come as (R, 9, Cp) 3-D boxes, so a
+//   tail slab (Cp % 128) reads zeros past Cp in both operands (its four k32
+//   steps all run), and a tail N tile is a launch of its own at the
+//   narrowest wgmma (N = 128/64/32) that covers it, with a weight box of as
+//   many rows. The epilogue stages the s32 tile in shared memory, from which
+//   NCHW y is stored coalesced along the pixels, NHWC y (kernel 6's h1 and
+//   h2) along the channels, and the per-tile int64 partials one column per
+//   thread, without shuffles. At (8, 256, 64, 64) it is bound by
+//   operations: 38.7 G int8 operations (0.0195 ms at 1,979 TOP/s) against
+//   43 MB (0.0128 ms).
+// - stride 2 and the four-phase transposed conv (kernels 7 and 5): the first,
+//   simple design, mma.sync m16n8k32 on 64 x 64 tiles fed from shared memory
+//   double-buffered through registers (ROADMAP B.2 moves them to wgmma). They
+//   are bound by bytes (their f32 input and output, 134-201 MB, against 9.66
+//   G MACs).
+// The f32 <-> int8 conversions are separate passes through device memory,
+// bound by bytes; the resblock (kernel 6) as a whole moves about 271 MB over
+// its 7 launches against 77.3 G int8 operations.
 //
 // Numerics. The prologue and the quantize are written with __fmul_rn /
 // __fadd_rn (no FMA contraction) and rounded with rintf (half to even), so
@@ -47,71 +68,185 @@
 // gets the same bits: an int8 chain quantizing with these statistics does not
 // flip a value between kernel and plain version, and a run repeats exactly.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace mt::sm90;
+
 // ---------------------------------------------------------------------------
 // quantize and pad: NCHW f32 -> padded NHWC int8, channels zero-padded to Cp.
-// One block writes a 32 (x) by 32 (channel) tile of one padded row: it reads
-// 32 channel rows coalesced along x, and writes 4-byte channel groups.
+// A block writes up to kQSeg padded pixels of one padded row for 128
+// channels (fewer per block run slower: scripts/int8_conv_knobs.py). A
+// thread reads 4 columns of 4 channel rows (16-byte loads along x), and
+// quantizes and transposes them into 4 words of 4 channels each, which go to
+// a [pixel][channel] tile; then 8 threads write a pixel's 128 bytes. Pads of
+// at most one (every conv here), so that a reflected column lies within 2 of
+// the block's own source columns.
 // ---------------------------------------------------------------------------
-constexpr int kQT = 32;
+constexpr int kQSeg = 256;              // padded pixels per block
+constexpr int kQC = 128;                // channels per block
+constexpr int kQSpan = kQSeg + 8;       // source columns a block may read, from a multiple of 4
+constexpr int kQPitch = kQC / 4 + 1;    // tile words per pixel
 
 __device__ __forceinline__ int reflect_index(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-__global__ void __launch_bounds__(kQT * 8)
+// the prologue affine and relu/lrelu, then clip(round(v * inv), +-127)
+__device__ __forceinline__ uint32_t quantize(float v, float inv, bool affine, float sa, float sb,
+                                             int relu, float alpha) {
+  if (affine) {
+    v = __fadd_rn(__fmul_rn(v, sa), sb);
+    if (relu) v = fmaxf(v, __fmul_rn(alpha, v));
+  }
+  const float q = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
+}
+
+__global__ void __launch_bounds__(256)
     quant_pad_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
                      const float* __restrict__ inv_sx, const float* __restrict__ pa,
-                     const float* __restrict__ pb, int relu, float alpha, int C, int H,
-                     int W, int Cp, int Hp, int Wp, int pt, int pl, int reflect,
-                     int cblocks) {
-  __shared__ int8_t tile[kQT][kQT + 4];  // [channel][x]
-  const int b = blockIdx.z / cblocks;
-  const int c0 = (blockIdx.z % cblocks) * kQT;
-  const int yp = blockIdx.y;
-  const int x0 = blockIdx.x * kQT;
-  const float inv = *inv_sx;
+                     const float* __restrict__ pb, int relu, float alpha, int C, int H, int W,
+                     int Cp, int Hp, int Wp, int pt, int pl, int reflect) {
+  __shared__ uint32_t tile[kQSpan * kQPitch];
+  const int b = blockIdx.x / Hp, yp = blockIdx.x % Hp;
+  const int x0 = blockIdx.y * kQSeg, c0 = blockIdx.z * kQC;
   int y = yp - pt;
   bool row_ok = true;
   if (y < 0 || y >= H) {
     if (reflect) y = reflect_index(y, H); else row_ok = false;
   }
-  int xs = x0 + threadIdx.x - pl;
-  bool col_ok = x0 + threadIdx.x < Wp;
-  if (xs < 0 || xs >= W) {
-    if (reflect) xs = reflect_index(xs, W); else col_ok = false;
-  }
-  for (int cc = threadIdx.y; cc < kQT; cc += 8) {
-    const int c = c0 + cc;
-    int q = 0;
-    if (row_ok && col_ok && c < C) {
-      float v = x[((static_cast<int64_t>(b) * C + c) * H + y) * W + xs];
-      if (pa != nullptr) {
+  const int lo = max(0, x0 - pl - 2) & ~3, hi = min(W, x0 - pl + kQSeg + 2);
+  if (row_ok && hi > lo) {
+    const float inv = *inv_sx;
+    const int groups = (hi - lo + 3) / 4;  // 4-column groups, along x first
+    for (int i = threadIdx.x; i < groups * (kQC / 4); i += 256) {
+      const int cq = i / groups, xs = lo + 4 * (i % groups);
+      uint32_t word[4] = {0u, 0u, 0u, 0u};  // word[e]: 4 channels at column xs + e
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = c0 + 4 * cq + k;
+        if (c >= C) continue;
         const int64_t bc = static_cast<int64_t>(b) * C + c;
-        v = __fadd_rn(__fmul_rn(v, pa[bc]), pb[bc]);
-        if (relu) v = fmaxf(v, __fmul_rn(alpha, v));
+        const float* src = x + (bc * H + y) * W + xs;
+        float v[4];
+        if (W % 4 == 0) {
+          const float4 f = *reinterpret_cast<const float4*>(src);
+          v[0] = f.x;
+          v[1] = f.y;
+          v[2] = f.z;
+          v[3] = f.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = xs + e < hi ? src[e] : 0.f;
+        }
+        const float sa = pa != nullptr ? pa[bc] : 1.f, sb = pa != nullptr ? pb[bc] : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          word[e] |= quantize(v[e], inv, pa != nullptr, sa, sb, relu, alpha) << (8 * k);
       }
-      const float r = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
-      q = static_cast<int>(r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (xs + e < hi) tile[(xs + e - lo) * kQPitch + cq] = word[e];
     }
-    tile[cc][threadIdx.x] = static_cast<int8_t>(q);
   }
   __syncthreads();
-  const int t = threadIdx.y * kQT + threadIdx.x;  // 256 threads, 256 words
-  const int xx = t / 8, cg = (t % 8) * 4;
-  const int xp = x0 + xx;
-  if (xp < Wp && c0 + cg < Cp) {
-    char4 word = make_char4(tile[cg][xx], tile[cg + 1][xx], tile[cg + 2][xx], tile[cg + 3][xx]);
-    *reinterpret_cast<char4*>(
-        out + ((static_cast<int64_t>(b) * Hp + yp) * Wp + xp) * Cp + c0 + cg) = word;
+  constexpr int kParts = kQC / 16;  // threads per padded pixel, 16 channels each
+  const int n = kParts * min(kQSeg, Wp - x0);
+  for (int i = threadIdx.x; i < n; i += 256) {
+    const int xp = x0 + i / kParts, part = i % kParts;
+    if (c0 + 16 * part >= Cp) continue;
+    int xs = xp - pl;
+    bool ok = row_ok;
+    if (xs < 0 || xs >= W) {
+      if (reflect) xs = reflect_index(xs, W); else ok = false;
+    }
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (ok) {
+      const uint32_t* t = tile + (xs - lo) * kQPitch + 4 * part;
+      v = make_uint4(t[0], t[1], t[2], t[3]);
+    }
+    *reinterpret_cast<uint4*>(
+        out + ((static_cast<int64_t>(b) * Hp + yp) * Wp + xp) * Cp + c0 + 16 * part) = v;
   }
 }
 
+// NHWC f32 (B, H, W, C) -> padded NHWC int8, the same arithmetic (kernel 6's
+// second quantize, of h1 as conv1 stores it): one thread per 16 channels of a
+// padded pixel, reading 64 bytes along the channels (and the affine's 128)
+// and writing 16. Block (padded row b x Hp + yp, 256 of the row's Wp x Cp / 16
+// threads).
+constexpr int kQV = 16;
+
+__global__ void __launch_bounds__(256)
+    quant_pad_nhwc_kernel(const float* __restrict__ h, int8_t* __restrict__ out,
+                          const float* __restrict__ inv_sx, const float* __restrict__ pa,
+                          const float* __restrict__ pb, int relu, float alpha, int C, int H,
+                          int W, int Cp, int Hp, int Wp, int pt, int pl, int reflect) {
+  const int groups = Cp / kQV;
+  const int j = blockIdx.y * 256 + threadIdx.x;
+  if (j >= Wp * groups) return;
+  const int xp = j / groups, c0 = (j - xp * groups) * kQV;
+  const int b = blockIdx.x / Hp, yp = blockIdx.x - b * Hp;
+  int y = yp - pt, x = xp - pl;
+  bool ok = true;
+  if (y < 0 || y >= H) {
+    if (reflect) y = reflect_index(y, H); else ok = false;
+  }
+  if (x < 0 || x >= W) {
+    if (reflect) x = reflect_index(x, W); else ok = false;
+  }
+  uint32_t word[4] = {0u, 0u, 0u, 0u};
+  if (ok && c0 < C) {
+    const float inv = *inv_sx;
+    const float* src = h + ((static_cast<int64_t>(b) * H + y) * W + x) * C + c0;
+    const int64_t bc = static_cast<int64_t>(b) * C + c0;
+    const bool affine = pa != nullptr;
+    float v[kQV], sa[kQV], sb[kQV];
+    if (C % 4 == 0 && c0 + kQV <= C) {
+#pragma unroll
+      for (int e = 0; e < kQV; e += 4) {
+        const float4 f = *reinterpret_cast<const float4*>(src + e);
+        v[e] = f.x;
+        v[e + 1] = f.y;
+        v[e + 2] = f.z;
+        v[e + 3] = f.w;
+        if (affine) {
+          const float4 fa = *reinterpret_cast<const float4*>(pa + bc + e);
+          const float4 fb = *reinterpret_cast<const float4*>(pb + bc + e);
+          sa[e] = fa.x;
+          sa[e + 1] = fa.y;
+          sa[e + 2] = fa.z;
+          sa[e + 3] = fa.w;
+          sb[e] = fb.x;
+          sb[e + 1] = fb.y;
+          sb[e + 2] = fb.z;
+          sb[e + 3] = fb.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kQV; ++e) {
+        const bool in = c0 + e < C;
+        v[e] = in ? src[e] : 0.f;
+        sa[e] = in && affine ? pa[bc + e] : 1.f;
+        sb[e] = in && affine ? pb[bc + e] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kQV; ++e)
+      if (c0 + e < C)
+        word[e / 4] |= quantize(v[e], inv, affine, sa[e], sb[e], relu, alpha) << (8 * (e % 4));
+  }
+  *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * Hp + yp) * Wp + xp) * Cp + c0) =
+      make_uint4(word[0], word[1], word[2], word[3]);
+}
+
 // ---------------------------------------------------------------------------
-// the conv: implicit GEMM, M = output pixels of one image, N = output rows
-// (Co, or 4 Co phase rows), K = taps x Cp. A 128-thread block computes a
+// the stride-2 and transposed conv (mma.sync): implicit GEMM, M = output
+// pixels of one image, N = output rows (Co, or 4 Co phase rows), K = taps x
+// Cp. A 128-thread block computes a
 // 64 x 64 tile, each of its four warps 32 x 32 as 2 x 4 mma.sync m16n8k32.
 // Per k-step (one tap, 32 channels) every thread loads 16 bytes of A and 16
 // of B into registers, which go to shared memory at the next step while the
@@ -284,6 +419,309 @@ __global__ void __launch_bounds__(kConvThreads) conv_kernel(ConvArgs p) {
 }
 
 // ---------------------------------------------------------------------------
+// the stride-1 conv (wgmma, see the note at the top): a block of two consumer
+// warpgroups (threads 0-255, rows 0-63 and 64-127 of the 128-row tile) and
+// one producer warp (threads 256-287). Shared memory: kWStages slabs of A (128
+// rows x 128 channels, 16 KB) and B (256 rows x 128 channels, 32 KB) as
+// 128-byte-swizzled TMA boxes, then the full/empty mbarriers; after the main
+// loop the ring holds the s32 tile, [column][row].
+// ---------------------------------------------------------------------------
+constexpr int kWThreads = 288;
+constexpr int kWM = 128, kWN = 256, kWK = 128;
+constexpr int kWStages = 4;
+constexpr int kWABytes = kWM * kWK, kWBBytes = kWN * kWK;
+constexpr int kWSmem = kWStages * (kWABytes + kWBBytes) + 2 * kWStages * 8 + 1024;
+constexpr int kStage = kWM + 5;  // s32 per staged column: an odd pitch (see the epilogue)
+static_assert((kWN * kStage + kWM) * 4 <= kWStages * (kWABytes + kWBBytes),
+              "the staged tile and its row table fit the ring");
+
+// D (64 x N s32, in registers: the first N / 2 of d) += A (64 x 32) * B (32 x
+// N), s8 operands K-major in shared memory through their descriptors
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+struct WConvArgs {
+  const float* scale;
+  const float* bias;
+  float* y;
+  long long* psum;
+  long long* psq;
+  int Hp, Wp, Cp, R, tiles, nhwc, ntile0;
+};
+
+// out[b, n, oy, ox] (or [b, oy, ox, n]) = dequant(sum_{ky, kx, c} in[b, oy +
+// ky, ox + kx, c] * w[n, 3 ky + kx, c]) over the padded NHWC int8 input (B,
+// Hp, Wp, Cp). Block (blockIdx.x = image x tiles + tile, blockIdx.y + ntile0 =
+// N tile) computes rows m0 .. m0 + 127 of m = oy * Wp + ox and columns n0 ..
+// n0 + kNW - 1. kNW is 256 but for the last N tile of an R that is not a
+// multiple of 256 (a launch of its own): a compile-time width keeps every
+// wgmma out of divergent code, which ptxas would otherwise serialize. map_w's
+// box holds kNW weight rows, so a narrow tail tile loads only its own rows.
+template <int kNW>
+__global__ void __launch_bounds__(kWThreads, 1)
+    conv_s1_wgmma_kernel(const __grid_constant__ CUtensorMap map_in,
+                         const __grid_constant__ CUtensorMap map_w, WConvArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  uint8_t* ring_a = smem_raw + (((base + 1023) & ~1023u) - base);
+  uint8_t* ring_b = ring_a + kWStages * kWABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_b + kWStages * kWBBytes);
+  uint64_t* empty = full + kWStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrival, plus the bytes
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int b = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
+  const int m0 = tile * kWM, n0 = (blockIdx.y + p.ntile0) * kWN;
+  const int cslabs = (p.Cp + kWK - 1) / kWK, ksteps = 9 * cslabs;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x == 256) {
+      const int row0 = b * p.Hp * p.Wp + m0;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int k = 0; k < ksteps; ++k) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], kWABytes + kNW * kWK);
+        const int tap = k / cslabs, c0 = (k % cslabs) * kWK;
+        tma_load_2d(ring_a + stage * kWABytes, &map_in, &full[stage], c0,
+                    row0 + (tap / 3) * p.Wp + tap % 3);
+        tma_load_3d(ring_b + stage * kWBBytes, &map_w, &full[stage], c0, tap, n0);
+        if (++stage == kWStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  int acc[kNW / 2];
+#pragma unroll
+  for (int i = 0; i < kNW / 2; ++i) acc[i] = 0;
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int k = 0; k < ksteps; ++k) {
+    mbar_wait(&full[stage], phase);
+    fence_acc(acc);
+    wgmma_fence();
+    // A: this warpgroup's 64 rows, B: the tile's first kNW rows, both
+    // K-major; a k32 step is 32 bytes along the swizzled 128-byte rows. A
+    // tail slab's channels past Cp are zeros in both (TMA's fill), so its
+    // last steps add nothing
+#pragma unroll
+    for (int kk = 0; kk < kWK / 32; ++kk)
+      wgmma_s8<kNW>(acc, smem_desc(ring_a + stage * kWABytes + wg * 64 * kWK + kk * 32, 16, 1024),
+                    smem_desc(ring_b + stage * kWBBytes + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous slab's products are done: release it
+    fence_acc(acc);
+    if (k > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == kWStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // the epilogue, over the ring once both warpgroups are done with it: the
+  // s32 tile staged [column][row] at an odd pitch, so that reading a column
+  // along its rows (NCHW stores), a row along its columns (NHWC stores) or
+  // one column per thread (the statistics) hits 32 banks; and each row's
+  // output pixel oy * Wo + ox, or -1 for a dropped row
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  int* st = reinterpret_cast<int*>(ring_a);
+  int* pix = st + kWN * kStage;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  // accumulator 4j + 2h + e is row 16 warp + lane / 4 + 8 h of this
+  // warpgroup's 64, column 8 j + 2 (lane % 4) + e
+#pragma unroll
+  for (int j = 0; j < kNW / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        st[(8 * j + 2 * (lane % 4) + e) * kStage + wg * 64 + warp * 16 + lane / 4 + 8 * h] =
+            acc[4 * j + 2 * h + e];
+  const int Ho = p.Hp - 2, Wo = p.Wp - 2;
+  if (threadIdx.x < kWM) {
+    const int m = m0 + threadIdx.x;
+    const int oy = m / p.Wp, ox = m - oy * p.Wp;
+    pix[threadIdx.x] = oy < Ho && ox < Wo ? oy * Wo + ox : -1;
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+  const int ncols = min(kNW, p.R - n0);
+  const int64_t hw = static_cast<int64_t>(Ho) * Wo;
+  if (p.psum != nullptr && threadIdx.x < ncols) {  // a column per thread
+    const int* col = st + threadIdx.x * kStage;
+    long long s = 0, q = 0;
+    for (int r = 0; r < kWM; ++r) {
+      if (pix[r] < 0) continue;
+      const int a = col[r];
+      s += a;
+      q += static_cast<long long>(a) * a;
+    }
+    const int64_t o = (static_cast<int64_t>(b) * p.tiles + tile) * p.R + n0 + threadIdx.x;
+    p.psum[o] = s;
+    p.psq[o] = q;
+  }
+  const int gw = threadIdx.x / 32;  // 8 warps
+  if (p.nhwc) {  // a warp per row, its lanes along the columns
+    constexpr int kPer = (kNW + 31) / 32;
+    float sc[kPer], bi[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int n = n0 + lane + 32 * i;
+      sc[i] = n < p.R ? p.scale[n] : 0.f;
+      bi[i] = n < p.R && p.bias != nullptr ? p.bias[n] : 0.f;
+    }
+    for (int r = gw; r < kWM; r += 8) {
+      const int px = pix[r];
+      if (px < 0) continue;
+      float* orow = p.y + (static_cast<int64_t>(b) * hw + px) * p.R + n0;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int c = lane + 32 * i;
+        if (c < ncols) {
+          float v = __fmul_rn(__int2float_rn(st[c * kStage + r]), sc[i]);
+          if (p.bias != nullptr) v = __fadd_rn(v, bi[i]);
+          orow[c] = v;
+        }
+      }
+    }
+  } else {  // a warp per column, its lanes along the rows
+    for (int c = gw; c < ncols; c += 8) {
+      const int n = n0 + c;
+      const float sc = p.scale[n];
+      const float bi = p.bias != nullptr ? p.bias[n] : 0.f;
+      float* ycol = p.y + (static_cast<int64_t>(b) * p.R + n) * hw;
+#pragma unroll
+      for (int r = lane; r < kWM; r += 32) {
+        const int px = pix[r];
+        if (px < 0) continue;
+        float v = __fmul_rn(__int2float_rn(st[c * kStage + r]), sc);
+        if (p.bias != nullptr) v = __fadd_rn(v, bi);
+        ycol[px] = v;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // statistics: per-(sample, channel) sum and sum of squares of y from the
 // exact int64 partials (see Numerics above), phases added in order; then
 // optionally the IN/AdaIN affine a = (1 + gamma) / sqrt(max(var, 0) + eps),
@@ -344,32 +782,108 @@ __global__ void stats_kernel(const long long* __restrict__ psum,
   }
 }
 
-// out = x + (h * a + b), per-(sample, channel) a and b
-__global__ void residual_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                                const float* __restrict__ a, const float* __restrict__ b,
-                                float* __restrict__ out, int64_t n, int64_t hw) {
-  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= n) return;
-  if (hw % 4 == 0) {
-    const int64_t bc = i / hw;
-    const float av = a[bc], bv = b[bc];
-    const float4 xv = *reinterpret_cast<const float4*>(x + i);
-    const float4 hv = *reinterpret_cast<const float4*>(h + i);
-    float4 o;
-    o.x = __fadd_rn(xv.x, __fadd_rn(__fmul_rn(hv.x, av), bv));
-    o.y = __fadd_rn(xv.y, __fadd_rn(__fmul_rn(hv.y, av), bv));
-    o.z = __fadd_rn(xv.z, __fadd_rn(__fmul_rn(hv.z, av), bv));
-    o.w = __fadd_rn(xv.w, __fadd_rn(__fmul_rn(hv.w, av), bv));
-    *reinterpret_cast<float4*>(out + i) = o;
-  } else {
-    for (int64_t k = i; k < i + 4 && k < n; ++k) {
-      const int64_t bc = k / hw;
-      out[k] = __fadd_rn(x[k], __fadd_rn(__fmul_rn(h[k], a[bc]), b[bc]));
+// out NCHW = x NCHW + (h * a + b), h NHWC (B, HW, C) as conv2 stores it: a
+// block moves a tile of 32 pixels x 64 channels of h through shared memory,
+// reading h along its channels and x and out along the pixels. Block (pixel
+// tile, b, channel group), 256 threads.
+constexpr int kRP = 32, kRC = 64;
+
+__global__ void __launch_bounds__(256)
+    residual_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ h,
+                         const float* __restrict__ a, const float* __restrict__ b,
+                         float* __restrict__ out, int C, int HW) {
+  __shared__ float tile[kRC][kRP + 1];
+  const int p0 = blockIdx.x * kRP, bi = blockIdx.y, c0 = blockIdx.z * kRC;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // this thread's x values (channels warp + 8 k, pixel p0 + lane), loaded
+  // before the tile so that their latency overlaps h's
+  constexpr int kPer = kRC / 8;
+  const bool px_ok = p0 + lane < HW;
+  float xv[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int c = c0 + warp + 8 * k;
+    xv[k] = px_ok && c < C ? x[(static_cast<int64_t>(bi) * C + c) * HW + p0 + lane] : 0.f;
+  }
+  const float* hb = h + static_cast<int64_t>(bi) * HW * C;
+  if (C % 4 == 0) {
+    for (int i = threadIdx.x; i < kRP * (kRC / 4); i += 256) {
+      const int j = i / (kRC / 4), c = c0 + 4 * (i % (kRC / 4));
+      if (p0 + j >= HW || c >= C) continue;
+      const float4 v = *reinterpret_cast<const float4*>(hb + static_cast<int64_t>(p0 + j) * C + c);
+      tile[c - c0][j] = v.x;
+      tile[c - c0 + 1][j] = v.y;
+      tile[c - c0 + 2][j] = v.z;
+      tile[c - c0 + 3][j] = v.w;
     }
+  } else {
+    for (int i = threadIdx.x; i < kRP * kRC; i += 256) {
+      const int j = i / kRC, c = c0 + i % kRC;
+      if (p0 + j < HW && c < C) tile[c - c0][j] = hb[static_cast<int64_t>(p0 + j) * C + c];
+    }
+  }
+  __syncthreads();
+  if (!px_ok) return;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int c = warp + 8 * k;
+    if (c0 + c >= C) break;
+    const int64_t bc = static_cast<int64_t>(bi) * C + c0 + c;
+    out[bc * HW + p0 + lane] =
+        __fadd_rn(xv[k], __fadd_rn(__fmul_rn(tile[c][lane], a[bc]), b[bc]));
   }
 }
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <int kNW>
+int launch_s1(const CUtensorMap& map_in, const void* w, WConvArgs a, int64_t B, int ntile0,
+              int ntiles, cudaStream_t stream) {
+  // the weights as (R, 9, Cp) boxes of kNW rows: past R they read zeros
+  CUtensorMap map_w;
+  if (!make_map_3d(&map_w, kInt8, w, a.Cp, 9, a.R, kWK, kNW)) return cudaErrorInvalidValue;
+  // the shared-memory opt-in, once per device (a host call on every launch
+  // of a path that waits on the host)
+  static uint64_t allowed = 0;
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  if (dev >= 64 || !(allowed >> dev & 1)) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        conv_s1_wgmma_kernel<kNW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+    if (attr != cudaSuccess) return attr;
+    if (dev < 64) allowed |= 1ULL << dev;
+  }
+  a.ntile0 = ntile0;
+  dim3 grid(static_cast<unsigned>(B * a.tiles), static_cast<unsigned>(ntiles));
+  conv_s1_wgmma_kernel<kNW><<<grid, kWThreads, kWSmem, stream>>>(map_in, map_w, a);
+  return last_error();
+}
+
+// the stride-1 conv's launches: checks, the input's TMA descriptor, the full
+// N tiles at width 256, then a last, narrower tile if R is not a multiple of
+// 256
+int conv_s1(const void* xq, const void* w, WConvArgs a, int64_t B, cudaStream_t stream) {
+  const uint64_t rows = static_cast<uint64_t>(B) * a.Hp * a.Wp;
+  if (a.Hp < 3 || a.Wp < 3 || rows >= (1ULL << 31) || !aligned(xq) || !aligned(w) ||
+      B * a.tiles >= (1LL << 31) || (a.R + kWN - 1) / kWN >= 65536)
+    return cudaErrorInvalidValue;
+  if (B == 0 || a.R == 0) return last_error();
+  CUtensorMap map_in;
+  if (!make_map(&map_in, kInt8, xq, a.Cp, rows, kWK, kWM)) return cudaErrorInvalidValue;
+  const int full = a.R / kWN, tail = a.R % kWN;
+  if (full > 0) {
+    const int err = launch_s1<256>(map_in, w, a, B, 0, full, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (tail > 128) return launch_s1<256>(map_in, w, a, B, full, 1, stream);
+  if (tail > 64) return launch_s1<128>(map_in, w, a, B, full, 1, stream);
+  if (tail > 32) return launch_s1<64>(map_in, w, a, B, full, 1, stream);
+  if (tail > 0) return launch_s1<32>(map_in, w, a, B, full, 1, stream);
+  return last_error();
+}
 
 }  // namespace
 
@@ -379,30 +893,82 @@ extern "C" int mt_int8_quant_pad(const void* x, void* out, const void* inv_sx, c
                                  const void* pb, int relu, float alpha, int64_t B, int64_t C,
                                  int64_t H, int64_t W, int64_t Cp, int64_t Hp, int64_t Wp,
                                  int64_t pt, int64_t pl, int reflect, void* stream) {
-  if (Cp % kQT != 0 || B * (Cp / kQT) >= (1 << 30) || Hp >= 65536) return cudaErrorInvalidValue;
-  const int cblocks = static_cast<int>(Cp / kQT);
-  dim3 grid(static_cast<unsigned>((Wp + kQT - 1) / kQT), static_cast<unsigned>(Hp),
-            static_cast<unsigned>(B * cblocks));
+  const int64_t pr = Wp - W - pl;
+  if (Cp % 32 != 0 || Cp / kQC >= 65536 || B * Hp >= (1LL << 31) || pl < 0 || pl > 1 || pr < 0 ||
+      pr > 1 || !aligned(out) || (W % 4 == 0 && !aligned(x)))
+    return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(B * Hp), static_cast<unsigned>((Wp + kQSeg - 1) / kQSeg),
+            static_cast<unsigned>((Cp + kQC - 1) / kQC));
   if (B > 0 && Hp > 0 && Wp > 0) {
-    quant_pad_kernel<<<grid, dim3(kQT, 8), 0, static_cast<cudaStream_t>(stream)>>>(
+    quant_pad_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<int8_t*>(out),
         static_cast<const float*>(inv_sx), static_cast<const float*>(pa),
         static_cast<const float*>(pb), relu, alpha, static_cast<int>(C), static_cast<int>(H),
         static_cast<int>(W), static_cast<int>(Cp), static_cast<int>(Hp), static_cast<int>(Wp),
-        static_cast<int>(pt), static_cast<int>(pl), reflect, cblocks);
+        static_cast<int>(pt), static_cast<int>(pl), reflect);
   }
   return last_error();
 }
 
+// the same from x NHWC (B, H, W, C) f32 (16-byte aligned)
+extern "C" int mt_int8_quant_pad_nhwc(const void* x, void* out, const void* inv_sx, const void* pa,
+                                      const void* pb, int relu, float alpha, int64_t B, int64_t C,
+                                      int64_t H, int64_t W, int64_t Cp, int64_t Hp, int64_t Wp,
+                                      int64_t pt, int64_t pl, int reflect, void* stream) {
+  const int64_t row = Wp * (Cp / kQV);  // threads per padded row
+  if (Cp % kQV != 0 || !aligned(x) || !aligned(out) ||
+      (pa != nullptr && (!aligned(pa) || !aligned(pb))) || B * Hp >= (1LL << 31) ||
+      (row + 255) / 256 >= 65536)
+    return cudaErrorInvalidValue;
+  if (B * Hp * row > 0) {
+    dim3 grid(static_cast<unsigned>(B * Hp), static_cast<unsigned>((row + 255) / 256));
+    quant_pad_nhwc_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(out),
+        static_cast<const float*>(inv_sx), static_cast<const float*>(pa),
+        static_cast<const float*>(pb), relu, alpha, static_cast<int>(C), static_cast<int>(H),
+        static_cast<int>(W), static_cast<int>(Cp), static_cast<int>(Hp), static_cast<int>(Wp),
+        static_cast<int>(pt), static_cast<int>(pl), reflect);
+  }
+  return last_error();
+}
+
+// The M tiles per image of mt_int8_conv's launch, which are the rows of its
+// statistics partials, and in *tile_rows the rows of one tile. stride 1
+// without phases runs the wgmma template, whose tiles run over the padded
+// width (m = oy * Wp + ox, kWM rows); the others run the mma.sync one, whose
+// tiles run over the Ho * Wo output pixels (kTileM).
+extern "C" int64_t mt_int8_stat_tiles(int64_t stride, int phases, int64_t Ho, int64_t Wo,
+                                      int64_t Wp, int64_t* tile_rows) {
+  const bool wgmma = stride == 1 && !phases;
+  const int64_t rows = wgmma ? kWM : kTileM;
+  *tile_rows = rows;
+  return ((wgmma ? Ho * Wp : Ho * Wo) + rows - 1) / rows;
+}
+
 // xq: (B, Hp, Wp, Cp) int8; w: (R, T, Cp) int8; scale, bias: (R,) f32 (bias
-// may be null); y: (B, Co, Ho, Wo) f32, or (B, Co, 2Ho, 2Wo) when phases
-// (R = 4 Co, row n = phase * Co + co); psum, psq: (B, tiles, R) int64 or null.
+// may be null); y: (B, Co, Ho, Wo) f32, or (B, Ho, Wo, Co) when nhwc (stride
+// 1 without phases only), or (B, Co, 2Ho, 2Wo) when phases (R = 4 Co, row n =
+// phase * Co + co); psum, psq: (B, tiles, R) int64 or null, tiles as
+// mt_int8_stat_tiles gives them.
 extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, const void* bias,
                             void* y, void* psum, void* psq, int64_t B, int64_t Hp, int64_t Wp,
                             int64_t Cp, int64_t R, int64_t T, int64_t kw, int64_t stride,
-                            int64_t Ho, int64_t Wo, int64_t Co, int phases, void* stream) {
-  if (Cp % kTileK != 0 || B >= 65536 || (R + kTileN - 1) / kTileN >= 65536)
+                            int64_t Ho, int64_t Wo, int64_t Co, int64_t tiles, int phases,
+                            int nhwc, void* stream) {
+  int64_t tile_rows = 0;
+  if (Cp % kTileK != 0 || B >= 65536 || (R + kTileN - 1) / kTileN >= 65536 ||
+      tiles >= (1LL << 31) || tiles != mt_int8_stat_tiles(stride, phases, Ho, Wo, Wp, &tile_rows))
     return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (stride == 1 && !phases) {
+    if (T != 9 || kw != 3 || Ho != Hp - 2 || Wo != Wp - 2 || Co != R) return cudaErrorInvalidValue;
+    WConvArgs a{static_cast<const float*>(scale), static_cast<const float*>(bias),
+                static_cast<float*>(y), static_cast<long long*>(psum),
+                static_cast<long long*>(psq), static_cast<int>(Hp), static_cast<int>(Wp),
+                static_cast<int>(Cp), static_cast<int>(R), static_cast<int>(tiles), nhwc, 0};
+    return conv_s1(xq, w, a, B, st);
+  }
+  if (nhwc) return cudaErrorInvalidValue;
   ConvArgs a;
   a.xq = static_cast<const int8_t*>(xq);
   a.w = static_cast<const int8_t*>(w);
@@ -421,11 +987,10 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
   a.Ho = static_cast<int>(Ho);
   a.Wo = static_cast<int>(Wo);
   a.Co = static_cast<int>(Co);
-  a.tiles = static_cast<int>((Ho * Wo + kTileM - 1) / kTileM);
+  a.tiles = static_cast<int>(tiles);
   dim3 grid(static_cast<unsigned>(a.tiles), static_cast<unsigned>((R + kTileN - 1) / kTileN),
             static_cast<unsigned>(B));
   if (B > 0 && a.tiles > 0) {
-    auto st = static_cast<cudaStream_t>(stream);
     if (phases) {
       conv_kernel<true><<<grid, kConvThreads, 0, st>>>(a);
     } else {
@@ -460,17 +1025,19 @@ extern "C" int mt_int8_stats(const void* psum, const void* psq, const void* scal
   return last_error();
 }
 
-// x, h, out: (planes, hw) f32; a, b: (planes,) f32. x and h 16-byte aligned.
-extern "C" int mt_int8_residual(const void* x, const void* h, const void* a, const void* b,
-                                void* out, int64_t planes, int64_t hw, void* stream) {
-  const int64_t n = planes * hw;
-  const int64_t threads = (n + 3) / 4;
-  if ((threads + 255) / 256 >= (1LL << 31)) return cudaErrorInvalidValue;
-  if (n > 0) {
-    residual_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+// x, out: (B, C, HW) f32; h: (B, HW, C) f32, 16-byte aligned; a, b: (B, C) f32
+extern "C" int mt_int8_residual_nhwc(const void* x, const void* h, const void* a, const void* b,
+                                     void* out, int64_t B, int64_t C, int64_t HW, void* stream) {
+  if (!aligned(h) || B >= 65536 || (C + kRC - 1) / kRC >= 65536 ||
+      (HW + kRP - 1) / kRP >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  if (B > 0 && C > 0 && HW > 0) {
+    dim3 grid(static_cast<unsigned>((HW + kRP - 1) / kRP), static_cast<unsigned>(B),
+              static_cast<unsigned>((C + kRC - 1) / kRC));
+    residual_nhwc_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(h), static_cast<const float*>(a),
-        static_cast<const float*>(b), static_cast<float*>(out), n, hw);
+        static_cast<const float*>(b), static_cast<float*>(out), static_cast<int>(C),
+        static_cast<int>(HW));
   }
   return last_error();
 }

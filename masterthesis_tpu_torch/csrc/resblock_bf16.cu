@@ -66,11 +66,12 @@
 // adjoint, as the TPU kernel does); statistics and the norm backward's sums
 // are f64 sums of f32 terms, rounded once; the elementwise steps use
 // __fmul_rn / __fadd_rn (no FMA contraction), as torch's separate ops do.
-#include <cuda.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace mt::sm90;
 
 using bf16 = __nv_bfloat16;
 
@@ -107,94 +108,8 @@ __device__ __forceinline__ void norm_affine(const float* mean, const float* rstd
 }
 
 // ---------------------------------------------------------------------------
-// Hopper primitives: shared-memory addresses, mbarriers, TMA, wgmma, clusters
+// the bf16 wgmma instruction (the other Hopper primitives are in hopper.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(addr), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// returns once the phase of the given parity has completed; a wait of more
-// than 2 s can only be a broken pipeline, so it traps (the launch fails)
-// rather than hold the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(addr, parity))
-    if (global_ns() - t0 > 2000000000ull) asm volatile("trap;\n");
-}
-
-// one 2-D box of the tensor map at (inner, outer) element coordinates into
-// shared memory; completion is counted in bytes on the mbarrier
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int inner, int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle. lbo / sbo in bytes:
-// K-major, sbo is the stride of 8-row groups (lbo unused); MN-major, lbo is
-// the stride of 64-element MN blocks and sbo that of 8-row K groups.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator registers across the async ops
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // D (64 x 256 f32, in registers) += A (64 x 16) * B (16 x 256), bf16 operands from
 // shared memory through their descriptors; TA / TB: the operand is MN-major (1)
 // or K-major (0) in shared memory
@@ -239,40 +154,6 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-// every thread of every block of the cluster; orders shared-memory writes
-// before it with reads of any block's shared memory after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
-}
-// the address of the same shared variable in the cluster's block `rank`
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ double ld_cluster_f64(uint32_t addr) {
-  double v;
-  asm volatile("ld.shared::cluster.f64 %0, [%1];\n" : "=d"(v) : "r"(addr) : "memory");
-  return v;
-}
-__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // pad: (B, H, W, C) -> (B, H+2+2r, W+2+2r, C), reflect or zero by 1, then a
@@ -1188,45 +1069,6 @@ int launch_clustered(void (*kernel)(Params...), dim3 grid, dim3 block, dim3 clus
   return err != cudaSuccess ? static_cast<int>(err) : last_error();
 }
 
-// TMA descriptors come from the driver's cuTensorMapEncodeTiled, found at
-// run time through the runtime's entry-point query (no -lcuda at build)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                            cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major (rows, inner) bf16 matrix, read in (box_rows, box_inner) boxes
-// with the 128-byte swizzle; out-of-bounds elements read as zeros
-bool make_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t rows,
-              uint32_t box_inner, uint32_t box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {inner, rows};
-  const cuuint64_t strides[1] = {inner * 2};
-  const cuuint32_t box[2] = {box_inner, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <typename Kernel>
 cudaError_t allow_gemm_smem(Kernel kernel) {
@@ -1281,7 +1123,8 @@ int conv_bf16(const void* in, const void* w, void* out, int64_t B, int64_t Hp, i
   if (B == 0 || N == 0) return last_error();
   const int64_t tiles = ((Hp - 2) * Wp + kBM - 1) / kBM;
   CUtensorMap map_in, map_w;
-  if (!make_map(&map_in, in, C, B * Hp * Wp, kBK, kBM) || !make_map(&map_w, w, 9 * C, N, kBK, kBN))
+  if (!make_map(&map_in, kBf16, in, C, B * Hp * Wp, kBK, kBM) ||
+      !make_map(&map_w, kBf16, w, 9 * C, N, kBK, kBN))
     return cudaErrorInvalidValue;
   const cudaError_t attr = allow_gemm_smem(conv_wgmma_kernel);
   if (attr != cudaSuccess) return attr;
@@ -1366,7 +1209,7 @@ int wgrad_bf16(const void* a, const void* d, void* dw, int64_t B, int64_t H, int
   const int64_t ci_tiles = (Ci + kBN - 1) / kBN, tiles = ci_tiles * (Co / kBM);
   const int64_t slabs = (Q + 63) / 64;
   CUtensorMap map_d, map_a;
-  if (!make_map(&map_d, d, Co, Q, 64, 64) || !make_map(&map_a, a, Ci, Q, 64, 64))
+  if (!make_map(&map_d, kBf16, d, Co, Q, 64, 64) || !make_map(&map_a, kBf16, a, Ci, Q, 64, 64))
     return cudaErrorInvalidValue;
   const cudaError_t attr = allow_gemm_smem(wgrad_wgmma_kernel);
   if (attr != cudaSuccess) return attr;

@@ -59,18 +59,25 @@ def build(names=SOURCES) -> dict[str, str]:
 
     Returns the compiler's output per source it compiled (``-Xptxas -v``
     reports registers and spills there). Raises with that output if any
-    compile fails. A library is written under a temporary name and renamed,
-    so a concurrent build never loads a half-written file.
+    compile fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {name: (CSRC / f"{name}.cu", library_path(name)) for name in names}
+    return compile_sources({name: job for name, job in jobs.items() if not job[1].exists()})
+
+
+def compile_sources(jobs: dict[str, tuple[Path, Path]]) -> dict[str, str]:
+    """Compile each ``name: (source, library)`` of ``jobs`` with ``nvcc``,
+    one process per source, all started at once. Returns the compiler's
+    output per name; raises with it if any compile fails. A library is
+    written under a temporary name and renamed, so a concurrent build never
+    loads a half-written file.
+    """
     running = {}
     try:
-        for name in names:
-            lib = library_path(name)
-            if lib.exists():
-                continue
+        for name, (src, lib) in jobs.items():
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )

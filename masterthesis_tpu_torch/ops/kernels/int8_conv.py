@@ -21,7 +21,11 @@ zero pad, into an int8 NHWC copy whose channels are padded to a multiple of
 int64 sums of the accumulators and their squares, from which a third launch
 forms the per-(sample, channel) (sum, sumsq) of y exactly as
 :func:`stats_plain` does: the statistics are the same bits on the card and
-on the CPU, whatever the summation order).
+on the CPU, whatever the summation order). The stride-1 convs (kernels 4
+and 6) run the ``wgmma`` template, whose M tiles run over the padded width;
+the stride-2 and transposed convs run the ``mma.sync`` one, whose tiles run
+over the output pixels. The library owns the tiling: :func:`conv_tiling`
+asks it for the tile count that sizes the partials.
 
 On a CPU tensor each wrapper runs its plain version, which does the same
 arithmetic with torch ops: the integer conv runs in float64, which is exact
@@ -33,7 +37,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -44,7 +47,6 @@ from masterthesis_tpu_torch.ops.kernels import build
 
 INT8_MAX = 127.0
 K_ALIGN = 32  # channel padding of the int8 operands: one mma k-step
-TILE_M = 64  # output pixels per conv block (csrc/int8_conv.cu kTileM)
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 
 
@@ -293,22 +295,31 @@ def resblock_plain(x, q1: QuantConv, q2: QuantConv, gamma, beta, relu_mid: bool 
 # ------------------------------------------------------------ the kernels --
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The library with its entry points typed, once per process: the
-    wrappers run on every conv of a forward."""
-    lib = build.load("int8_conv")
-    sigs = {
-        "mt_int8_quant_pad": [_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _P],
-        "mt_int8_conv": [_P] * 7 + [_I64] * 11 + [_I32, _P],
-        "mt_int8_stats": [_P] * 10 + [_I64] * 5 + [_F32, _F32, _P],
-        "mt_int8_residual": [_P] * 5 + [_I64, _I64, _P],
-    }
-    for name, argtypes in sigs.items():
+# the C entry points of csrc/int8_conv.cu: name -> (argument types, result type)
+SIGNATURES = {
+    "mt_int8_quant_pad": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _P], _I32),
+    "mt_int8_quant_pad_nhwc": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _P], _I32),
+    "mt_int8_stat_tiles": ([_I64, _I32, _I64, _I64, _I64, _P], _I64),
+    "mt_int8_conv": ([_P] * 7 + [_I64] * 12 + [_I32, _I32, _P], _I32),
+    "mt_int8_stats": ([_P] * 10 + [_I64] * 5 + [_F32, _F32, _P], _I32),
+    "mt_int8_residual_nhwc": ([_P] * 5 + [_I64] * 3 + [_P], _I32),
+}
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/int8_conv.cu``) with its entry points typed."""
+    for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The typed library, once per process: the wrappers run on every conv
+    of a forward."""
+    return typed(build.load("int8_conv"))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -337,9 +348,15 @@ def _check_input(what: str, x: torch.Tensor, qc: QuantConv) -> None:
         raise ValueError(f"{what}: reflect padding needs H, W > 1, got {tuple(x.shape)}")
 
 
-def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None) -> torch.Tensor:
-    """The quantize-and-pad launch: :func:`quant_pad_plain` on the card."""
-    b, c, h, w = x.shape
+def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
+                   nhwc: bool = False) -> torch.Tensor:
+    """The quantize-and-pad launch: :func:`quant_pad_plain` on the card, of
+    NCHW ``x``, or with ``nhwc`` of (B, H, W, C) ``x`` (what
+    :func:`quant_pad_plain` gives for ``x.permute(0, 3, 1, 2)``)."""
+    if nhwc:
+        b, h, w, c = x.shape
+    else:
+        b, c, h, w = x.shape
     t, bo, l, r = qc.pad
     hp, wp = h + t + bo, w + l + r
     out = torch.empty((b, hp, wp, qc.cp), device=x.device, dtype=torch.int8)
@@ -351,8 +368,9 @@ def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = Non
         _check_f32("prologue shift", pb, (b, c), x.device)
         relu, alpha = int(bool(pending.get("relu"))), float(pending.get("alpha", 0.0))
     lib = _library()
+    launch = lib.mt_int8_quant_pad_nhwc if nhwc else lib.mt_int8_quant_pad
     with torch.cuda.device(x.device):
-        err = lib.mt_int8_quant_pad(
+        err = launch(
             x.data_ptr(), out.data_ptr(), qc.inv_sx.data_ptr(), _ptr(pa), _ptr(pb), relu, alpha,
             b, c, h, w, qc.cp, hp, wp, t, l, int(qc.reflect), build.stream_of(x),
         )
@@ -360,25 +378,44 @@ def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = Non
     return out
 
 
+@functools.cache
+def _tiling(stride: int, phases: int, ho: int, wo: int, wp: int) -> tuple[int, int]:
+    rows = ctypes.c_int64()
+    tiles = _library().mt_int8_stat_tiles(stride, phases, ho, wo, wp, ctypes.byref(rows))
+    return tiles, rows.value
+
+
+def conv_tiling(qc: QuantConv, hp: int, wp: int) -> tuple[int, int]:
+    """(M tiles per image, rows per tile) of ``qc``'s conv launch on a (hp,
+    wp) padded input, as the library tiles it: the tiles are the rows of its
+    per-tile statistics partials. Loads the library."""
+    ho, wo = (hp - qc.kh) // qc.stride + 1, (wp - qc.kw) // qc.stride + 1
+    return _tiling(qc.stride, int(qc.phases == 4), ho, wo, wp)
+
+
 def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
-                     gamma=None, beta=None, eps: float = 1e-5):
+                     gamma=None, beta=None, eps: float = 1e-5, nhwc: bool = False):
     """The implicit-GEMM launch (and the stats launch): y, and with stats
     (sum, sumsq), or with ``gamma``/``beta`` the norm affine (a, b) of
-    :func:`norm_affine_plain` computed from them in the stats launch."""
+    :func:`norm_affine_plain` computed from them in the stats launch. With
+    ``nhwc`` (stride-1 convs only) y is (B, H, W, Co)."""
     b, hp, wp, cp = xq.shape
     if xq.dtype != torch.int8 or not xq.is_contiguous() or cp != qc.cp:
         raise ValueError(f"int8 conv: padded input must be contiguous int8 (B, Hp, Wp, {qc.cp})")
+    if nhwc and (qc.stride != 1 or qc.phases != 1):
+        raise ValueError("int8 conv: an NHWC output is for stride-1 convs only")
     ho, wo = (hp - qc.kh) // qc.stride + 1, (wp - qc.kw) // qc.stride + 1
     f = 2 if qc.phases == 4 else 1
     r = qc.w.shape[0]
-    y = torch.empty((b, qc.cout, f * ho, f * wo), device=xq.device, dtype=torch.float32)
-    tiles = math.ceil(ho * wo / TILE_M)
-    if b * tiles >= 2**31 or ho * wo >= 2**31:
+    shape = (b, ho, wo, qc.cout) if nhwc else (b, qc.cout, f * ho, f * wo)
+    y = torch.empty(shape, device=xq.device, dtype=torch.float32)
+    tiles, tile_rows = conv_tiling(qc, hp, wp)
+    if b * tiles >= 2**31 or ho * wp >= 2**31:
         raise ValueError("int8 conv: output exceeds the grid")
     psum = psq = None
     if with_stats:
         # a tile's sum of squared accumulators must fit in int64
-        if TILE_M * (qc.kh * qc.kw * qc.cp * 127**2) ** 2 >= 2**63:
+        if tile_rows * (qc.kh * qc.kw * qc.cp * 127**2) ** 2 >= 2**63:
             raise ValueError(f"int8 conv: {qc.kh * qc.kw * qc.cp} taps x channels overflow "
                              "the int64 statistics")
         psum = torch.empty((b, tiles, r), device=xq.device, dtype=torch.int64)
@@ -389,7 +426,7 @@ def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
         err = lib.mt_int8_conv(
             xq.data_ptr(), qc.w.data_ptr(), qc.scale.data_ptr(), _ptr(qc.bias), y.data_ptr(),
             _ptr(psum), _ptr(psq), b, hp, wp, cp, r, qc.kh * qc.kw, qc.kw, qc.stride, ho, wo,
-            qc.cout, int(qc.phases == 4), stream,
+            qc.cout, tiles, int(qc.phases == 4), int(nhwc), stream,
         )
         build.check(lib, err, "int8 conv")
         if not with_stats:
@@ -469,11 +506,12 @@ def resblock(x: torch.Tensor, q1: QuantConv, q2: QuantConv, gamma: torch.Tensor,
     """The int8 residual block on NCHW f32 x; gamma, beta (B, C) f32 (zeros
     for the encoder's instance-norm blocks).
 
-    On the card: seven launches, in order quantize-pad, conv1, stats (which
-    also forms conv2's prologue affine), quantize-pad with that affine and
-    relu, conv2, stats, and the residual apply. h1 and h2 go through device
-    memory: at 64x64x256 f32 an image's h1 (4 MB) is far above a block's
-    227 KB of shared memory.
+    On the card: seven launches, in order quantize-pad, conv1 (h1 stored
+    NHWC, as the GEMM holds it), stats (which also forms conv2's prologue
+    affine), quantize-pad of NHWC h1 with that affine and relu, conv2 (h2
+    NHWC too), stats, and the residual apply, which turns h2 to NCHW through
+    shared-memory tiles. h1 and h2 go through device memory: at 64x64x256
+    f32 an image's h1 (4 MB) is far above a block's 227 KB of shared memory.
     """
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("int8 resblock has no backward; call it under torch.inference_mode()")
@@ -485,16 +523,17 @@ def resblock(x: torch.Tensor, q1: QuantConv, q2: QuantConv, gamma: torch.Tensor,
         if qc.stride != 1 or qc.phases != 1 or qc.cout != x.shape[1]:
             raise ValueError("int8 resblock takes two stride-1 C->C QuantConvs")
         _check_input("int8 resblock", x, qc)
-    h1, a1, b1 = conv_padded_cuda(quant_pad_cuda(x, q1), q1, True, gamma, beta, eps)
+    h1, a1, b1 = conv_padded_cuda(quant_pad_cuda(x, q1), q1, True, gamma, beta, eps, nhwc=True)
     mid = {"scale": a1, "shift": b1, "relu": relu_mid, "alpha": 0.0}
-    h2, a2, b2 = conv_padded_cuda(quant_pad_cuda(h1, q2, mid), q2, True, gamma, beta, eps)
+    h2, a2, b2 = conv_padded_cuda(quant_pad_cuda(h1, q2, mid, nhwc=True), q2, True, gamma, beta,
+                                  eps, nhwc=True)
     out = torch.empty_like(x)
     b, c, h, w = x.shape
     lib = _library()
     with torch.cuda.device(x.device):
-        err = lib.mt_int8_residual(
+        err = lib.mt_int8_residual_nhwc(
             x.data_ptr(), h2.data_ptr(), a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            b * c, h * w, build.stream_of(x),
+            b, c, h * w, build.stream_of(x),
         )
     build.check(lib, err, "int8 residual")
     resblock.launches += 1

@@ -68,13 +68,17 @@ def _pending(b, c, seed, alpha, device):
 
 
 # (B, C, Co, H, W, padding, prologue alpha or None, with_stats): the flagship
-# width, DecoderConcat's 268, and small unaligned widths at odd sizes
+# width, DecoderConcat's 268, and small unaligned widths at odd sizes; then
+# the wgmma template's edges: a tail k-slab (Cp 320, 96) with a second and a
+# third N tile (R 280, 520), W + 2 above the 128-row M tile, odd B
 CONV3X3 = [
     (2, 256, 256, 16, 16, "reflect", None, False),
     (2, 256, 256, 16, 16, "reflect", 0.0, True),
     (1, 268, 268, 9, 11, None, 0.0, True),
     (2, 20, 10, 7, 9, "reflect", 0.01, True),
     (1, 40, 72, 5, 6, None, None, False),
+    (3, 300, 280, 6, 140, None, 0.0, True),
+    (1, 96, 520, 3, 3, "reflect", None, False),
 ]
 
 
@@ -97,6 +101,16 @@ def test_conv3x3_kernel_matches_plain(cuda, b, c, co, h, w, padding, alpha, stat
     want = kq.conv3x3(x, qc, p, with_stats=stats)
     for g, r in zip(got if stats else (got,), want if stats else (want,)):
         assert torch.equal(g.cpu(), r)
+
+
+def test_conv3x3_repeats_bit_for_bit(cuda):
+    qc = _on(kq.quant_conv(_randn((268, 268, 3, 3), 5, 0.1), _randn((268,), 6, 0.2), 2.5, 1,
+                           None), cuda)
+    x = _randn((3, 268, 9, 130), 7, 1.5).to(cuda)
+    p = _pending(3, 268, 8, 0.0, cuda)
+    first = kq.conv3x3(x, qc, p, with_stats=True)
+    again = kq.conv3x3(x, qc, p, with_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_conv3x3_refuses_what_it_cannot_take(cuda):

@@ -15,6 +15,7 @@ the same int8 operands as the plain version, the conv the same int32 sums
 the same dequantized y. The statistics come from exact integer sums, so
 they are equal too, and so is a whole residual block.
 """
+import math
 from dataclasses import replace
 
 import numpy as np
@@ -71,12 +72,16 @@ def _on(qc, device):
 
 
 # (kind, B, C, Co, H, W): the flagship's channel counts at small maps, odd
-# sizes and channel counts that are not multiples of 32
+# sizes and channel counts that are not multiples of 32; for the stride-1
+# (wgmma) template also a 32-channel tail k-slab (Cp 288), a second N tile
+# (R 268, 300), W + 2 above its 128-row M tile, Ho x Wp off that tile, odd B
 CONVS = [
     ("down", 2, 64, 128, 16, 16),
     ("down", 1, 8, 16, 10, 14),
     ("res", 2, 256, 256, 8, 8),
     ("res", 1, 24, 24, 7, 9),
+    ("res", 3, 268, 268, 5, 130),
+    ("res", 1, 300, 300, 4, 6),
     ("deconv", 2, 256, 128, 8, 8),
     ("deconv", 1, 12, 20, 5, 7),
 ]
@@ -113,8 +118,22 @@ def test_conv_wrappers_match_plain(cuda, kind, b, c, co, h, w):
     assert torch.equal(s.cpu(), rs) and torch.equal(sq.cpu(), rsq)
 
 
+def test_stat_tiles_follow_each_route(cuda):
+    """The library sizes the partials per route: stride-1 convs over the
+    padded width in tiles of 128 rows (``M_TILE`` of
+    ``tests/test_torch_int8_tiling.py``), the others over the output pixels
+    in tiles of 64."""
+    conv = kq.quant_conv(torch.ones(8, 8, 3, 3), None, 1.0, 1, "reflect")
+    down = kq.quant_conv(torch.ones(8, 8, 3, 3), None, 1.0, 2, "reflect")
+    deconv = kq.quant_deconv(torch.ones(8, 8, 3, 3), None, 1.0)
+    assert kq.conv_tiling(conv, 66, 66) == (math.ceil(64 * 66 / 128), 128) == (33, 128)
+    assert kq.conv_tiling(conv, 3, 142) == (2, 128)
+    assert kq.conv_tiling(down, 66, 66) == (math.ceil(32 * 32 / 64), 64)
+    assert kq.conv_tiling(deconv, 65, 65) == (math.ceil(64 * 64 / 64), 64)
+
+
 @pytest.mark.parametrize("style", ["instance", "adain"])
-@pytest.mark.parametrize("shape", [(2, 256, 16, 16), (1, 40, 6, 10)])
+@pytest.mark.parametrize("shape", [(2, 256, 16, 16), (1, 40, 6, 10), (3, 268, 5, 130)])
 def test_resblock_kernel_matches_plain(cuda, style, shape):
     b, c, h, w = shape
     q1, q2 = _make("res", c, c, 7), _make("res", c, c, 9)
@@ -128,6 +147,27 @@ def test_resblock_kernel_matches_plain(cuda, style, shape):
     # exact statistics give conv2 the same prologue affine, so the same int8
     # operands, and the residual apply is the same three rounded operations
     assert torch.equal(y.cpu(), kq.resblock_plain(x, q1, q2, g, be))
+
+
+def test_resblock_kernel_repeats_bit_for_bit(cuda):
+    b, c, h, w = 3, 268, 9, 20
+    q1, q2 = _on(_make("res", c, c, 21), cuda), _on(_make("res", c, c, 22), cuda)
+    x = _randn((b, c, h, w), 23).to(cuda)
+    g, be = _randn((b, c), 24, 0.3).to(cuda), _randn((b, c), 25, 0.3).to(cuda)
+    first = kq.resblock(x, q1, q2, g, be)
+    assert torch.equal(first, kq.resblock(x, q1, q2, g, be))
+
+
+@pytest.mark.parametrize("c,padding", [(256, "reflect"), (268, None), (20, "reflect")])
+def test_nhwc_quant_pad_matches_plain(cuda, c, padding):
+    """Kernel 6's second quantize reads h1 NHWC: the same operands as the
+    plain version of the NCHW tensor, with the prologue affine and relu."""
+    qc = _make("res", c, c, 26, padding)
+    h = _randn((2, c, 5, 7), 27, 1.5)
+    p = _pending(2, c, 28)
+    got = kq.quant_pad_cuda(h.permute(0, 2, 3, 1).contiguous().to(cuda), _on(qc, cuda),
+                            _to(p, cuda), nhwc=True)
+    assert torch.equal(got.cpu(), kq.quant_pad_plain(h, qc, p))
 
 
 @pytest.mark.parametrize("shape,co,bias", [((2, 64, 32, 32), 3, False), ((1, 10, 5, 7), 5, True)])
