@@ -35,9 +35,14 @@ against its plain PyTorch version.
    over the int8 tensor-core peak, 1,979 TOP/s, and bytes over 3.35 TB/s)
    and, for reference, cuDNN's bf16 float conv at the same shape (no single
    PyTorch call computes the int8 function, so ``library_ms`` is null).
+   Kernels 7 and 5 are also held exact, and to a second call, at ragged
+   stride-2 shapes, at BaseModel B's deconv widths (276 -> 138, 146 -> 73)
+   and at widths whose box tile holds fewer columns than its 128 (Wo 80).
    ``int8_breakdown``: each launch of kernels 6 and 4 at (8, 256, 64, 64)
-   and at (8, 268, 64, 64) (a tail N tile's launch of its own) by its device
-   time (torch.profiler's kernel records) beside its own bound.
+   and at (8, 268, 64, 64) (a tail N tile's launch of its own), and of
+   kernels 7 and 5 at the AdaINModel int8 forward's four shapes and
+   BaseModel B's two deconvs, by its device time (torch.profiler's kernel
+   records) beside its own bound.
 4. Builds AdaINModel with its own seeded init at 256px, dim 64, latent 8,
    4 domains, and in f32 and bf16 serves B=8 ``forward_random`` requests and
    one ``forward_reference`` with the launch counts set to 0 just before and
@@ -144,6 +149,9 @@ CPU_TOL = {"f32": 1e-4, "bf16": 5e-2}
 DOWN_SHAPES = [((B, 64, 256, 256), 128, 1), ((B, 128, 128, 128), 256, 1)]
 RES_SHAPES = [((B, 256, 64, 64), 256, 8)]  # 4 encoder blocks, 4 AdaIN blocks
 DECONV_SHAPES = [((B, 256, 64, 64), 128, 1), ((B, 128, 128, 128), 64, 1)]
+# BaseModel B's deconvs (DecoderConcat: 276 -> 138, Cp 288, R 552; 146 -> 73,
+# Cp 160, R 292), one each per forward
+DECONV_B_SHAPES = [((B, 276, 64, 64), 138, 1), ((B, 146, 128, 128), 73, 1)]
 HEAD_SHAPES = [((B, 64, 256, 256), 3, 1)]
 CONV3X3_SHAPES = [((B, 256, 64, 64), 256, 8)]  # BaseModel A: conv1/conv2 of 4 DecResnetBlocks
 # kernels 4 and 6 are also held to their plain versions at DecoderConcat's
@@ -152,6 +160,14 @@ CONV3X3_SHAPES = [((B, 256, 64, 64), 256, 8)]  # BaseModel A: conv1/conv2 of 4 D
 # above the 128-row M tile, Ho x Wp off it
 CONV3X3_UNALIGNED = ((B, 268, 64, 64), 268)
 INT8_RAGGED = ((3, 300, 9, 140), 300)
+# kernel 7 is also held to its plain version, and to a second call, at a
+# ragged shape: odd B, odd H and W (the padded input rounded up to an even
+# size), Wo above the 128-column M tile, Cp 96 (part of a k-slab), R 40 (a
+# tail N tile); and at Wo 80, one row of a 128-column box with 80 columns
+# inside (TMA stores); kernel 5 so at BaseModel B's two deconvs
+# (DECONV_B_SHAPES) and at W 80 (DECONV_RAGGED)
+DOWN_RAGGED = [((3, 72, 21, 269), 40), ((2, 96, 10, 160), 64)]
+DECONV_RAGGED = [((2, 64, 6, 80), 48)]
 INT8_PER_FORWARD = {"int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 0, "int8_deconv": 2,
                     "head": 1, "moments": 1}
 # BaseModel serving: A is the CLI default (plain style encoder, Decoder with
@@ -434,8 +450,39 @@ def _conv3x3_exact_cases(x, qc, shape) -> dict:
     return out
 
 
+def _strided_exact_cases(kind) -> dict:
+    """Kernel 7 at the ragged shapes (with a prologue), kernel 5 at BaseModel
+    B's deconvs (without one, as on that path) and at its ragged shape, with
+    statistics: operands, sums, y and statistics equal to the plain
+    version's, and a second call equal to the first."""
+    down = kind == "down"
+    out = {}
+    for i, (shape, co) in enumerate(DOWN_RAGGED if down else
+                                    [(s, co) for s, co, _ in DECONV_B_SHAPES] + DECONV_RAGGED):
+        b, c = shape[:2]
+        x = _randn(shape, torch.float32, 270 + i)
+        pending = _card_pending(b, c, 275 + i, 0.01) if down else None
+        amax = kq.prologue_plain(x, pending).abs().amax()
+        weight = _card_weight((co, c, 3, 3) if down else (c, co, 3, 3), 280 + i)
+        bias = _card_weight((co,), 285 + i, 0.1)
+        qc = (kq.quant_conv(weight, bias, amax, 2, "reflect") if down
+              else kq.quant_deconv(weight, bias, amax))
+        exact = _check_exact(x, qc, pending)
+        wrapper = kq.downconv if down else kq.deconv
+        got, want = wrapper(x, qc, pending, with_stats=True), kq.conv_plain(x, qc, pending, True)
+        again = wrapper(x, qc, pending, with_stats=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), f"{kind} {shape}: differs"
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), f"{kind} {shape}: two calls differ"
+        out[f"{list(shape)} -> {co}"] = dict(**exact, outputs_and_stats_equal=True,
+                                            bit_equal_repeat=True, cp=qc.cp, rows=qc.w.shape[0])
+    return out
+
+
 def check_int8_conv(kind: str) -> dict:
-    """Kernel 7 ("down"), 4 ("conv3x3") or 5 ("deconv") at the path's shapes."""
+    """Kernel 7 ("down"), 4 ("conv3x3") or 5 ("deconv") at the path's shapes,
+    with a second call equal to the first; 7 also at a ragged shape, 5 also
+    at BaseModel B's widths."""
     shapes, wname, replaces, stats = INT8_CONVS[kind]
     wrapper = getattr(kq, wname)
     rows = []
@@ -453,13 +500,18 @@ def check_int8_conv(kind: str) -> dict:
         exact = _check_exact(x, qc, pending)
         if kind == "conv3x3":
             exact["cases"] = _conv3x3_exact_cases(x, qc, shape)
+        elif i == 0:
+            exact["cases"] = _strided_exact_cases(kind)
         got = wrapper(x, qc, pending, with_stats=stats)
+        again = wrapper(x, qc, pending, with_stats=stats)
         want = kq.conv_plain(x, qc, pending, stats)
         torch.cuda.synchronize()
-        got, want = (got, want) if stats else ((got,), (want,))
+        got, again, want = (got, again, want) if stats else ((got,), (again,), (want,))
         err = (got[0] - want[0]).abs().max().item()
         assert err == 0.0, f"{kind} {shape}: output differs from the plain version's by {err}"
         assert all(torch.equal(g, r) for g, r in zip(got[1:], want[1:])), f"{kind} {shape}: statistics differ"
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), f"{kind} {shape}: two calls differ"
+        exact["bit_equal_repeat"] = True
         out_numel = got[0].numel()
         macs = b * c * co * 9 * ((h // 2) * (w // 2) if kind == "down" else h * w)
         nbytes = (4 * (numel + out_numel) + qc.w.numel() + (8 * b * co if stats else 0)
@@ -811,12 +863,21 @@ def int8_breakdown() -> dict:
     """Device ms per launch of kernel 6 (``int8_resblock``) and kernel 4
     (``int8_conv3x3``, without and with statistics) at (8, 256, 64, 64) f32
     -> 256 and at DecoderConcat's (8, 268, 64, 64) -> 268, whose conv runs
-    the 256-wide N tile and a 12-row tail tile as two launches, each launch
-    beside its own bound (bytes: each input read once, each output written
-    once, over 3.35 TB/s; operations: 2 x the int8 MACs over 1,979 TOP/s),
-    on rotating inputs that exceed L2."""
+    the 256-wide N tile and a 12-row tail tile as two launches; and of
+    kernels 7 (``int8_downconv``) and 5 (``int8_deconv``), with their path's
+    prologue and statistics, at the four shapes of the AdaINModel int8
+    forward and at DecoderConcat's two deconvs (276 -> 138, 146 -> 73). Each
+    launch beside its own bound (bytes: each input read once, each output
+    written once, over 3.35 TB/s; operations: 2 x the int8 MACs over 1,979
+    TOP/s), on rotating inputs that exceed L2."""
     cases = [_int8_breakdown_plans(CONV3X3_SHAPES[0][0], "reflect"),
              _int8_breakdown_plans(CONV3X3_UNALIGNED[0], None)]
+    cases += [_strided_breakdown_plans(kind, i, shape, co, _path_pending(kind, i, *shape[:2]))
+              for kind, shapes in (("down", DOWN_SHAPES), ("deconv", DECONV_SHAPES))
+              for i, (shape, co, _) in enumerate(shapes)]
+    # DecoderConcat concatenates z before each deconv: no prologue there
+    cases += [_strided_breakdown_plans("deconv", 2 + i, shape, co, None)
+              for i, (shape, co, _) in enumerate(DECONV_B_SHAPES)]
     timed = iter(_launch_ms([(fn, len(steps), case["sets"]) for case in cases
                              for fn, steps in case["plans"].values()]))
     out = {}
@@ -832,12 +893,44 @@ def int8_breakdown() -> dict:
             res[name] = dict(launches=rows, sum_ms=sum(ms), call_ms=device_ms(fn, case["sets"]),
                              sum_bound_ms=sum(r["bound_ms"] for r in rows))
         shape = case["shape"]
-        log(dict(phase="int8_breakdown", shape=list(shape), co=shape[1], cp=case["cp"],
+        log(dict(phase="int8_breakdown", shape=list(shape), co=case["co"], cp=case["cp"],
                  dtype="f32", stat_tiles=case["tiles"], **res))
-        out[shape[1]] = res
+        out[(case["kind"], tuple(shape))] = res
     del cases
     torch.cuda.empty_cache()
     return out
+
+
+def _strided_breakdown_plans(kind, i, shape, co, pending) -> dict:
+    """Kernel 7 (``kind`` "down") or 5 ("deconv") at ``shape`` -> ``co``
+    channels with the prologue ``pending`` and statistics: its launches in
+    order, each with the (bytes, operations) it must move and do, and the
+    rotating input sets."""
+    b, c, h, w = shape
+    numel = math.prod(shape)
+    sets = copies(lambda j: (_randn(shape, torch.float32, 1000 + 10 * i + j),), 4 * numel)
+    x = sets[0][0]
+    amax = kq.prologue_plain(x, pending).abs().amax()
+    down = kind == "down"
+    weight = _card_weight((co, c, 3, 3) if down else (c, co, 3, 3), 1020 + i)
+    bias = _card_weight((co,), 1030 + i, 0.1)
+    qc = kq.quant_conv(weight, bias, amax, 2, "reflect") if down else kq.quant_deconv(weight, bias, amax)
+    hp, wp = h + qc.pad[0] + qc.pad[1], w + qc.pad[2] + qc.pad[3]
+    r, taps = qc.w.shape[:2]
+    pad = b * hp * wp * qc.cp
+    out_bytes = 4 * b * co * (h * w // 4 if down else 4 * h * w)
+    macs = b * c * co * 9 * (h // 2) * (w // 2) if down else b * c * co * 9 * h * w
+    tiles, _ = kq.conv_tiling(qc, hp, wp)
+    convs = [(f"conv (N {n})", (pad + n * taps * qc.cp + out_bytes * n // r + 2 * b * tiles * n * 8,
+                                2 * macs * n // r)) for n in kq.conv_launches(qc)]
+    prologue = 8 * b * c if pending is not None else 0
+    wrapper = kq.downconv if down else kq.deconv
+    plans = {f"int8_{'downconv' if down else 'deconv'}": (
+        lambda t: wrapper(t, qc, pending, with_stats=True), [
+            (f"quant_pad (x NCHW{', affine + relu' if pending else ''})",
+             (4 * numel + pad + prologue, 0)),
+            *convs, ("stats", (2 * b * tiles * r * 8 + 2 * r * 4 + 2 * b * co * 4, 0))])}
+    return dict(kind=kind, shape=shape, co=co, cp=qc.cp, tiles=tiles, sets=sets, plans=plans)
 
 
 def _int8_breakdown_plans(shape, padding) -> dict:
@@ -857,11 +950,11 @@ def _int8_breakdown_plans(shape, padding) -> dict:
     # per-image int64 partials of the sums and the squares, one row per M tile
     tiles, _ = kq.conv_tiling(q1, h + 2, w + 2)
     partials = 2 * b * tiles * c * 8
-    # the conv's launches: the 256-wide N tiles in one, a tail tile in another
-    full, tail = divmod(c, 256)
-    convs = [(f" (N {n})" if tail else "",
+    # the conv's launches, as the library splits the N tiles
+    widths = kq.conv_launches(q1)
+    convs = [(f" (N {n})" if len(widths) > 1 else "",
               (pad + n * 9 * q1.cp + b * h * w * n * 4, 2 * b * h * w * n * c * 9))
-             for n in (256 * full, tail) if n]
+             for n in widths]
 
     def conv_steps(k):
         return [(f"conv{k}{n}", work) for n, work in convs]
@@ -879,7 +972,7 @@ def _int8_breakdown_plans(shape, padding) -> dict:
             ("quant_pad (x NCHW, affine + relu)", (act + pad + 2 * stat, 0)), *conv_steps(""),
             ("stats", (partials + 2 * c * 4 + 2 * stat, 0))]),
     }
-    return dict(shape=shape, cp=q1.cp, tiles=tiles, sets=sets, plans=plans)
+    return dict(kind="conv3x3", shape=shape, co=c, cp=q1.cp, tiles=tiles, sets=sets, plans=plans)
 
 
 PLAIN = [

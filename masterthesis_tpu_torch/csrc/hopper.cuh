@@ -86,6 +86,42 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the same for a 5-D box at (c0 .. c4), c0 innermost
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// a 5-D box of shared memory into the tensor map's array at (c0 .. c4), c0
+// innermost, as a bulk async-group of this thread (elements past a dim are
+// not written); the shared memory's generic-proxy writes must be fenced
+// (fence_proxy_async) and visible to this thread first
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA) reads of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// closes this thread's bulk async-group and waits until its TMA stores have
+// read their shared memory (their writes to global memory go on)
+__device__ __forceinline__ void tma_store_drain_reads() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // wgmma shared-memory matrix descriptor, 128-byte swizzle. lbo / sbo in bytes:
 // K-major, sbo is the stride of 8-row groups (lbo unused); MN-major, lbo is
 // the stride of 64-element MN blocks and sbo that of 8-row K groups.
@@ -93,6 +129,14 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// the same for K-major tiles of 64-byte rows with the 64-byte swizzle (8-row
+// groups 512 bytes apart)
+__device__ __forceinline__ uint64_t smem_desc_64b(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -184,6 +228,7 @@ struct Elem {
 };
 constexpr Elem kBf16{CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2};
 constexpr Elem kInt8{CU_TENSOR_MAP_DATA_TYPE_UINT8, 1};
+constexpr Elem kF32{CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4};
 
 // a row-major (rows, inner) matrix of `elem`, read in (box_rows, box_inner)
 // boxes with the 128-byte swizzle (box_inner x elem.bytes = 128); out-of-bounds
@@ -203,8 +248,10 @@ inline bool make_map(CUtensorMap* map, Elem elem, const void* base, uint64_t inn
 
 // a row-major (outer, middle, inner) array, read in (box_outer, 1, box_inner)
 // boxes, which land in shared memory as box_outer rows of box_inner elements
+// (box_inner x elem.bytes = the swizzle's width)
 inline bool make_map_3d(CUtensorMap* map, Elem elem, const void* base, uint64_t inner,
-                        uint64_t middle, uint64_t outer, uint32_t box_inner, uint32_t box_outer) {
+                        uint64_t middle, uint64_t outer, uint32_t box_inner, uint32_t box_outer,
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {inner, middle, outer};
@@ -212,7 +259,24 @@ inline bool make_map_3d(CUtensorMap* map, Elem elem, const void* base, uint64_t 
   const cuuint32_t box[3] = {box_inner, 1, box_outer};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return fn(map, elem.type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 5-D array (dims[0] innermost, strides in bytes of dims 1-4) read in
+// boxes of box[0..4] elements, which land in shared memory as
+// box[4] x box[3] x box[2] x box[1] rows of box[0] elements
+inline bool make_map_5d(CUtensorMap* map, Elem elem, const void* base, const uint64_t (&dims)[5],
+                        const uint64_t (&strides)[4], const uint32_t (&box)[5],
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t d[5] = {dims[0], dims[1], dims[2], dims[3], dims[4]};
+  const cuuint64_t s[4] = {strides[0], strides[1], strides[2], strides[3]};
+  const cuuint32_t bx[5] = {box[0], box[1], box[2], box[3], box[4]};
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  return fn(map, elem.type, 5, const_cast<void*>(base), d, s, bx, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -4,49 +4,50 @@
 //
 // Replaces masterthesis_tpu/ops/pallas/conv_int8.py:
 //   pallas_int8_conv3x3  (:187)   -> quant_pad (optional prologue, reflect or
-//                                    zero pad) + conv (3x3, stride 1, wgmma)
-//                                    [+ stats]
-//   pallas_int8_downconv (:1303)  -> quant_pad + conv (3x3, stride 2,
-//                                    mma.sync) [+ stats]
-//   pallas_int8_resblock (:989)   -> quant_pad, conv (wgmma, h1 stored NHWC),
-//                                    stats (forms conv2's prologue affine),
-//                                    quant_pad of NHWC h1, conv (wgmma, h2
-//                                    NHWC), stats, residual (NCHW out through
+//                                    zero pad) + conv (3x3, stride 1) [+ stats]
+//   pallas_int8_downconv (:1303)  -> quant_pad + conv (3x3, stride 2) [+ stats]
+//   pallas_int8_resblock (:989)   -> quant_pad, conv (h1 stored NHWC), stats
+//                                    (forms conv2's prologue affine),
+//                                    quant_pad of NHWC h1, conv (h2 NHWC),
+//                                    stats, residual (NCHW out through
 //                                    shared-memory tiles)     (7 launches)
 //   pallas_int8_deconv   (:577)   -> quant_pad (zero pad at the end) + conv
 //                                    (2x2 taps to 4 phases, interleaving
-//                                    store, mma.sync) [+ stats]
+//                                    store) [+ stats]
 // Channels are zero-padded to a multiple of 32 (K_ALIGN, one k32 step) in the
 // operands, and any number of output rows is guarded, so unaligned widths
 // (BaseModel's 268/276/146-channel convs) run as they are. The wrappers are
 // masterthesis_tpu_torch/ops/kernels/int8_conv.py, whose plain versions do the
 // same arithmetic with torch ops.
 //
-// Two conv templates:
-// - stride 1, one phase (kernels 4 and 6): wgmma m64nNk32 s8 -> s32 fed by
-//   TMA, for sm_90a. M = output pixels over the padded grid's width (m = oy *
-//   Wp + ox), so for tap (ky, kx) an M tile's A rows are one contiguous run of
-//   the (B * Hp * Wp, Cp) int8 view from m0 + ky * Wp + kx: a plain 2-D TMA
-//   box, no im2col; the rows m >= Ho * Wp and the 2 columns ox >= Wo are
-//   masked in the epilogue (3 % extra products at 64 x 64). A block (one
-//   image's M tile of 128 x up to 256 output rows) has two consumer
-//   warpgroups and one producer warp that keeps TMA loads of 128-channel
-//   k-slabs (128 bytes, the 128-byte swizzle's width) in flight through a
-//   4-stage mbarrier ring; the weights come as (R, 9, Cp) 3-D boxes, so a
-//   tail slab (Cp % 128) reads zeros past Cp in both operands (its four k32
-//   steps all run), and a tail N tile is a launch of its own at the
-//   narrowest wgmma (N = 128/64/32) that covers it, with a weight box of as
-//   many rows. The epilogue stages the s32 tile in shared memory, from which
-//   NCHW y is stored coalesced along the pixels, NHWC y (kernel 6's h1 and
-//   h2) along the channels, and the per-tile int64 partials one column per
-//   thread, without shuffles. At (8, 256, 64, 64) it is bound by
-//   operations: 38.7 G int8 operations (0.0195 ms at 1,979 TOP/s) against
-//   43 MB (0.0128 ms).
-// - stride 2 and the four-phase transposed conv (kernels 7 and 5): the first,
-//   simple design, mma.sync m16n8k32 on 64 x 64 tiles fed from shared memory
-//   double-buffered through registers (ROADMAP B.2 moves them to wgmma). They
-//   are bound by bytes (their f32 input and output, 134-201 MB, against 9.66
-//   G MACs).
+// The convs are wgmma m64nNk32 s8 -> s32 implicit GEMMs fed by TMA, for
+// sm_90a, with no im2col in device memory: blocks of two consumer
+// warpgroups and one producer warp that keeps TMA loads of k-slabs (128
+// channels, the 128-byte swizzle's width; conv_box_kernel takes 64 with the
+// 64-byte swizzle for inputs of at most 64 channels) in flight through an
+// mbarrier ring. The weights come as (R, taps, Cp) 3-D boxes, so a tail slab (Cp %
+// 128) reads zeros past Cp in both operands, and a tail N tile is a launch
+// of its own at the narrowest wgmma width (N = 128/64/32) that covers it,
+// with a weight box of as many rows. After the main loop the s32 tile is
+// staged in shared memory, [column][row], from which the per-tile int64
+// partials are added one column per thread, without shuffles. The pipeline
+// (ring_init, produce, consume, stage_acc) is shared by two kernels, which
+// differ in their A boxes and their epilogues:
+// - conv_s1_wgmma_kernel, stride 1 (kernels 4, 6): M = output pixels over
+//   the padded grid's width (m = oy * Wp + ox), so for tap (ky, kx) an M
+//   tile's A rows are one contiguous run of the (B * Hp * Wp, Cp) int8 view
+//   from m0 + ky * Wp + kx: a plain 2-D box; the rows m >= Ho * Wp and the 2
+//   columns ox >= Wo are dropped in the epilogue. N tiles of 256, one block
+//   per SM; NCHW y is stored from the staged tile coalesced along the
+//   pixels, NHWC y (kernel 6's h1 and h2) along the channels. At (8, 256,
+//   64, 64) it is bound by operations: 38.7 G int8 operations (0.0195 ms at
+//   1,979 TOP/s) against 43 MB (0.0128 ms).
+// - conv_box_kernel, stride 2 (kernel 7) and the transposed conv's 2x2 taps
+//   to four phase rows (kernel 5): M tiles are boxes of output rows x
+//   columns, each tap's A rows one 5-D TMA box (see the kernel). They are
+//   bound by bytes (their int8 input and f32 output, 25-151 MB, against 9.66
+//   G MACs), so their epilogue is kept off the main loop's way: N tiles of
+//   128 and a small ring for two blocks per SM, and y handed to TMA stores.
 // The f32 <-> int8 conversions are separate passes through device memory,
 // bound by bytes; the resblock (kernel 6) as a whole moves about 271 MB over
 // its 7 launches against 77.3 G int8 operations.
@@ -76,18 +77,18 @@ using namespace mt::sm90;
 
 // ---------------------------------------------------------------------------
 // quantize and pad: NCHW f32 -> padded NHWC int8, channels zero-padded to Cp.
-// A block writes up to kQSeg padded pixels of one padded row for 128
-// channels (fewer per block run slower: scripts/int8_conv_knobs.py). A
-// thread reads 4 columns of 4 channel rows (16-byte loads along x), and
-// quantizes and transposes them into 4 words of 4 channels each, which go to
-// a [pixel][channel] tile; then 8 threads write a pixel's 128 bytes. Pads of
+// A block writes up to kQSeg padded pixels of one padded row for kQC = 128
+// channels, or 64 for a 64-channel input (scripts/int8_conv_knobs.py times
+// the choices). A thread reads 4 columns of 4 channel rows (16-byte loads
+// along x), and quantizes and transposes them into 4 words of 4 channels
+// each, which go to a [pixel][channel] tile; then kQC / 16 threads write a
+// pixel's kQC bytes. Pads of
 // at most one (every conv here), so that a reflected column lies within 2 of
-// the block's own source columns.
+// the block's own source columns; rows and columns past a pad are zeros
+// (the stride-2 conv's input rounded to an even size).
 // ---------------------------------------------------------------------------
 constexpr int kQSeg = 256;              // padded pixels per block
-constexpr int kQC = 128;                // channels per block
 constexpr int kQSpan = kQSeg + 8;       // source columns a block may read, from a multiple of 4
-constexpr int kQPitch = kQC / 4 + 1;    // tile words per pixel
 
 __device__ __forceinline__ int reflect_index(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
@@ -104,18 +105,22 @@ __device__ __forceinline__ uint32_t quantize(float v, float inv, bool affine, fl
   return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
 }
 
+// kQC channels per block: 128, or 64 where Cp is at most 64 (fewer leave
+// threads idle)
+template <int kQC>
 __global__ void __launch_bounds__(256)
     quant_pad_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
                      const float* __restrict__ inv_sx, const float* __restrict__ pa,
                      const float* __restrict__ pb, int relu, float alpha, int C, int H, int W,
                      int Cp, int Hp, int Wp, int pt, int pl, int reflect) {
+  constexpr int kQPitch = kQC / 4 + 1;  // tile words per pixel
   __shared__ uint32_t tile[kQSpan * kQPitch];
   const int b = blockIdx.x / Hp, yp = blockIdx.x % Hp;
   const int x0 = blockIdx.y * kQSeg, c0 = blockIdx.z * kQC;
   int y = yp - pt;
   bool row_ok = true;
-  if (y < 0 || y >= H) {
-    if (reflect) y = reflect_index(y, H); else row_ok = false;
+  if (y < 0 || y >= H) {  // a pad row, or past it a zero row
+    if (reflect && y >= -1 && y <= H) y = reflect_index(y, H); else row_ok = false;
   }
   const int lo = max(0, x0 - pl - 2) & ~3, hi = min(W, x0 - pl + kQSeg + 2);
   if (row_ok && hi > lo) {
@@ -160,7 +165,7 @@ __global__ void __launch_bounds__(256)
     int xs = xp - pl;
     bool ok = row_ok;
     if (xs < 0 || xs >= W) {
-      if (reflect) xs = reflect_index(xs, W); else ok = false;
+      if (reflect && xs >= -1 && xs <= W) xs = reflect_index(xs, W); else ok = false;
     }
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (ok) {
@@ -241,181 +246,6 @@ __global__ void __launch_bounds__(256)
   }
   *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * Hp + yp) * Wp + xp) * Cp + c0) =
       make_uint4(word[0], word[1], word[2], word[3]);
-}
-
-// ---------------------------------------------------------------------------
-// the stride-2 and transposed conv (mma.sync): implicit GEMM, M = output
-// pixels of one image, N = output rows (Co, or 4 Co phase rows), K = taps x
-// Cp. A 128-thread block computes a
-// 64 x 64 tile, each of its four warps 32 x 32 as 2 x 4 mma.sync m16n8k32.
-// Per k-step (one tap, 32 channels) every thread loads 16 bytes of A and 16
-// of B into registers, which go to shared memory at the next step while the
-// tensor cores work on the current one.
-// ---------------------------------------------------------------------------
-constexpr int kTileM = 64, kTileN = 64, kTileK = 32;
-constexpr int kConvThreads = 128;
-constexpr int kRowBytes = 48;  // 32 bytes of k padded: fragment reads hit 32 banks
-
-struct ConvArgs {
-  const int8_t* xq;
-  const int8_t* w;
-  const float* scale;
-  const float* bias;
-  float* y;
-  long long* psum;
-  long long* psq;
-  int Hp, Wp, Cp, R, T, kw, stride, Ho, Wo, Co, tiles;
-};
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <bool kPhases>
-__global__ void __launch_bounds__(kConvThreads) conv_kernel(ConvArgs p) {
-  __shared__ __align__(16) uint8_t As[2][kTileM * kRowBytes];
-  __shared__ __align__(16) uint8_t Bs[2][kTileN * kRowBytes];
-  __shared__ long long red_s[2][kTileN], red_q[2][kTileN];
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int warp_m = warp / 2, warp_n = warp % 2;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * kTileM, n0 = blockIdx.y * kTileN;
-  const int hw = p.Ho * p.Wo;
-
-  // this thread's load slots: row tid/2 of the A and B tiles, 16 bytes each
-  const int lrow = tid / 2, lhalf = (tid % 2) * 16;
-  const int m_ld = m0 + lrow, n_ld = n0 + lrow;
-  const bool a_ok = m_ld < hw, b_ok = n_ld < p.R;
-  const int8_t* a_base = p.xq;
-  if (a_ok) {
-    const int oy = m_ld / p.Wo, ox = m_ld % p.Wo;
-    a_base += ((static_cast<int64_t>(b) * p.Hp + oy * p.stride) * p.Wp + ox * p.stride) *
-                  p.Cp + lhalf;
-  }
-  const int8_t* b_base = p.w + (b_ok ? static_cast<int64_t>(n_ld) * p.T * p.Cp + lhalf : 0);
-  const int csteps = p.Cp / kTileK;
-  const int steps = p.T * csteps;
-
-  auto load = [&](int s, uint4& ra, uint4& rb) {
-    const int tap = s / csteps, c0 = (s % csteps) * kTileK;
-    const int ky = tap / p.kw, kx = tap % p.kw;
-    ra = a_ok ? __ldg(reinterpret_cast<const uint4*>(
-                    a_base + (static_cast<int64_t>(ky) * p.Wp + kx) * p.Cp + c0))
-              : make_uint4(0, 0, 0, 0);
-    rb = b_ok ? __ldg(reinterpret_cast<const uint4*>(b_base + tap * p.Cp + c0))
-              : make_uint4(0, 0, 0, 0);
-  };
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
-
-  uint4 ra, rb;
-  load(0, ra, rb);
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    *reinterpret_cast<uint4*>(&As[buf][lrow * kRowBytes + lhalf]) = ra;
-    *reinterpret_cast<uint4*>(&Bs[buf][lrow * kRowBytes + lhalf]) = rb;
-    __syncthreads();
-    if (s + 1 < steps) load(s + 1, ra, rb);
-    uint32_t af[2][4], bf[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const uint8_t* r0 = &As[buf][(warp_m * 32 + mi * 16 + g) * kRowBytes + tig * 4];
-      const uint8_t* r8 = r0 + 8 * kRowBytes;
-      af[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
-      af[mi][1] = *reinterpret_cast<const uint32_t*>(r8);
-      af[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
-      af[mi][3] = *reinterpret_cast<const uint32_t*>(r8 + 16);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const uint8_t* r0 = &Bs[buf][(warp_n * 32 + ni * 8 + g) * kRowBytes + tig * 4];
-      bf[ni][0] = *reinterpret_cast<const uint32_t*>(r0);
-      bf[ni][1] = *reinterpret_cast<const uint32_t*>(r0 + 16);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-  }
-
-  // epilogue: dequantize, store NCHW (interleaving the four phases of the
-  // transposed conv), and per-column int64 partial sums of acc and acc^2
-  const int out_w = kPhases ? 2 * p.Wo : p.Wo;
-  const int out_hw = kPhases ? 4 * hw : hw;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = n0 + warp_n * 32 + ni * 8 + tig * 2 + j;
-      long long ps = 0, pq = 0;
-      if (n < p.R) {
-        const float sc = p.scale[n];
-        const float bi = p.bias != nullptr ? p.bias[n] : 0.f;
-        int co = n, py = 0, px = 0;
-        if (kPhases) {
-          const int ph = n / p.Co;
-          co = n - ph * p.Co;
-          py = ph >> 1;
-          px = ph & 1;
-        }
-        float* ybase = p.y + (static_cast<int64_t>(b) * p.Co + co) * out_hw;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = m0 + warp_m * 32 + mi * 16 + g + 8 * h;
-            if (m < hw) {
-              const int a = acc[mi][ni][2 * h + j];
-              float v = __fmul_rn(__int2float_rn(a), sc);
-              if (p.bias != nullptr) v = __fadd_rn(v, bi);
-              const int oy = m / p.Wo, ox = m % p.Wo;
-              if (kPhases) {
-                ybase[static_cast<int64_t>(2 * oy + py) * out_w + 2 * ox + px] = v;
-              } else {
-                ybase[m] = v;
-              }
-              ps += a;
-              pq += static_cast<long long>(a) * a;
-            }
-          }
-        }
-      }
-      if (p.psum != nullptr) {
-        // sum over the 8 row groups of the warp (lanes with the same tig)
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          ps += __shfl_xor_sync(0xffffffffu, ps, o);
-          pq += __shfl_xor_sync(0xffffffffu, pq, o);
-        }
-        if (g == 0) {
-          const int col = warp_n * 32 + ni * 8 + tig * 2 + j;
-          red_s[warp_m][col] = ps;
-          red_q[warp_m][col] = pq;
-        }
-      }
-    }
-  }
-  if (p.psum != nullptr) {
-    __syncthreads();
-    if (tid < kTileN && n0 + tid < p.R) {
-      const int64_t o = (static_cast<int64_t>(b) * p.tiles + blockIdx.x) * p.R + n0 + tid;
-      p.psum[o] = red_s[0][tid] + red_s[1][tid];
-      p.psq[o] = red_q[0][tid] + red_q[1][tid];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -545,6 +375,95 @@ __device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The template's pipeline, shared by both conv kernels. A block's ring holds
+// kStages slabs of A (kA bytes apart: 128 rows of kSlab channels) and of B
+// (kB bytes apart: the N tile's kNW rows of kSlab channels), TMA boxes with
+// the kSlab-byte swizzle, and a full and an empty mbarrier per stage.
+template <int kStages>
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrival, plus the bytes
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// the producer: ksteps k-slabs through the ring, each of `bytes` bytes that
+// load(a slab, b slab, k, full barrier) requests by TMA
+template <int kStages, int kA, int kB, typename Load>
+__device__ __forceinline__ void produce(uint8_t* ring_a, uint8_t* ring_b, uint64_t* full,
+                                        uint64_t* empty, int ksteps, uint32_t bytes, Load load) {
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int k = 0; k < ksteps; ++k) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    mbar_expect_tx(&full[stage], bytes);
+    load(ring_a + stage * kA, ring_b + stage * kB, k, &full[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// a consumer warpgroup (wg 0 or 1): acc = its 64 rows of A times the tile's
+// kNW rows of B over ksteps slabs, both K-major; a k32 step is 32 bytes
+// along the swizzled rows. A tail slab's channels past Cp are zeros in both
+// (TMA's fill), so its last steps add nothing
+template <int kNW, int kSlab, int kStages, int kA, int kB>
+__device__ __forceinline__ void consume(int (&acc)[kNW / 2], const uint8_t* ring_a,
+                                        const uint8_t* ring_b, uint64_t* full, uint64_t* empty,
+                                        int ksteps, int wg) {
+#pragma unroll
+  for (int i = 0; i < kNW / 2; ++i) acc[i] = 0;
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int k = 0; k < ksteps; ++k) {
+    mbar_wait(&full[stage], phase);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSlab / 32; ++kk) {
+      const uint8_t* a = ring_a + stage * kA + wg * 64 * kSlab + kk * 32;
+      const uint8_t* w = ring_b + stage * kB + kk * 32;
+      if (kSlab == 128)
+        wgmma_s8<kNW>(acc, smem_desc(a, 16, 1024), smem_desc(w, 16, 1024));
+      else
+        wgmma_s8<kNW>(acc, smem_desc_64b(a), smem_desc_64b(w));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous slab's products are done: release it
+    fence_acc(acc);
+    if (k > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// the s32 tile staged [column][row] at the odd pitch kStage, so that reading
+// a column along its rows, a row along its columns or one column per thread
+// hits 32 banks: accumulator 4j + 2h + e is row 16 warp + lane / 4 + 8 h of
+// this warpgroup's 64, column 8 j + 2 (lane % 4) + e
+template <int kNW>
+__device__ __forceinline__ void stage_acc(int* st, const int (&acc)[kNW / 2], int wg) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < kNW / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        st[(8 * j + 2 * (lane % 4) + e) * kStage + wg * 64 + warp * 16 + lane / 4 + 8 * h] =
+            acc[4 * j + 2 * h + e];
+}
+
 struct WConvArgs {
   const float* scale;
   const float* bias;
@@ -572,13 +491,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
   uint8_t* ring_b = ring_a + kWStages * kWABytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring_b + kWStages * kWBBytes);
   uint64_t* empty = full + kWStages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kWStages; ++s) {
-      mbar_init(&full[s], 1);   // the producer's arrival, plus the bytes
-      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  ring_init<kWStages>(full, empty);
   __syncthreads();
 
   const int b = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
@@ -588,74 +501,31 @@ __global__ void __launch_bounds__(kWThreads, 1)
 
   if (wg == 2) {  // the producer warp
     if (threadIdx.x == 256) {
-      const int row0 = b * p.Hp * p.Wp + m0;
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int k = 0; k < ksteps; ++k) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], kWABytes + kNW * kWK);
-        const int tap = k / cslabs, c0 = (k % cslabs) * kWK;
-        tma_load_2d(ring_a + stage * kWABytes, &map_in, &full[stage], c0,
-                    row0 + (tap / 3) * p.Wp + tap % 3);
-        tma_load_3d(ring_b + stage * kWBBytes, &map_w, &full[stage], c0, tap, n0);
-        if (++stage == kWStages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
+      const int row0 = b * p.Hp * p.Wp + m0, wp = p.Wp;
+      const CUtensorMap *in = &map_in, *wt = &map_w;
+      produce<kWStages, kWABytes, kWBBytes>(
+          ring_a, ring_b, full, empty, ksteps, kWABytes + kNW * kWK,
+          [=](uint8_t* a, uint8_t* w, int k, uint64_t* bar) {
+            const int tap = k / cslabs, c0 = (k % cslabs) * kWK;
+            tma_load_2d(a, in, bar, c0, row0 + (tap / 3) * wp + tap % 3);
+            tma_load_3d(w, wt, bar, c0, tap, n0);
+          });
     }
     return;
   }
 
   int acc[kNW / 2];
-#pragma unroll
-  for (int i = 0; i < kNW / 2; ++i) acc[i] = 0;
-  int stage = 0, prev = 0;
-  uint32_t phase = 0;
-  for (int k = 0; k < ksteps; ++k) {
-    mbar_wait(&full[stage], phase);
-    fence_acc(acc);
-    wgmma_fence();
-    // A: this warpgroup's 64 rows, B: the tile's first kNW rows, both
-    // K-major; a k32 step is 32 bytes along the swizzled 128-byte rows. A
-    // tail slab's channels past Cp are zeros in both (TMA's fill), so its
-    // last steps add nothing
-#pragma unroll
-    for (int kk = 0; kk < kWK / 32; ++kk)
-      wgmma_s8<kNW>(acc, smem_desc(ring_a + stage * kWABytes + wg * 64 * kWK + kk * 32, 16, 1024),
-                    smem_desc(ring_b + stage * kWBBytes + kk * 32, 16, 1024));
-    wgmma_commit();
-    wgmma_wait<1>();  // the previous slab's products are done: release it
-    fence_acc(acc);
-    if (k > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[prev]);
-    prev = stage;
-    if (++stage == kWStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
+  consume<kNW, kWK, kWStages, kWABytes, kWBBytes>(acc, ring_a, ring_b, full, empty, ksteps, wg);
 
   // the epilogue, over the ring once both warpgroups are done with it: the
-  // s32 tile staged [column][row] at an odd pitch, so that reading a column
-  // along its rows (NCHW stores), a row along its columns (NHWC stores) or
-  // one column per thread (the statistics) hits 32 banks; and each row's
-  // output pixel oy * Wo + ox, or -1 for a dropped row
+  // staged s32 tile, read along a column's rows (NCHW stores), a row's
+  // columns (NHWC stores) or one column per thread (the statistics); and
+  // each row's output pixel oy * Wo + ox, or -1 for a dropped row
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
   int* st = reinterpret_cast<int*>(ring_a);
   int* pix = st + kWN * kStage;
-  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-  // accumulator 4j + 2h + e is row 16 warp + lane / 4 + 8 h of this
-  // warpgroup's 64, column 8 j + 2 (lane % 4) + e
-#pragma unroll
-  for (int j = 0; j < kNW / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        st[(8 * j + 2 * (lane % 4) + e) * kStage + wg * 64 + warp * 16 + lane / 4 + 8 * h] =
-            acc[4 * j + 2 * h + e];
+  const int lane = threadIdx.x % 32;
+  stage_acc<kNW>(st, acc, wg);
   const int Ho = p.Hp - 2, Wo = p.Wp - 2;
   if (threadIdx.x < kWM) {
     const int m = m0 + threadIdx.x;
@@ -722,6 +592,254 @@ __global__ void __launch_bounds__(kWThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// the stride-2 and transposed convs (kernels 7 and 5): the template's block
+// and main loop over M tiles that are boxes of by output rows x bx output
+// columns (box_tile: bx = 32, 64 or 128, the least that holds Wo, or 128;
+// by = min(128 / bx, Ho)), whose A rows are one TMA box per tap: for stride 2 of the padded
+// input viewed as (Cp, 2, Wp / 2, 2, B Hp / 2), row and column parities
+// apart (box (128, 1, bx, 1, by) at (c0, kx & 1, ox0 + kx / 2, ky & 1, b Hp
+// / 2 + oy0 + ky / 2)); for the transposed conv's 2x2 taps of the input
+// padded at the end viewed as (Cp, Wp, B Hp) (box (128, bx, by) at (c0, ox0
+// + kx, b Hp + oy0 + ky)). Bound by bytes, with y f32 the most of them, so
+// the epilogue is kept short and off the main loop's way: N tiles of 128
+// and a 3-deep ring leave room for two blocks per SM, so that one's epilogue
+// runs beside the other's main loop, and y goes out by TMA stores. The
+// block stages its s32 tile [column][row] (as the stride-1 conv does), adds
+// each column's pixels inside Ho and Wo into its int64 partials, then writes
+// y, dequantized from the accumulators, over it in the stores' own layout
+// (128-byte rows of 32 output columns, 128-byte swizzled); one thread issues
+// a box store per 32 columns and waits only until the stores have read
+// shared memory, and the writes to device memory go on while the SM runs
+// other blocks. Boxes past Wo, Ho or Co are clipped by the stores. TMA needs
+// y's rows at a multiple of 16 bytes (Wo % 4 == 0; for the transposed conv
+// Wo % 2 == 0); for other widths a warp per staged row stores them (tma_y
+// == 0).
+//   stride 2: y (B, Co, Ho, Wo) as a (Wo, Ho, Co, B, 1) array; staged row
+//     c by + ly of chunk j holds columns ox0 + 32 j .. + 31 of output row oy0
+//     + ly of channel n0 + c.
+//   transposed: y (B, Co, 2 Ho, 2 Wo) as (2 Wo, 2, Ho, Co, B), x = 2 ox + px,
+//     output row 2 oy + py; the weight rows are n = co 4 + py 2 + px (the
+//     plain version's phase_row), so that an N tile holds whole channels, and
+//     staged row (co by + ly) 2 + py of chunk j holds x = 2 ox0 + 32 j .. +
+//     31 of output row 2 (oy0 + ly) + py of channel n0 / 4 + co.
+// ---------------------------------------------------------------------------
+struct BConvArgs {
+  const float* scale;
+  const float* bias;
+  float* y;
+  long long* psum;
+  long long* psq;
+  int Hp, Cp, R, Ho, Wo;
+  int tiles, tiles_x, bx, by;  // M tiles per image, and per band of by rows; the box
+  int n0;                      // the launch's first output row
+  int tma_y;                   // y by TMA stores (map_y), or by the threads
+};
+
+// the box conv's N tile, and its ring: kSlab channels (bytes) a slab, 128
+// with the 128-byte swizzle, or 64 with the 64-byte one for inputs of at
+// most 64 channels (a 128-channel slab of them would be half zeros); at N
+// 128 a ring small enough that two blocks share an SM and one's epilogue
+// overlaps the other's main loop, and big enough for the s32 tile (pitch
+// kStage) and then y (kNW x 128 f32), which go over it
+constexpr int kBoxNW = 128;
+
+template <int kNW, int kSlab>
+struct BoxRing {
+  static constexpr int kA = kWM * kSlab, kB = kNW * kSlab;  // an A slab, a B slab
+  static constexpr int kStaged = kNW * kStage * 4;  // the s32 tile
+  // at least 3 stages, and as many as the staged tile needs
+  static constexpr int kStages = (kStaged + kA + kB - 1) / (kA + kB) > 3
+                                     ? (kStaged + kA + kB - 1) / (kA + kB) : 3;
+  static constexpr int kBytes = kStages * (kA + kB);
+  static constexpr int kSmem = kBytes + 2 * 2 * 128 * 8 + 2 * kStages * 8 + 2 * kNW * 4 + 1024;
+  static_assert(kStaged <= kBytes && kNW * kWM * 4 <= kBytes, "the staged tile fits the ring");
+};
+
+// the byte offset of 32-bit element (row, x) of a 128-byte-swizzled region
+// of 128-byte rows (x < 32): the 16-byte units of a row are permuted by the
+// row's place in its 1024-byte block, as TMA's 128-byte swizzle lays them
+__device__ __forceinline__ int swizzled(int row, int x) {
+  return row * 128 + (((x >> 2) ^ (row & 7)) << 4) + (x & 3) * 4;
+}
+
+template <int kNW, bool kSub, int kSlab>
+__global__ void __launch_bounds__(kWThreads, 2)
+    conv_box_kernel(const __grid_constant__ CUtensorMap map_in,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const __grid_constant__ CUtensorMap map_y, BConvArgs p) {
+  using Ring = BoxRing<kNW, kSlab>;
+  constexpr int kA = Ring::kA, kB = Ring::kB, kBoxStages = Ring::kStages;
+  constexpr int kKw = kSub ? 2 : 3, kTaps = kKw * kKw;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  uint8_t* ring_a = smem_raw + (((base + 1023) & ~1023u) - base);
+  uint8_t* ring_b = ring_a + kBoxStages * kA;
+  long long* red = reinterpret_cast<long long*>(ring_b + kBoxStages * kB);  // [2][2][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * 2 * 128);
+  uint64_t* empty = full + kBoxStages;
+  float2* sc_bi = reinterpret_cast<float2*>(empty + kBoxStages);  // [kNW]: (scale, bias)
+  ring_init<kBoxStages>(full, empty);
+  const int b = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
+  const int ty = tile / p.tiles_x, tx = tile - ty * p.tiles_x;
+  const int oy0 = ty * p.by, ox0 = tx * p.bx;
+  const int n0 = p.n0 + blockIdx.y * kNW;
+  if (threadIdx.x < kNW) {
+    const int n = n0 + threadIdx.x;
+    sc_bi[threadIdx.x] = make_float2(n < p.R ? p.scale[n] : 0.f,
+                                     n < p.R && p.bias != nullptr ? p.bias[n] : 0.f);
+  }
+  __syncthreads();
+
+  const int cslabs = (p.Cp + kSlab - 1) / kSlab, ksteps = kTaps * cslabs;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x == 256) {
+      const int hp = p.Hp;
+      const CUtensorMap *in = &map_in, *wt = &map_w;
+      produce<kBoxStages, kA, kB>(
+          ring_a, ring_b, full, empty, ksteps, (p.bx * p.by + kNW) * kSlab,
+          [=](uint8_t* a, uint8_t* w, int k, uint64_t* bar) {
+            const int tap = k / cslabs, c0 = (k - tap * cslabs) * kSlab;
+            const int ky = tap / kKw, kx = tap - ky * kKw;
+            if (kSub)
+              tma_load_5d(a, in, bar, c0, ox0 + kx, b * hp + oy0 + ky, 0, 0);
+            else
+              tma_load_5d(a, in, bar, c0, kx & 1, ox0 + (kx >> 1), ky & 1,
+                          b * (hp / 2) + oy0 + (ky >> 1));
+            tma_load_3d(w, wt, bar, c0, tap, n0);
+          });
+    }
+    return;
+  }
+
+  int acc[kNW / 2];
+  consume<kNW, kSlab, kBoxStages, kA, kB>(acc, ring_a, ring_b, full, empty, ksteps, wg);
+
+  // the epilogue, over the ring once both warpgroups are done with it
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  // tile row r is box pixel (r / bx, r % bx): bx is 32, 64 or 128 (box_tile)
+  const int lg = p.bx == 128 ? 7 : p.bx == 64 ? 6 : 5;  // log2 bx
+  const int by = p.by, chunk_rows = kSub ? kNW / 2 * by : kNW * by;
+  const int vy = min(by, p.Ho - oy0), vx = min(p.bx, p.Wo - ox0);  // the box's pixels inside
+  // 1. the s32 tile [column][row] (box pixel r / bx, r % bx of row r)
+  int* st = reinterpret_cast<int*>(ring_a);
+  stage_acc<kNW>(st, acc, wg);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  // 2. the int64 partials over the pixels inside: each warpgroup adds its 64
+  // rows of a column per thread, then the two are added
+  if (p.psum != nullptr) {
+    const int c = threadIdx.x % 128, r0 = wg * 64;
+    long long s = 0, q = 0;
+    if (c < kNW) {
+      const int* col = st + c * kStage;
+      if (vy == by && vx == p.bx) {  // the whole box inside: rows < bx by
+        const int r1 = min(r0 + 64, p.bx * by);
+        long long s2 = 0, q2 = 0;  // two chains of additions
+#pragma unroll 4
+        for (int r = r0; r < r1 - 1; r += 2) {
+          const int a = col[r], a2 = col[r + 1];
+          s += a;
+          q += static_cast<long long>(a) * a;
+          s2 += a2;
+          q2 += static_cast<long long>(a2) * a2;
+        }
+        if ((r1 - r0) & 1) {
+          const int a = col[r1 - 1];
+          s += a;
+          q += static_cast<long long>(a) * a;
+        }
+        s += s2;
+        q += q2;
+      } else {
+        for (int r = r0; r < r0 + 64; ++r) {
+          if ((r >> lg) >= vy || (r & (p.bx - 1)) >= vx) continue;
+          const int a = col[r];
+          s += a;
+          q += static_cast<long long>(a) * a;
+        }
+      }
+    }
+    red[wg * 256 + c] = s;
+    red[wg * 256 + 128 + c] = q;
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the s32 tile is read: y goes over it
+  if (p.psum != nullptr && threadIdx.x < min(kNW, p.R - n0)) {
+    const int64_t o = (static_cast<int64_t>(b) * p.tiles + tile) * p.R + n0 + threadIdx.x;
+    p.psum[o] = red[threadIdx.x] + red[256 + threadIdx.x];
+    p.psq[o] = red[128 + threadIdx.x] + red[384 + threadIdx.x];
+  }
+  // 3. y, dequantized from the accumulators, into the stores' layout. Column
+  // c = 8 j + 2 (lane % 4) + e is staged row row0 + j step, and 2 step is a
+  // multiple of 8, so the row's swizzle alternates between two values. For
+  // the transposed conv e is px: a thread's two values of a j sit side by
+  // side (one 8-byte store)
+  uint8_t* sy = ring_a;
+  const int q4 = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wg * 64 + warp * 16 + lane / 4 + 8 * h, ly = r >> lg, lx = r & (p.bx - 1);
+    if (ly >= by) continue;  // past a box of fewer than 128 pixels
+#pragma unroll
+    for (int e = 0; e < (kSub ? 1 : 2); ++e) {
+      const int x = kSub ? 2 * lx : lx;
+      const int row0 = kSub ? (((q4 >> 1) * by + ly) << 1) + (q4 & 1) : (2 * q4 + e) * by + ly;
+      const int step = kSub ? 4 * by : 8 * by;
+      uint8_t* at = sy + (x >> 5) * chunk_rows * 128 + row0 * 128 + (x & 3) * 4;
+      const int u = (x & 31) >> 2;
+      const int sw0 = (u ^ (row0 & 7)) << 4, sw1 = (u ^ ((row0 + step) & 7)) << 4;
+#pragma unroll
+      for (int j = 0; j < kNW / 8; ++j) {
+        const int c = 8 * j + 2 * q4 + e;
+        const float2 sb = sc_bi[c];
+        float v = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), sb.x);
+        if (p.bias != nullptr) v = __fadd_rn(v, sb.y);
+        uint8_t* to = at + j * step * 128 + (j & 1 ? sw1 : sw0);
+        if (kSub) {
+          const float2 sb1 = sc_bi[c + 1];
+          float v1 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), sb1.x);
+          if (p.bias != nullptr) v1 = __fadd_rn(v1, sb1.y);
+          *reinterpret_cast<float2*>(to) = make_float2(v, v1);
+        } else {
+          *reinterpret_cast<float*>(to) = v;
+        }
+      }
+    }
+  }
+  // the chunks of 32 output columns that hold some inside the box
+  const int chunks = ((kSub ? 2 * vx : vx) + 31) >> 5;
+  if (p.tma_y) {
+    fence_proxy_async();
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < chunks; ++j) {
+        if (kSub)
+          tma_store_5d(&map_y, sy + j * chunk_rows * 128, 2 * ox0 + 32 * j, 0, oy0, n0 >> 2, b);
+        else
+          tma_store_5d(&map_y, sy + j * chunk_rows * 128, ox0 + 32 * j, oy0, n0, b, 0);
+      }
+      tma_store_drain_reads();
+    }
+    return;
+  }
+  // a warp per staged row of 32 output columns, its lanes along them
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int gw = threadIdx.x / 32;
+  const int co_n = kSub ? p.R / 4 : p.R, plane_h = kSub ? 2 * p.Ho : p.Ho;
+  const int plane_w = kSub ? 2 * p.Wo : p.Wo;
+  for (int row = gw; row < chunks * chunk_rows; row += 8) {
+    const int j = row / chunk_rows, rr = row - j * chunk_rows;
+    const int cl = kSub ? rr >> 1 : rr, co_l = cl / by, ly = cl - co_l * by;
+    const int co = (kSub ? n0 >> 2 : n0) + co_l;
+    const int oy = kSub ? 2 * (oy0 + ly) + (rr & 1) : oy0 + ly;
+    const int x = (kSub ? 2 * ox0 : ox0) + 32 * j + lane;
+    if (co < co_n && oy0 + ly < p.Ho && x < plane_w)
+      p.y[((static_cast<int64_t>(b) * co_n + co) * plane_h + oy) * plane_w + x] =
+          *reinterpret_cast<const float*>(sy + j * chunk_rows * 128 + swizzled(rr, lane));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // statistics: per-(sample, channel) sum and sum of squares of y from the
 // exact int64 partials (see Numerics above), phases added in order; then
 // optionally the IN/AdaIN affine a = (1 + gamma) / sqrt(max(var, 0) + eps),
@@ -745,7 +863,7 @@ __global__ void stats_kernel(const long long* __restrict__ psum,
   const int phases = R / Co;
   double ss = 0.0, qq = 0.0;
   for (int ph = 0; ph < phases; ++ph) {
-    const int row = ph * Co + co;
+    const int row = phases * co + ph;  // phase ph = 2 py + px of a transposed conv
     long long s1 = 0, hi = 0, lo = 0;
     for (int t = lane; t < tiles; t += mt::kWarp) {
       const int64_t o = (static_cast<int64_t>(b) * tiles + t) * R + row;
@@ -885,28 +1003,104 @@ int conv_s1(const void* xq, const void* w, WConvArgs a, int64_t B, cudaStream_t 
   return last_error();
 }
 
+// the dynamic shared-memory opt-in of a kernel, once per device (a host call
+// on every launch of a path that waits on the host)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, uint64_t& allowed) {
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  if (dev < 64 && (allowed >> dev & 1)) return cudaSuccess;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr == cudaSuccess && dev < 64) allowed |= 1ULL << dev;
+  return attr;
+}
+
+// the box tile of the stride-2 and transposed convs: bx = 32, 64 or 128
+// output columns, the least that holds Wo, or 128 (a power of two: the
+// epilogue finds a row's box pixel by shifts), x by = min(128 / bx, Ho) rows
+void box_tile(int64_t Ho, int64_t Wo, int64_t* bx, int64_t* by) {
+  *bx = Wo <= 32 ? 32 : Wo <= 64 ? 64 : kWM;
+  const int64_t rows = kWM / *bx;
+  *by = rows < Ho ? rows : Ho;
+}
+
+template <int kSlab>
+constexpr CUtensorMapSwizzle slab_swizzle() {
+  return kSlab == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+}
+
+template <int kNW, bool kSub, int kSlab>
+int launch_box(const CUtensorMap& map_in, const void* w, BConvArgs a, int64_t B, int n0,
+               int ntiles, cudaStream_t stream) {
+  // the weights as (R, taps, Cp) boxes of kNW rows: past R they read zeros
+  CUtensorMap map_w, map_y = {};
+  if (!make_map_3d(&map_w, kInt8, w, a.Cp, kSub ? 4 : 9, a.R, kSlab, kNW, slab_swizzle<kSlab>()))
+    return cudaErrorInvalidValue;
+  if (a.tma_y) {  // y as the stores see it (see conv_box_kernel)
+    const uint64_t wo = a.Wo, ho = a.Ho, bb = B, by = static_cast<uint64_t>(a.by);
+    const bool made =
+        kSub ? make_map_5d(&map_y, kF32, a.y, {2 * wo, 2, ho, a.R / 4u, bb},
+                           {8 * wo, 16 * wo, 16 * ho * wo, a.R * 4 * ho * wo},
+                           {32, 2, static_cast<uint32_t>(by), kNW / 4, 1})
+             : make_map_5d(&map_y, kF32, a.y, {wo, ho, static_cast<uint64_t>(a.R), bb, 1},
+                           {4 * wo, 4 * ho * wo, 4 * a.R * ho * wo, 4 * bb * a.R * ho * wo},
+                           {32, static_cast<uint32_t>(by), kNW, 1, 1});
+    if (!made) return cudaErrorInvalidValue;
+  }
+  constexpr int kSmem = BoxRing<kNW, kSlab>::kSmem;
+  static uint64_t allowed = 0;
+  const cudaError_t err = allow_smem(conv_box_kernel<kNW, kSub, kSlab>, kSmem, allowed);
+  if (err != cudaSuccess) return err;
+  a.n0 = n0;
+  dim3 grid(static_cast<unsigned>(B * a.tiles), static_cast<unsigned>(ntiles));
+  conv_box_kernel<kNW, kSub, kSlab><<<grid, kWThreads, kSmem, stream>>>(map_in, map_w, map_y, a);
+  return last_error();
+}
+
+// the full N tiles at width 128 in one launch, then a last, narrower tile
+// if R is not a multiple of 128, at the narrowest wgmma width that covers it
+template <bool kSub, int kSlab>
+int conv_box(const CUtensorMap& map_in, const void* w, BConvArgs a, int64_t B,
+             cudaStream_t stream) {
+  const int full = a.R / kBoxNW, tail = a.R % kBoxNW, n0 = full * kBoxNW;
+  if (full > 0) {
+    const int err = launch_box<kBoxNW, kSub, kSlab>(map_in, w, a, B, 0, full, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (tail > 64) return launch_box<128, kSub, kSlab>(map_in, w, a, B, n0, 1, stream);
+  if (tail > 32) return launch_box<64, kSub, kSlab>(map_in, w, a, B, n0, 1, stream);
+  if (tail > 0) return launch_box<32, kSub, kSlab>(map_in, w, a, B, n0, 1, stream);
+  return last_error();
+}
+
 }  // namespace
 
-// x: (B, C, H, W) f32; out: (B, Hp, Wp, Cp) int8 (Cp a multiple of 32);
-// inv_sx: one f32 on the device; pa, pb: (B, C) f32 or null.
+// x: (B, C, H, W) f32; out: (B, Hp, Wp, Cp) int8 (Cp a multiple of 32), with
+// pads of at most one row or column at each side and, past them, zero rows
+// and columns to Hp x Wp (at most one more of each); inv_sx: one f32 on the
+// device; pa, pb: (B, C) f32 or null.
 extern "C" int mt_int8_quant_pad(const void* x, void* out, const void* inv_sx, const void* pa,
                                  const void* pb, int relu, float alpha, int64_t B, int64_t C,
                                  int64_t H, int64_t W, int64_t Cp, int64_t Hp, int64_t Wp,
                                  int64_t pt, int64_t pl, int reflect, void* stream) {
-  const int64_t pr = Wp - W - pl;
-  if (Cp % 32 != 0 || Cp / kQC >= 65536 || B * Hp >= (1LL << 31) || pl < 0 || pl > 1 || pr < 0 ||
-      pr > 1 || !aligned(out) || (W % 4 == 0 && !aligned(x)))
+  const int64_t pr = Wp - W - pl, pb_ = Hp - H - pt;
+  if (Cp % 32 != 0 || Cp / 64 >= 65536 || B * Hp >= (1LL << 31) || pl < 0 || pl > 1 || pr < 0 ||
+      pr > 2 || pt < 0 || pt > 1 || pb_ < 0 || pb_ > 2 || !aligned(out) ||
+      (W % 4 == 0 && !aligned(x)))
     return cudaErrorInvalidValue;
+  if (B == 0 || Hp == 0 || Wp == 0) return last_error();
+  const int qc = Cp <= 64 ? 64 : 128;  // channels per block
   dim3 grid(static_cast<unsigned>(B * Hp), static_cast<unsigned>((Wp + kQSeg - 1) / kQSeg),
-            static_cast<unsigned>((Cp + kQC - 1) / kQC));
-  if (B > 0 && Hp > 0 && Wp > 0) {
-    quant_pad_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(out),
-        static_cast<const float*>(inv_sx), static_cast<const float*>(pa),
-        static_cast<const float*>(pb), relu, alpha, static_cast<int>(C), static_cast<int>(H),
-        static_cast<int>(W), static_cast<int>(Cp), static_cast<int>(Hp), static_cast<int>(Wp),
-        static_cast<int>(pt), static_cast<int>(pl), reflect);
-  }
+            static_cast<unsigned>((Cp + qc - 1) / qc));
+  auto kernel = qc == 64 ? quant_pad_kernel<64> : quant_pad_kernel<128>;
+  kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<int8_t*>(out), static_cast<const float*>(inv_sx),
+      static_cast<const float*>(pa), static_cast<const float*>(pb), relu, alpha,
+      static_cast<int>(C), static_cast<int>(H), static_cast<int>(W), static_cast<int>(Cp),
+      static_cast<int>(Hp), static_cast<int>(Wp), static_cast<int>(pt), static_cast<int>(pl),
+      reflect);
   return last_error();
 }
 
@@ -933,31 +1127,46 @@ extern "C" int mt_int8_quant_pad_nhwc(const void* x, void* out, const void* inv_
 }
 
 // The M tiles per image of mt_int8_conv's launch, which are the rows of its
-// statistics partials, and in *tile_rows the rows of one tile. stride 1
-// without phases runs the wgmma template, whose tiles run over the padded
-// width (m = oy * Wp + ox, kWM rows); the others run the mma.sync one, whose
-// tiles run over the Ho * Wo output pixels (kTileM).
+// statistics partials, and in *tile_rows the most output pixels of one tile:
+// stride 1 without phases runs over the padded width, m = oy * Wp + ox in
+// tiles of kWM rows; stride 2 and the transposed conv over box tiles of by
+// output rows x bx columns (box_tile).
 extern "C" int64_t mt_int8_stat_tiles(int64_t stride, int phases, int64_t Ho, int64_t Wo,
                                       int64_t Wp, int64_t* tile_rows) {
-  const bool wgmma = stride == 1 && !phases;
-  const int64_t rows = wgmma ? kWM : kTileM;
-  *tile_rows = rows;
-  return ((wgmma ? Ho * Wp : Ho * Wo) + rows - 1) / rows;
+  *tile_rows = kWM;
+  if (Ho <= 0 || Wo <= 0) return 0;
+  if (stride == 1 && !phases) return (Ho * Wp + kWM - 1) / kWM;
+  int64_t bx = 0, by = 0;
+  box_tile(Ho, Wo, &bx, &by);
+  *tile_rows = bx * by;
+  return ((Ho + by - 1) / by) * ((Wo + bx - 1) / bx);
+}
+
+// The output rows of each conv launch of mt_int8_conv, in launch order, in
+// rows[0..1]; returns the number of launches: the full N tiles (256 wide for
+// stride 1 without phases, else kBoxNW) in one launch, then a tail tile.
+extern "C" int mt_int8_conv_launches(int64_t stride, int phases, int64_t R, int64_t* rows) {
+  const int64_t nw = stride == 1 && !phases ? kWN : kBoxNW;
+  int n = 0;
+  if (R >= nw) rows[n++] = R / nw * nw;
+  if (R % nw != 0) rows[n++] = R % nw;
+  return n;
 }
 
 // xq: (B, Hp, Wp, Cp) int8; w: (R, T, Cp) int8; scale, bias: (R,) f32 (bias
 // may be null); y: (B, Co, Ho, Wo) f32, or (B, Ho, Wo, Co) when nhwc (stride
-// 1 without phases only), or (B, Co, 2Ho, 2Wo) when phases (R = 4 Co, row n =
-// phase * Co + co); psum, psq: (B, tiles, R) int64 or null, tiles as
-// mt_int8_stat_tiles gives them.
+// 1 without phases only), or (B, Co, 2Ho, 2Wo) when phases (T = 4 taps of a
+// 2x2 conv, R = 4 Co, row n = co 4 + py 2 + px to output pixel (2 oy + py, 2
+// ox + px)); psum, psq: (B, tiles, R) int64 or null, tiles as
+// mt_int8_stat_tiles gives them. Stride 2 takes even Hp and Wp.
 extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, const void* bias,
                             void* y, void* psum, void* psq, int64_t B, int64_t Hp, int64_t Wp,
                             int64_t Cp, int64_t R, int64_t T, int64_t kw, int64_t stride,
                             int64_t Ho, int64_t Wo, int64_t Co, int64_t tiles, int phases,
                             int nhwc, void* stream) {
   int64_t tile_rows = 0;
-  if (Cp % kTileK != 0 || B >= 65536 || (R + kTileN - 1) / kTileN >= 65536 ||
-      tiles >= (1LL << 31) || tiles != mt_int8_stat_tiles(stride, phases, Ho, Wo, Wp, &tile_rows))
+  if (Cp % 32 != 0 || B >= 65536 || (R + 31) / 32 >= 65536 || tiles >= (1LL << 31) ||
+      tiles != mt_int8_stat_tiles(stride, phases, Ho, Wo, Wp, &tile_rows))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (stride == 1 && !phases) {
@@ -968,36 +1177,50 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
                 static_cast<int>(Cp), static_cast<int>(R), static_cast<int>(tiles), nhwc, 0};
     return conv_s1(xq, w, a, B, st);
   }
-  if (nhwc) return cudaErrorInvalidValue;
-  ConvArgs a;
-  a.xq = static_cast<const int8_t*>(xq);
-  a.w = static_cast<const int8_t*>(w);
-  a.scale = static_cast<const float*>(scale);
-  a.bias = static_cast<const float*>(bias);
-  a.y = static_cast<float*>(y);
-  a.psum = static_cast<long long*>(psum);
-  a.psq = static_cast<long long*>(psq);
-  a.Hp = static_cast<int>(Hp);
-  a.Wp = static_cast<int>(Wp);
-  a.Cp = static_cast<int>(Cp);
-  a.R = static_cast<int>(R);
-  a.T = static_cast<int>(T);
-  a.kw = static_cast<int>(kw);
-  a.stride = static_cast<int>(stride);
-  a.Ho = static_cast<int>(Ho);
-  a.Wo = static_cast<int>(Wo);
-  a.Co = static_cast<int>(Co);
-  a.tiles = static_cast<int>(tiles);
-  dim3 grid(static_cast<unsigned>(a.tiles), static_cast<unsigned>((R + kTileN - 1) / kTileN),
-            static_cast<unsigned>(B));
-  if (B > 0 && a.tiles > 0) {
-    if (phases) {
-      conv_kernel<true><<<grid, kConvThreads, 0, st>>>(a);
-    } else {
-      conv_kernel<false><<<grid, kConvThreads, 0, st>>>(a);
-    }
+  const bool sub = phases != 0;
+  const bool ok =
+      sub ? stride == 1 && T == 4 && kw == 2 && Ho == Hp - 1 && Wo == Wp - 1 && R == 4 * Co
+          : stride == 2 && T == 9 && kw == 3 && Hp % 2 == 0 && Wp % 2 == 0 &&
+                Ho == (Hp - 3) / 2 + 1 && Wo == (Wp - 3) / 2 + 1 && Co == R;
+  if (!ok || nhwc || static_cast<uint64_t>(B) * Hp * Wp >= (1ULL << 31) ||
+      B * tiles >= (1LL << 31) || 4 * Ho * Wo >= (1LL << 31) || !aligned(xq) || !aligned(w))
+    return cudaErrorInvalidValue;
+  if (B == 0 || R == 0 || tiles == 0) return last_error();
+  int64_t bx = 0, by = 0;
+  box_tile(Ho, Wo, &bx, &by);
+  BConvArgs a{static_cast<const float*>(scale), static_cast<const float*>(bias),
+              static_cast<float*>(y), static_cast<long long*>(psum),
+              static_cast<long long*>(psq), static_cast<int>(Hp), static_cast<int>(Cp),
+              static_cast<int>(R), static_cast<int>(Ho), static_cast<int>(Wo),
+              static_cast<int>(tiles), static_cast<int>((Wo + bx - 1) / bx),
+              static_cast<int>(bx), static_cast<int>(by), 0,
+              // TMA stores need rows of y at a multiple of 16 bytes
+              (sub ? Wo % 2 == 0 : Wo % 4 == 0) && aligned(y)};
+  // slabs of 64 channels for inputs of at most 64 (the ring's A rows then
+  // 64 bytes, with the 64-byte swizzle)
+  const bool narrow = Cp <= 64;
+  const uint32_t slab = narrow ? 64 : kWK;
+  const CUtensorMapSwizzle swizzle = narrow ? slab_swizzle<64>() : slab_swizzle<128>();
+  const uint64_t c = static_cast<uint64_t>(Cp), wp = static_cast<uint64_t>(Wp);
+  const uint64_t rows = static_cast<uint64_t>(B) * Hp;
+  const uint32_t bxu = static_cast<uint32_t>(bx), byu = static_cast<uint32_t>(by);
+  CUtensorMap map_in;
+  if (sub) {
+    // the input as (Cp, Wp, B Hp): tap (ky, kx) of a box is one box at (c0,
+    // ox0 + kx, b Hp + oy0 + ky)
+    if (!make_map_5d(&map_in, kInt8, xq, {c, wp, rows, 1, 1},
+                     {c, wp * c, rows * wp * c, rows * wp * c}, {slab, bxu, byu, 1, 1}, swizzle))
+      return cudaErrorInvalidValue;
+    return narrow ? conv_box<true, 64>(map_in, w, a, B, st)
+                  : conv_box<true, 128>(map_in, w, a, B, st);
   }
-  return last_error();
+  // the input as (Cp, 2, Wp / 2, 2, B Hp / 2): tap (ky, kx) of a box is one
+  // box at (c0, kx & 1, ox0 + kx / 2, ky & 1, b Hp / 2 + oy0 + ky / 2), which
+  // lands as by x bx pixel rows of a slab's bytes
+  if (!make_map_5d(&map_in, kInt8, xq, {c, 2, wp / 2, 2, rows / 2}, {c, 2 * c, wp * c, 2 * wp * c},
+                   {slab, 1, bxu, 1, byu}, swizzle))
+    return cudaErrorInvalidValue;
+  return narrow ? conv_box<false, 64>(map_in, w, a, B, st) : conv_box<false, 128>(map_in, w, a, B, st);
 }
 
 // psum, psq: (B, tiles, R) int64; scale, bias: (R,) f32 (bias may be null)

@@ -21,11 +21,17 @@ zero pad, into an int8 NHWC copy whose channels are padded to a multiple of
 int64 sums of the accumulators and their squares, from which a third launch
 forms the per-(sample, channel) (sum, sumsq) of y exactly as
 :func:`stats_plain` does: the statistics are the same bits on the card and
-on the CPU, whatever the summation order). The stride-1 convs (kernels 4
-and 6) run the ``wgmma`` template, whose M tiles run over the padded width;
-the stride-2 and transposed convs run the ``mma.sync`` one, whose tiles run
-over the output pixels. The library owns the tiling: :func:`conv_tiling`
-asks it for the tile count that sizes the partials.
+on the CPU, whatever the summation order). All four run one ``wgmma``
+template fed by TMA. The stride-1 convs' M tiles run over the padded width
+(m = oy * Wp + ox); the stride-2 and transposed convs' over boxes of
+output rows and columns, the stride-2 conv's read from the padded input
+viewed with its row and column parities apart, which needs an even padded
+size (:func:`padded_size`), and their y goes out through TMA stores. The
+transposed conv's weight rows are ordered (co, py, px)
+(:func:`phase_row`), so that an N tile holds whole output channels. The
+library owns the tiling: :func:`conv_tiling` asks it for the tile count
+that sizes the partials, :func:`conv_launches` for its split of the N tiles
+into launches.
 
 On a CPU tensor each wrapper runs its plain version, which does the same
 arithmetic with torch ops: the integer conv runs in float64, which is exact
@@ -46,7 +52,7 @@ import torch.nn.functional as F
 from masterthesis_tpu_torch.ops.kernels import build
 
 INT8_MAX = 127.0
-K_ALIGN = 32  # channel padding of the int8 operands: one mma k-step
+K_ALIGN = 32  # channel padding of the int8 operands: one k32 step of the wgmma
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 
 
@@ -86,20 +92,29 @@ def quantize_weight(w: torch.Tensor, out_dim: int = 0) -> tuple[torch.Tensor, to
 def subpixel_weights(k: torch.Tensor) -> torch.Tensor:
     """(3, 3, C, Co) transposed-conv kernel in the JAX layout (HWIO, applied
     unflipped) -> (2, 2, C, 4Co) taps of a 2x2 VALID conv over the input
-    zero-padded by one row and column at the end. Output phase (p, q) is
-    channels [(2p + q) Co, (2p + q + 1) Co)."""
+    zero-padded by one row and column at the end. Output channel co of phase
+    (py, px) (output pixel (2 oy + py, 2 ox + px)) is column
+    :func:`phase_row` = 4 co + 2 py + px: a channel's four phases are
+    neighbours, so that an N tile of the kernel holds whole output channels
+    (the JAX package orders the columns phase-major)."""
     c, co = k.shape[2], k.shape[3]
-    w = k.new_zeros((2, 2, c, 4 * co))
-    w[0, 0, :, 0:co] = k[1, 1]
-    w[0, 0, :, co:2 * co] = k[1, 0]
-    w[0, 1, :, co:2 * co] = k[1, 2]
-    w[0, 0, :, 2 * co:3 * co] = k[0, 1]
-    w[1, 0, :, 2 * co:3 * co] = k[2, 1]
-    w[0, 0, :, 3 * co:] = k[0, 0]
-    w[0, 1, :, 3 * co:] = k[0, 2]
-    w[1, 0, :, 3 * co:] = k[2, 0]
-    w[1, 1, :, 3 * co:] = k[2, 2]
-    return w
+    w = k.new_zeros((2, 2, c, co, 2, 2))  # (ky, kx, C, co, py, px)
+    w[0, 0, :, :, 0, 0] = k[1, 1]
+    w[0, 0, :, :, 0, 1] = k[1, 0]
+    w[0, 1, :, :, 0, 1] = k[1, 2]
+    w[0, 0, :, :, 1, 0] = k[0, 1]
+    w[1, 0, :, :, 1, 0] = k[2, 1]
+    w[0, 0, :, :, 1, 1] = k[0, 0]
+    w[0, 1, :, :, 1, 1] = k[0, 2]
+    w[1, 0, :, :, 1, 1] = k[2, 0]
+    w[1, 1, :, :, 1, 1] = k[2, 2]
+    return w.reshape(2, 2, c, 4 * co)
+
+
+def phase_row(py: int, co, px: int):
+    """The output row of channel ``co`` in phase (py, px) of a transposed
+    conv (see :func:`subpixel_weights`)."""
+    return co * 4 + py * 2 + px
 
 
 @dataclass(frozen=True)
@@ -173,8 +188,8 @@ def quant_deconv(weight: torch.Tensor, bias, amax) -> QuantConv:
     b = torch.zeros(co, device=dev) if bias is None else bias.float()
     return QuantConv(
         w=_kernel_layout(w4.permute(3, 0, 1, 2)).to(dev),
-        scale=(sx * sw).repeat(4).to(dev),
-        bias=b.repeat(4).contiguous(),
+        scale=(sx * sw).repeat_interleave(4).to(dev),
+        bias=b.repeat_interleave(4).contiguous(),
         inv_sx=inv.reshape(1).to(dev),
         cin=ci, cout=co, kh=2, kw=2, stride=1, pad=(0, 1, 0, 1),
         reflect=False, phases=4,
@@ -195,13 +210,26 @@ def prologue_plain(x: torch.Tensor, pending: Optional[dict]) -> torch.Tensor:
     return y
 
 
+def padded_size(qc: QuantConv, h: int, w: int) -> tuple[int, int]:
+    """(Hp, Wp) of ``qc``'s padded int8 input for an (h, w) map: the pads,
+    and for a stride-2 conv one more zero row or column where that leaves
+    an odd count (the kernel reads the padded rows and columns in pairs; no
+    output reads the extra one)."""
+    t, b, l, r = qc.pad
+    hp, wp = h + t + b, w + l + r
+    if qc.stride == 2:
+        hp, wp = hp + hp % 2, wp + wp % 2
+    return hp, wp
+
+
 def quant_pad_plain(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None) -> torch.Tensor:
     """NCHW float -> padded NHWC int8 (B, Hp, Wp, Cp), as the kernel writes it."""
     q = _quantize(prologue_plain(x, pending), qc.inv_sx)
     t, b, l, r = qc.pad
+    hp, wp = padded_size(qc, x.shape[2], x.shape[3])
     # integers up to 127 are exact in f32, which reflect padding needs
     q = F.pad(q.float(), (l, r, t, b), mode="reflect" if qc.reflect else "constant")
-    q = F.pad(q.permute(0, 2, 3, 1), (0, qc.cp - qc.cin))
+    q = F.pad(q.permute(0, 2, 3, 1), (0, qc.cp - qc.cin, 0, wp - q.shape[3], 0, hp - q.shape[2]))
     return q.to(torch.int8).contiguous()
 
 
@@ -214,12 +242,14 @@ def conv_acc_plain(xq: torch.Tensor, qc: QuantConv) -> torch.Tensor:
 
 
 def _interleave(y: torch.Tensor, phases: int) -> torch.Tensor:
-    """(B, 4Co, H, W) phase-major -> (B, Co, 2H, 2W); the identity for 1 phase."""
+    """(B, 4Co, H, W) in phase rows (:func:`phase_row`) -> (B, Co, 2H, 2W);
+    the identity for 1 phase."""
     if phases == 1:
         return y
     b, r, h, w = y.shape
     co = r // 4
-    return y.reshape(b, 2, 2, co, h, w).permute(0, 3, 4, 1, 5, 2).reshape(b, co, 2 * h, 2 * w)
+    # (b, co, py, px, oy, ox) -> (b, co, oy, py, ox, px)
+    return y.reshape(b, co, 2, 2, h, w).permute(0, 1, 4, 2, 5, 3).reshape(b, co, 2 * h, 2 * w)
 
 
 def stats_plain(acc: torch.Tensor, qc: QuantConv) -> tuple[torch.Tensor, torch.Tensor]:
@@ -239,11 +269,12 @@ def stats_plain(acc: torch.Tensor, qc: QuantConv) -> tuple[torch.Tensor, torch.T
     hw = float(acc.shape[2] * acc.shape[3])
     s_rows = sc * d1 + hw * bi
     q_rows = (sc * sc) * d2 + ((2.0 * sc) * bi) * d1 + hw * (bi * bi)
-    co = qc.cout
-    s = q = torch.zeros((acc.shape[0], co), dtype=torch.float64, device=acc.device)
+    co = torch.arange(qc.cout, device=acc.device)
+    s = q = torch.zeros((acc.shape[0], qc.cout), dtype=torch.float64, device=acc.device)
     for ph in range(qc.phases):
-        s = s + s_rows[:, ph * co:(ph + 1) * co]
-        q = q + q_rows[:, ph * co:(ph + 1) * co]
+        rows = co if qc.phases == 1 else phase_row(ph >> 1, co, ph & 1)
+        s = s + s_rows[:, rows]
+        q = q + q_rows[:, rows]
     return s.float(), q.float()
 
 
@@ -300,6 +331,7 @@ SIGNATURES = {
     "mt_int8_quant_pad": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _P], _I32),
     "mt_int8_quant_pad_nhwc": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _P], _I32),
     "mt_int8_stat_tiles": ([_I64, _I32, _I64, _I64, _I64, _P], _I64),
+    "mt_int8_conv_launches": ([_I64, _I32, _I64, _P], _I32),
     "mt_int8_conv": ([_P] * 7 + [_I64] * 12 + [_I32, _I32, _P], _I32),
     "mt_int8_stats": ([_P] * 10 + [_I64] * 5 + [_F32, _F32, _P], _I32),
     "mt_int8_residual_nhwc": ([_P] * 5 + [_I64] * 3 + [_P], _I32),
@@ -357,8 +389,8 @@ def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = Non
         b, h, w, c = x.shape
     else:
         b, c, h, w = x.shape
-    t, bo, l, r = qc.pad
-    hp, wp = h + t + bo, w + l + r
+    t, _, l, _ = qc.pad
+    hp, wp = padded_size(qc, h, w)
     out = torch.empty((b, hp, wp, qc.cp), device=x.device, dtype=torch.int8)
     pa = pb = None
     relu, alpha = 0, 0.0
@@ -386,11 +418,25 @@ def _tiling(stride: int, phases: int, ho: int, wo: int, wp: int) -> tuple[int, i
 
 
 def conv_tiling(qc: QuantConv, hp: int, wp: int) -> tuple[int, int]:
-    """(M tiles per image, rows per tile) of ``qc``'s conv launch on a (hp,
-    wp) padded input, as the library tiles it: the tiles are the rows of its
-    per-tile statistics partials. Loads the library."""
+    """(M tiles per image, most output pixels per tile) of ``qc``'s conv
+    launch on a (hp, wp) padded input, as the library tiles it: the tiles
+    are the rows of its per-tile statistics partials. Loads the library."""
     ho, wo = (hp - qc.kh) // qc.stride + 1, (wp - qc.kw) // qc.stride + 1
     return _tiling(qc.stride, int(qc.phases == 4), ho, wo, wp)
+
+
+@functools.cache
+def _launches(stride: int, phases: int, r: int) -> tuple[int, ...]:
+    rows = (ctypes.c_int64 * 2)()
+    n = _library().mt_int8_conv_launches(stride, phases, r, rows)
+    return tuple(rows[:n])
+
+
+def conv_launches(qc: QuantConv) -> tuple[int, ...]:
+    """The output rows of each conv launch of ``qc``, in launch order, as
+    the library splits its N tiles: the full tiles in one launch, a tail
+    tile in another. Loads the library."""
+    return _launches(qc.stride, int(qc.phases == 4), qc.w.shape[0])
 
 
 def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
@@ -410,8 +456,11 @@ def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
     shape = (b, ho, wo, qc.cout) if nhwc else (b, qc.cout, f * ho, f * wo)
     y = torch.empty(shape, device=xq.device, dtype=torch.float32)
     tiles, tile_rows = conv_tiling(qc, hp, wp)
-    if b * tiles >= 2**31 or ho * wp >= 2**31:
+    if b * tiles >= 2**31 or ho * wp >= 2**31 or 4 * ho * wo >= 2**31:
         raise ValueError("int8 conv: output exceeds the grid")
+    if qc.stride == 2 and (hp % 2 or wp % 2):
+        raise ValueError(f"int8 conv: a stride-2 input needs an even padded size, got {hp} x {wp} "
+                         "(see padded_size)")
     psum = psq = None
     if with_stats:
         # a tile's sum of squared accumulators must fit in int64

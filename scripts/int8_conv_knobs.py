@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""What bounds the int8 stride-1 conv (kernels 4 and 6) on an NVIDIA card:
+"""What bounds the int8 conv template (kernels 4-7) on an NVIDIA card:
 timing knobs compiled into copies of ``masterthesis_tpu_torch/csrc/int8_conv.cu``.
 
     python3 scripts/int8_conv_knobs.py          # needs nvcc and a card
 
-Each variant is the committed source with one change applied as a text
-substitution (the script fails if a substitution no longer applies), built
+Each variant is the committed source with one change applied as text
+substitutions (the script fails if one no longer applies), built
 into ``build/int8_conv_knobs/`` by the package's own build helper, with its
 flags, and loaded with the wrappers' entry-point types:
 
@@ -14,16 +14,30 @@ flags, and loaded with the wrappers' entry-point types:
   statistics, no stores);
 - ``no_store``: the epilogue without its global stores of y;
 - ``loads_once``: the producer loads A and B only while the ring fills and
-  the later k-steps reuse stale tiles (what TMA costs the main loop);
-- ``quant_pad_c32`` / ``quant_pad_c64``: the NCHW quantize-and-pad with 32
-  or 64 channels per block instead of 128.
+  the later k-steps reuse stale slabs (what TMA costs the main loop);
+- ``thread_stores``: the stride-2 and transposed convs store y from the
+  threads (a warp per staged row) instead of by TMA stores;
+- ``no_stats`` / ``no_y_staging``: their epilogue without the int64
+  partials, or without staging y for the stores;
+- ``box_n256``: their N tiles 256 wide (one block per SM; the path's R
+  leave no tail tile);
+- ``slab_128``: their 64-channel inputs (down0) in 128-channel slabs, half
+  zeros, as wider inputs are;
+- ``quant_pad_c64`` / ``quant_pad_c128``: the NCHW quantize-and-pad with 64
+  or 128 channels per block at every width (the source takes 64 for inputs
+  of at most 64 channels, else 128).
 
 The conv variants are timed (CUDA events over back-to-back launches on
-rotating inputs) at (8, 256, 64, 64) -> 256 with NCHW y, with NCHW y and
-statistics, and with NHWC y and statistics; the quantize-and-pad ones at
-(8, 256, 64, 64) -> (8, 66, 66, 256) without and with a prologue. Results
-are wrong for the knobs that skip work: they time, they do not check. One
-JSON line per variant, after the card's name and power limit.
+rotating inputs that exceed L2) at the stride-1 conv's (8, 256, 64, 64) ->
+256 with NCHW y, with NCHW y and statistics, and with NHWC y and
+statistics; and at the AdaINModel int8 forward's stride-2 convs (down0:
+(8, 64, 256, 256) -> 128, down1: (8, 128, 128, 128) -> 256) and transposed
+convs (up0: (8, 256, 64, 64) -> 128, up1: (8, 128, 128, 128) -> 64), with
+statistics as on the path. The quantize-and-pad ones at (8, 256, 64, 64)
+-> (8, 66, 66, 256) without and with a prologue, and at down0's (8, 64,
+256, 256) -> (8, 258, 258, 64) with one. Results are wrong for the
+knobs that skip work: they time, they do not check. One JSON line per
+variant, after the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -44,43 +58,67 @@ from masterthesis_tpu_torch.ops.kernels import int8_conv as kq  # noqa: E402
 CSRC = ROOT / "masterthesis_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "int8_conv_knobs"
 B, C, H, W = 8, 256, 64, 64
-MAIN_LOOP_END = "  wgmma_wait<0>();\n  fence_acc(acc);\n\n  // the epilogue"
-PRODUCER = """        mbar_expect_tx(&full[stage], kWABytes + kNW * kWK);
-        const int tap = k / cslabs, c0 = (k % cslabs) * kWK;
-        tma_load_2d(ring_a + stage * kWABytes, &map_in, &full[stage], c0,
-                    row0 + (tap / 3) * p.Wp + tap % 3);
-        tma_load_3d(ring_b + stage * kWBBytes, &map_w, &full[stage], c0, tap, n0);"""
+# the end of the main loop, in both kernels
+MAIN_LOOP_END = "\n\n  // the epilogue, over the ring"
+# the producer's step, shared by both kernels
+PRODUCER = """    mbar_expect_tx(&full[stage], bytes);
+    load(ring_a + stage * kA, ring_b + stage * kB, k, &full[stage]);
+"""
 VARIANTS = {
     "base": [],
-    "no_epilogue": [(MAIN_LOOP_END, MAIN_LOOP_END.replace(
-        "\n\n  // the epilogue",
-        "\n  if (acc[0] == 123456789) p.y[0] = 1.f;  // keeps the main loop\n  return;\n\n"
-        "  // the epilogue"))],
+    "no_epilogue": [(MAIN_LOOP_END, "\n  if (acc[0] == 123456789) p.psum[0] = 1;  // keeps the "
+                     "main loop\n  return;" + MAIN_LOOP_END, 2)],
     "no_store": [("        ycol[px] = v;", "        (void)ycol;"),
-                 ("          orow[c] = v;", "          (void)orow;")],
-    "loads_once": [(PRODUCER, """        const bool load = k < kWStages;
-        mbar_expect_tx(&full[stage], load ? kWABytes + kNW * kWK : 0);
-        const int tap = k / cslabs, c0 = (k % cslabs) * kWK;
-        if (load) tma_load_2d(ring_a + stage * kWABytes, &map_in, &full[stage], c0,
-                              row0 + (tap / 3) * p.Wp + tap % 3);
-        if (load) tma_load_3d(ring_b + stage * kWBBytes, &map_w, &full[stage], c0, tap, n0);""")],
-    "quant_pad_c32": [("constexpr int kQC = 128;", "constexpr int kQC = 32;")],
-    "quant_pad_c64": [("constexpr int kQC = 128;", "constexpr int kQC = 64;")],
+                 ("          orow[c] = v;", "          (void)orow;"),
+                 ("  if (p.tma_y) {\n", "  if (p.tma_y) {\n    return;\n"),
+                 ("  for (int row = gw; row < chunks * chunk_rows; row += 8) {",
+                  "  for (int row = gw; row < 0; row += 8) {")],
+    "loads_once": [(PRODUCER, """    const bool ld = k < kStages;
+    mbar_expect_tx(&full[stage], ld ? bytes : 0);
+    if (ld) load(ring_a + stage * kA, ring_b + stage * kB, k, &full[stage]);
+""")],
+    "thread_stores": [("(sub ? Wo % 2 == 0 : Wo % 4 == 0) && aligned(y)", "false")],
+    "quant_pad_c64": [("const int qc = Cp <= 64 ? 64 : 128;", "const int qc = 64;")],
+    "quant_pad_c128": [("const int qc = Cp <= 64 ? 64 : 128;", "const int qc = 128;")],
+    "no_stats": [("  if (p.psum != nullptr) {\n    const int c = threadIdx.x % 128, r0 = wg * 64;",
+                  "  if (false) {\n    const int c = threadIdx.x % 128, r0 = wg * 64;")],
+    "no_y_staging": [("#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n    const int r = wg * 64 + warp * 16 "
+                      "+ lane / 4 + 8 * h, ly = r >> lg, lx = r & (p.bx - 1);\n    if (ly >= by) "
+                      "continue;  // past a box of fewer than 128 pixels\n#pragma unroll\n    for (int e",
+                      "#pragma unroll\n  for (int h = 0; h < 0; ++h) {\n    const int r = wg * 64 + warp * 16 "
+                      "+ lane / 4 + 8 * h, ly = r >> lg, lx = r & (p.bx - 1);\n    if (ly >= by) "
+                      "continue;  // past a box of fewer than 128 pixels\n#pragma unroll\n    for (int e")],
+    "box_n256": [("constexpr int kBoxNW = 128;", "constexpr int kBoxNW = 256;"),
+                 ("__launch_bounds__(kWThreads, 2)\n    conv_box_kernel",
+                  "__launch_bounds__(kWThreads, 1)\n    conv_box_kernel")],
+    "slab_128": [("const bool narrow = Cp <= 64;\n  const uint32_t slab",
+                  "const bool narrow = false;\n  const uint32_t slab")],
 }
 
 
+def variant_sources() -> dict:
+    """Each variant's source: the committed one with its substitutions, each
+    of which must match as many times as it says (once by default)."""
+    src = (CSRC / "int8_conv.cu").read_text()
+    out = {}
+    for name, subs in VARIANTS.items():
+        text = src
+        for old, new, *count in subs:
+            if text.count(old) != (count[0] if count else 1):
+                raise RuntimeError(f"{name}: the substitution no longer applies as it should: "
+                                   f"{old[:60]!r} is found {text.count(old)} times")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
 def compile_variants() -> dict:
+    sources = variant_sources()
     OUT.mkdir(parents=True, exist_ok=True)
     for h in CSRC.glob("*.cuh"):
         shutil.copy(h, OUT / h.name)
-    src = (CSRC / "int8_conv.cu").read_text()
     jobs = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the substitution no longer applies: {old[:60]!r}")
-            text = text.replace(old, new)
+    for name, text in sources.items():
         (OUT / f"{name}.cu").write_text(text)
         jobs[name] = (OUT / f"{name}.cu", OUT / f"lib{name}.so")
     build.compile_sources(jobs)
@@ -101,6 +139,61 @@ def device_ms(call, n_sets: int, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the stride-2 and transposed convs of the AdaINModel int8 forward: (name, B,
+# C (= Cp), H, W, Co, stride, phases)
+PATH_CONVS = [("down0", 8, 64, 256, 256, 128, 2, False), ("down1", 8, 128, 128, 128, 256, 2, False),
+              ("up0", 8, 256, 64, 64, 128, 1, True), ("up1", 8, 128, 128, 128, 64, 1, True)]
+
+
+def conv_case(lib, b, c, h, w, co, stride, phases, nhwc=False, stats=True):
+    """A timed call of ``lib``'s conv at one shape, on rotating buffers that
+    exceed L2, and the number of buffer sets."""
+    if phases:
+        hp, wp, ho, wo, r, taps, kw = h + 1, w + 1, h, w, 4 * co, 4, 2
+    else:
+        hp, wp, r, taps, kw = h + 2, w + 2, co, 9, 3
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    tiles = lib.mt_int8_stat_tiles(stride, int(phases), ho, wo, wp, ctypes.byref(ctypes.c_int64()))
+    out = b * r * ho * wo
+    n_sets = max(2, -(-3 * 50 * 2**20 // (b * hp * wp * c + 4 * out)))
+    xq = [torch.randint(-127, 128, (b, hp, wp, c), dtype=torch.int8, device="cuda")
+          for _ in range(n_sets)]
+    ys = [torch.empty(out, device="cuda") for _ in range(n_sets)]
+    ps = [torch.empty(2, b * tiles * r, dtype=torch.int64, device="cuda") for _ in range(n_sets)]
+    wt = torch.randint(-127, 128, (r, taps, c), dtype=torch.int8, device="cuda")
+    scale = torch.rand(r, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(i):
+        err = lib.mt_int8_conv(xq[i].data_ptr(), wt.data_ptr(), scale.data_ptr(), None,
+                               ys[i].data_ptr(), ps[i][0].data_ptr() if stats else None,
+                               ps[i][1].data_ptr() if stats else None, b, hp, wp, c, r, taps, kw,
+                               stride, ho, wo, co, tiles, int(phases), int(nhwc), stream)
+        assert err == 0, err
+    return call, n_sets
+
+
+def quant_pad_case(lib, b, c, h, w, prologue):
+    """A timed call of ``lib``'s NCHW quantize-and-pad (reflect, pad 1, an
+    lrelu prologue) at one shape, on rotating buffers that exceed L2."""
+    cp = -(-c // 32) * 32
+    n_sets = max(2, -(-3 * 50 * 2**20 // (4 * b * c * h * w)))
+    xs = [torch.randn(b, c, h, w, device="cuda") for _ in range(n_sets)]
+    out = [torch.empty((b, h + 2, w + 2, cp), dtype=torch.int8, device="cuda")
+           for _ in range(n_sets)]
+    inv = torch.tensor([20.0], device="cuda")
+    pa, pb = torch.rand(b, c, device="cuda") + 0.5, torch.randn(b, c, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(i):
+        err = lib.mt_int8_quant_pad(xs[i].data_ptr(), out[i].data_ptr(), inv.data_ptr(),
+                                    pa.data_ptr() if prologue else None,
+                                    pb.data_ptr() if prologue else None, 1, 0.01, b, c, h, w, cp,
+                                    h + 2, w + 2, 1, 1, 1, stream)
+        assert err == 0, err
+    return call, n_sets
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("int8_conv_knobs: no CUDA device is available", file=sys.stderr)
@@ -109,46 +202,28 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     libs = compile_variants()
-    hp, wp, r = H + 2, W + 2, C
-    tiles = libs["base"].mt_int8_stat_tiles(1, 0, H, W, wp, ctypes.byref(ctypes.c_int64()))
-    n_sets = 6  # rotating inputs: 6 x (8.9 MB in + 33.5 MB out) exceed L2
-    xq = [torch.randint(-127, 128, (B, hp, wp, C), dtype=torch.int8, device="cuda") for _ in range(n_sets)]
-    ys = [torch.empty(B * r * H * W, device="cuda") for _ in range(n_sets)]
-    ps = [torch.empty(2, B * tiles * r, dtype=torch.int64, device="cuda") for _ in range(n_sets)]
-    w = torch.randint(-127, 128, (r, 9, C), dtype=torch.int8, device="cuda")
-    scale = torch.rand(r, device="cuda")
-    xs = [torch.randn(B, C, H, W, device="cuda") for _ in range(4)]
-    inv = torch.tensor([20.0], device="cuda")
-    pa, pb = torch.rand(B, C, device="cuda") + 0.5, torch.randn(B, C, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
 
-    def conv(lib, stats, nhwc):
-        def call(i):
-            err = lib.mt_int8_conv(xq[i].data_ptr(), w.data_ptr(), scale.data_ptr(), None,
-                                   ys[i].data_ptr(), ps[i][0].data_ptr() if stats else None,
-                                   ps[i][1].data_ptr() if stats else None, B, hp, wp, C, r, 9, 3, 1,
-                                   H, W, r, tiles, 0, int(nhwc), stream)
-            assert err == 0, err
-        return call
-
-    def quant_pad(lib, prologue):
-        def call(i):
-            err = lib.mt_int8_quant_pad(xs[i % 4].data_ptr(), xq[i].data_ptr(), inv.data_ptr(),
-                                        pa.data_ptr() if prologue else None,
-                                        pb.data_ptr() if prologue else None, 1, 0.0, B, C, H, W, C,
-                                        hp, wp, 1, 1, 1, stream)
-            assert err == 0, err
-        return call
+    def timed(case, lib, *args, **kw):
+        call, n_sets = case(lib, *args, **kw)
+        ms = device_ms(call, n_sets)
+        torch.cuda.empty_cache()
+        return ms
 
     for name, lib in libs.items():
-        row = dict(variant=name, shape=[B, C, H, W], co=r)
+        row = dict(variant=name, shape=[B, C, H, W], co=C)
         if name.startswith("quant_pad") or name == "base":
-            row.update(quant_pad_ms=device_ms(quant_pad(lib, False), n_sets),
-                       quant_pad_prologue_ms=device_ms(quant_pad(lib, True), n_sets))
+            row.update(quant_pad_ms=timed(quant_pad_case, lib, B, C, H, W, False),
+                       quant_pad_prologue_ms=timed(quant_pad_case, lib, B, C, H, W, True),
+                       # down0's: 64 channels, 258 padded columns
+                       down0_quant_pad_prologue_ms=timed(quant_pad_case, lib, 8, 64, 256, 256, True))
         if not name.startswith("quant_pad"):
-            row.update(conv_nchw_ms=device_ms(conv(lib, False, False), n_sets),
-                       conv_nchw_stats_ms=device_ms(conv(lib, True, False), n_sets),
-                       conv_nhwc_stats_ms=device_ms(conv(lib, True, True), n_sets))
+            if name not in ("thread_stores", "no_stats", "no_y_staging", "box_n256", "slab_128"):
+                row.update(conv_nchw_ms=timed(conv_case, lib, B, C, H, W, C, 1, False, stats=False),
+                           conv_nchw_stats_ms=timed(conv_case, lib, B, C, H, W, C, 1, False),
+                           conv_nhwc_stats_ms=timed(conv_case, lib, B, C, H, W, C, 1, False,
+                                                    nhwc=True))
+            for case, *shape in PATH_CONVS:
+                row[f"{case}_ms"] = timed(conv_case, lib, *shape)
         print(json.dumps(row), flush=True)
     return 0
 

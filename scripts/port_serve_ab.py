@@ -11,8 +11,13 @@ phase alone (the flagship AdaINModel at B=8, 256px, dim 64), and with
 each time in a fresh process
 from the root of one checkout, in the order parent, change, change, parent
 per round. Prints one JSON line per process and path: the side, img/s, and
-the median and least request ms. Each checkout builds its own kernels at
-first use. Needs a CUDA card; without one the first process fails.
+the median and least request ms; then one summary line per path: each
+side's median over its processes of their median request ms, and the
+interquartile range of those medians, the noise a change is read against:
+``slower`` when the change's median lies above the parent's third quartile,
+``faster`` when below its first, else ``within noise``. Each checkout builds
+its own kernels at first use. Needs a CUDA card; without one the first
+process fails.
 """
 from __future__ import annotations
 
@@ -47,11 +52,12 @@ for path in sys.argv[1:]:
 """
 
 
-def run(side: str, root: str, dtypes) -> None:
+def run(side: str, root: str, dtypes) -> list:
     # ``python -c`` puts the working directory first on sys.path, so the
     # child imports that checkout's chip_smoke.py and package
     out = subprocess.run([sys.executable, "-c", CHILD, *dtypes], cwd=root,
                          capture_output=True, text=True, check=True, timeout=900)
+    rows = []
     for line in out.stdout.splitlines():
         if not line.startswith("{"):
             continue
@@ -63,9 +69,29 @@ def run(side: str, root: str, dtypes) -> None:
         path = d.get("dtype", "int8")
         if d["phase"].startswith("base_"):
             path = f"base_{d['phase'][-1]}_{path}"
-        print(json.dumps(dict(side=side, path=path, img_per_s=d["img_per_s"],
-                              median_ms=statistics.median(ms), min_ms=ms[0], card=d["card"])),
-              flush=True)
+        rows.append(dict(side=side, path=path, img_per_s=d["img_per_s"],
+                         median_ms=statistics.median(ms), min_ms=ms[0], card=d["card"]))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def quartiles(xs) -> tuple[float, float, float]:
+    """(first quartile, median, third quartile) of ``xs`` (inclusive method:
+    the quartiles lie within the values)."""
+    q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+    return q1, q2, q3
+
+
+def summary(rows, path: str) -> dict:
+    out = dict(summary=path)
+    for side in ("parent", "change"):
+        q1, med, q3 = quartiles([r["median_ms"] for r in rows if r["path"] == path and
+                                 r["side"] == side])
+        out.update({f"{side}_median_ms": med, f"{side}_iqr_ms": [q1, q3]})
+    lo, hi = out["parent_iqr_ms"]
+    change = out["change_median_ms"]
+    out["verdict"] = "slower" if change > hi else "faster" if change < lo else "within noise"
+    return out
 
 
 def main(argv) -> int:
@@ -77,9 +103,12 @@ def main(argv) -> int:
                    choices=["bf16", "f32", "int8", "base_A_f32", "base_B_f32", "base_A_int8",
                             "base_B_int8"])
     a = p.parse_args(argv)
+    rows = []
     for _ in range(a.rounds):
         for side in ("parent", "change", "change", "parent"):
-            run(side, getattr(a, side), a.paths)
+            rows += run(side, getattr(a, side), a.paths)
+    for path in dict.fromkeys(r["path"] for r in rows):
+        print(json.dumps(summary(rows, path)), flush=True)
     return 0
 
 

@@ -211,8 +211,9 @@ def test_statistics_are_exact_and_order_free(kind):
     s2, sq2 = kq.stats_plain(shuffled, qc)
     assert torch.equal(s, s2) and torch.equal(sq, sq2)
     v = acc.double() * qc.scale.double()[:, None, None] + qc.bias.double()[:, None, None]
-    want_s = v.sum(dim=(2, 3)).reshape(b, qc.phases, co).sum(dim=1)
-    want_q = (v * v).sum(dim=(2, 3)).reshape(b, qc.phases, co).sum(dim=1)
+    # a transposed conv's rows are 4 co + 2 py + px (kq.phase_row): add its phases per channel
+    want_s, want_q = (t.reshape(b, co, qc.phases).sum(dim=2)
+                      for t in (v.sum(dim=(2, 3)), (v * v).sum(dim=(2, 3))))
     np.testing.assert_allclose(s.numpy(), want_s.numpy(), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(sq.numpy(), want_q.numpy(), rtol=1e-6)
 

@@ -73,17 +73,30 @@ def _on(qc, device):
 
 # (kind, B, C, Co, H, W): the flagship's channel counts at small maps, odd
 # sizes and channel counts that are not multiples of 32; for the stride-1
-# (wgmma) template also a 32-channel tail k-slab (Cp 288), a second N tile
-# (R 268, 300), W + 2 above its 128-row M tile, Ho x Wp off that tile, odd B
+# conv also a 32-channel tail k-slab (Cp 288), a second N tile (R 268, 300),
+# W + 2 above its 128-row M tile, Ho x Wp off that tile, odd B; for the
+# stride-2 conv Wo above its 128-column box, Wo = 80 (a 128-column box with
+# 80 columns inside, TMA stores), Wo = 5 (boxes of 4 x 32 pixels, and y's
+# rows too narrow for TMA stores) with odd B, and odd H and W (the padded
+# input rounded up to an even size); the transposed conv at DecoderConcat's
+# widths, 276 -> 138 (Cp 288, R 552: a 40-row tail N tile) and 146 -> 73
+# (Cp 160, R 292), and at W = 80 (a 128-column box, 160 output columns)
 CONVS = [
     ("down", 2, 64, 128, 16, 16),
     ("down", 1, 8, 16, 10, 14),
+    ("down", 1, 24, 40, 4, 260),
+    ("down", 1, 24, 40, 6, 160),
+    ("down", 3, 40, 24, 60, 10),
+    ("down", 1, 24, 16, 9, 11),
     ("res", 2, 256, 256, 8, 8),
     ("res", 1, 24, 24, 7, 9),
     ("res", 3, 268, 268, 5, 130),
     ("res", 1, 300, 300, 4, 6),
     ("deconv", 2, 256, 128, 8, 8),
     ("deconv", 1, 12, 20, 5, 7),
+    ("deconv", 1, 276, 138, 4, 5),
+    ("deconv", 2, 146, 73, 6, 3),
+    ("deconv", 1, 16, 12, 3, 80),
 ]
 
 
@@ -119,17 +132,33 @@ def test_conv_wrappers_match_plain(cuda, kind, b, c, co, h, w):
 
 
 def test_stat_tiles_follow_each_route(cuda):
-    """The library sizes the partials per route: stride-1 convs over the
+    """The library sizes the partials per route: the stride-1 convs over the
     padded width in tiles of 128 rows (``M_TILE`` of
-    ``tests/test_torch_int8_tiling.py``), the others over the output pixels
-    in tiles of 64."""
+    ``tests/test_torch_int8_tiling.py``), the stride-2 and transposed convs
+    in boxes of by output rows x bx columns (its ``box_tile``: bx = 32, 64
+    or 128, the least that holds Wo, or 128; by = min(128 // bx, Ho)); and
+    it splits the N tiles into launches as ``conv_launches`` says (256 wide
+    for the stride-1 convs, ``BOX_NW`` = 128 for the others, then a tail)."""
     conv = kq.quant_conv(torch.ones(8, 8, 3, 3), None, 1.0, 1, "reflect")
     down = kq.quant_conv(torch.ones(8, 8, 3, 3), None, 1.0, 2, "reflect")
     deconv = kq.quant_deconv(torch.ones(8, 8, 3, 3), None, 1.0)
     assert kq.conv_tiling(conv, 66, 66) == (math.ceil(64 * 66 / 128), 128) == (33, 128)
     assert kq.conv_tiling(conv, 3, 142) == (2, 128)
-    assert kq.conv_tiling(down, 66, 66) == (math.ceil(32 * 32 / 64), 64)
-    assert kq.conv_tiling(deconv, 65, 65) == (math.ceil(64 * 64 / 64), 64)
+    assert kq.conv_tiling(down, 258, 258) == (128, 128)  # down0: one output row of 128
+    assert kq.conv_tiling(down, 130, 130) == (32, 128)  # down1: two rows of 64
+    assert kq.conv_tiling(down, 12, 262) == (5 * 2, 128)  # Wo 130: two spans a row
+    assert kq.conv_tiling(down, 62, 12) == (math.ceil(30 / 4), 128)  # Wo 5: boxes of 4 x 32
+    assert kq.conv_tiling(down, 8, 162) == (3, 128)  # Wo 80: one row of a 128-column box
+    assert kq.conv_tiling(deconv, 4, 81) == (3, 128)  # W 80: the same
+    assert kq.conv_tiling(deconv, 5, 41) == (2, 128)  # W 40: boxes of 2 x 64
+    assert kq.conv_tiling(deconv, 65, 65) == (32, 128)  # up0: two rows of 64
+    assert kq.conv_tiling(deconv, 129, 129) == (128, 128)  # up1: one row of 128
+    wide = kq.quant_conv(torch.ones(268, 8, 3, 3), None, 1.0, 1, "reflect")
+    down300 = kq.quant_conv(torch.ones(300, 8, 3, 3), None, 1.0, 2, "reflect")
+    deconv138 = kq.quant_deconv(torch.ones(8, 138, 3, 3), None, 1.0)
+    assert kq.conv_launches(conv) == (8,) and kq.conv_launches(wide) == (256, 12)
+    assert kq.conv_launches(down300) == (256, 44) and kq.conv_launches(deconv138) == (512, 40)
+    assert kq.conv_launches(kq.quant_conv(torch.ones(256, 8, 3, 3), None, 1.0, 2, None)) == (256,)
 
 
 @pytest.mark.parametrize("style", ["instance", "adain"])
@@ -156,6 +185,17 @@ def test_resblock_kernel_repeats_bit_for_bit(cuda):
     g, be = _randn((b, c), 24, 0.3).to(cuda), _randn((b, c), 25, 0.3).to(cuda)
     first = kq.resblock(x, q1, q2, g, be)
     assert torch.equal(first, kq.resblock(x, q1, q2, g, be))
+
+
+@pytest.mark.parametrize("kind,b,c,co,h,w", [("down", 3, 40, 24, 60, 10),
+                                              ("deconv", 1, 276, 138, 4, 5)])
+def test_strided_convs_repeat_bit_for_bit(cuda, kind, b, c, co, h, w):
+    qc = _on(_make(kind, c, co, 31), cuda)
+    x = _randn((b, c, h, w), 32).to(cuda)
+    p = _to(_pending(b, c, 33), cuda)
+    fn = kq.downconv if kind == "down" else kq.deconv
+    first = fn(x, qc, p, with_stats=True)
+    assert all(torch.equal(f, a) for f, a in zip(first, fn(x, qc, p, with_stats=True)))
 
 
 @pytest.mark.parametrize("c,padding", [(256, "reflect"), (268, None), (20, "reflect")])
