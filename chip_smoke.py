@@ -5,7 +5,7 @@ against its plain PyTorch version.
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also a torch.profiler breakdown of one forward
                                        # (f32, bf16, int8; BaseModel A int8) and of one
-                                       # training main step
+                                       # training main step (AdaINModel, BaseModel A, B)
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -94,7 +94,27 @@ against its plain PyTorch version.
    composed main steps are timed beside the fused ones. Prints main-step
    it/s (fused and composed), schedule img/s (2 x batch per iteration),
    seconds per step and peak device memory.
-8. Last lines: the card, the ``{"kernels": [...]}`` line, then
+8. ``base_train``: BaseModel's training main path at the same config, A
+   (the CLI default) and B (``--concat --reparam``), each as in 7: a warm-up,
+   three timed fused main steps, a timed d_iter cycle and three timed
+   composed main steps, with the counts set to 0 before and read after.
+   Kernels 9/10 run on the content encoder's blocks (A: 16 / 12 launches
+   per main step) and on DecoderConcat's ``dec_share`` (B: 20 / 15), as
+   the JAX package routes them; the moments kernel runs on the other norms.
+   A small f32 step of each config on the card must match the CPU, and so
+   must a small AdaINModel step with ``--use_dropout`` whose masks (and
+   noise and eps) are drawn on the card and handed to the CPU run. Prints
+   the same metrics and kernel 9/10 ms per main step (per-call times of 7
+   times the calls).
+   In 7 and 8 the warm-up main step records every (shape, dtype) that it
+   gives the moments kernel (2B and 4B images; DecoderConcat's 268, 138 and
+   73 channels; 256-px maps; the content discriminator), and each
+   timed main step must launch it that many times. After the timed runs the
+   kernel is held against its plain version at each of those shapes with
+   3's tolerance and timed there: its launches and ms per main step, by
+   dtype, go into the kernels line (``per_main_step``, beside kernels 9/10's
+   launches per main step of each phase).
+9. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -102,6 +122,7 @@ result line. Without a card it exits 1 before doing anything.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -223,6 +244,22 @@ TRAIN_LOSS_TOL = 0.03  # fused against composed: the JAX package's own bar
 # term, tests/torch_train_steps.py), and two CPU paths of the same step
 # (--fused_resblock on against off) leave 1.0e-3 of the params beyond 0.1 lr
 TRAIN_CPU_LOSS_TOL, TRAIN_CPU_FLIP_SHARE = 1e-4, 1e-2
+# BaseModel training at TRAIN_ARGS, configs A and B: kernel 9/10 calls per
+# main step by batch, as the JAX package routes them. A: the content
+# encoder's four blocks at 2B images (D fakes, G1 twice, G2; backward in G1
+# and G2). B adds dec_share once per decode: 4B in the D fakes and G1's
+# first decode, 2B in G1's cycle and G2 (the 268-wide dec1_* blocks compose)
+BASE_RESBLOCK_CALLS = {
+    "A": {"resblock_fwd": {2 * B: 16}, "resblock_bwd": {2 * B: 12}},
+    "B": {"resblock_fwd": {2 * B: 18, 4 * B: 2}, "resblock_bwd": {2 * B: 14, 4 * B: 1}},
+}
+BASE_PER_STEP = {cfg: {k: sum(v.values()) for k, v in calls.items()}
+                 for cfg, calls in BASE_RESBLOCK_CALLS.items()}
+# the small steps on the card against the CPU: at SMALL_TRAIN_ARGS (dim 32,
+# 128-wide blocks) the routing is the full width's; AdaINModel with
+# --use_dropout keeps only its encoder's blocks on kernels 9/10
+SMALL_PER_STEP = {"A": BASE_PER_STEP["A"], "B": BASE_PER_STEP["B"],
+                  "dropout": {"resblock_fwd": 16, "resblock_bwd": 12}}
 
 
 def log(obj) -> None:
@@ -271,23 +308,29 @@ def _randn(shape, dtype, seed, scale=1.0, offset=0.0):
     return x.to(dtype)
 
 
+def _moments_case(shape, dtype: torch.dtype, what: str):
+    """The moments kernel against its plain version on seeded inputs of
+    ``shape``: (input sets for timing, error, tolerance, bound ms, bound by)."""
+    numel = math.prod(shape)
+    nbytes = numel * dtype.itemsize
+    sets = copies(lambda i: (_randn(shape, dtype, i, 2.0, 0.5),), nbytes)
+    x = sets[0][0]
+    s, sq = kmoments.moments(x)
+    ps, psq = kmoments.moments_plain(x)
+    torch.cuda.synchronize()
+    n = shape[2] * shape[3]
+    # error of what the norms consume, sum/n and sumsq/n; tolerance: a few
+    # f32 ulps of the mean magnitude, as sums run in another order
+    err = max((s - ps).abs().max().item(), (sq - psq).abs().max().item()) / n
+    tol = 2e-5 * max(x.float().abs().mean().item(), x.float().square().mean().item())
+    assert err <= tol, f"moments {what} {tuple(shape)}: error {err} > {tol}"
+    return (sets, err, tol, *bound(nbytes + 2 * shape[0] * shape[1] * 4, 3 * numel))
+
+
 def check_moments(name: str, dtype: torch.dtype) -> dict:
     rows = []
     for shape, per_forward in MOMENTS_SHAPES:
-        numel = math.prod(shape)
-        nbytes = numel * dtype.itemsize
-        sets = copies(lambda i: (_randn(shape, dtype, i, 2.0, 0.5),), nbytes)
-        x = sets[0][0]
-        s, sq = kmoments.moments(x)
-        ps, psq = kmoments.moments_plain(x)
-        torch.cuda.synchronize()
-        n = shape[2] * shape[3]
-        # error of what the norms consume, sum/n and sumsq/n; tolerance: a
-        # few f32 ulps of the mean magnitude, as sums run in another order
-        err = max((s - ps).abs().max().item(), (sq - psq).abs().max().item()) / n
-        tol = 2e-5 * max(x.float().abs().mean().item(), x.float().square().mean().item())
-        assert err <= tol, f"moments {name} {shape}: error {err} > {tol}"
-        b_ms, by = bound(nbytes + 2 * shape[0] * shape[1] * 4, 3 * numel)
+        sets, err, tol, b_ms, by = _moments_case(shape, dtype, name)
         rows.append(dict(
             shape=list(shape), per_forward=per_forward, max_abs_err=err, tol=tol,
             ms=device_ms(kmoments.moments, sets),
@@ -298,6 +341,48 @@ def check_moments(name: str, dtype: torch.dtype) -> dict:
     return summarize("moments", name, rows, "masterthesis_tpu/ops/pallas/moments.py:80",
                      "masterthesis_tpu_torch/csrc/moments.cu",
                      "torch.var_mean(x, dim=(2, 3), unbiased=False)")
+
+
+@contextlib.contextmanager
+def recording_moments(calls: collections.Counter):
+    """Counts the moments kernel's calls by (shape, dtype) while active, at
+    ``norms.moments``, its one caller (each call launches it once on the
+    card); the launch count stays the wrapper's own."""
+    real = norms.moments
+
+    def recording(x, per_sample=False):
+        calls[(tuple(x.shape), x.dtype)] += 1
+        return real(x, per_sample)
+
+    norms.moments = recording
+    try:
+        yield calls
+    finally:
+        norms.moments = real
+
+
+def check_moments_path(phase: str, calls: collections.Counter) -> dict:
+    """The moments kernel against its plain version at every (shape, dtype)
+    that one main step of ``phase`` gave it (``calls``: the launches at
+    each), with check_moments' tolerance, and timed there. Returns, by dtype
+    name, its launches, ms, bound ms and largest error per main step."""
+    names = {dtype: name for name, dtype in DTYPES.items()}
+    rows, per_step = [], {}
+    for (shape, dtype), n in sorted(calls.items(), key=lambda kv: (names[kv[0][1]], kv[0][0])):
+        sets, err, tol, b_ms, by = _moments_case(shape, dtype, phase)
+        ms = device_ms(kmoments.moments, sets)
+        del sets
+        rows.append(dict(shape=list(shape), dtype=names[dtype], per_main_step=n, max_abs_err=err,
+                         tol=tol, ms=ms, bound_ms=b_ms, bound_by=by))
+        d = per_step.setdefault(names[dtype], dict(launches=0, ms=0.0, bound_ms=0.0,
+                                                   max_abs_err=0.0))
+        d["launches"] += n
+        d["ms"] += n * ms
+        d["bound_ms"] += n * b_ms
+        d["max_abs_err"] = max(d["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    log(dict(phase=phase, kernel="moments", shapes=rows, per_main_step=per_step))
+    return per_step
 
 
 def check_adain(name: str, dtype: torch.dtype) -> dict:
@@ -735,13 +820,15 @@ def check_resblock(kind: str) -> dict:
     log(dict(phase="resblock_ragged", kernel=f"resblock_{kind}", tol=dict(relative=RESBLOCK_TOL),
              shapes=ragged))
     name = f"resblock_{kind}"
-    return summarize(name, "bf16", rows,
+    entry = summarize(name, "bf16", rows,
                      "masterthesis_tpu/ops/pallas/resblock_bf16.py:" + ("309" if fwd else "568"),
                      "masterthesis_tpu_torch/csrc/resblock_bf16.cu",
                      "the port's composed block (--fused_resblock off): cuDNN bf16 convs, "
                      "the AdaIN kernel, torch elementwise" + ("" if fwd else "; autograd"),
                      name=name, per="main step at batch 8 per side, 256px, dim 64, bf16",
                      count="per_step")
+    entry["ms_per_call"] = {r["shape"][0]: r["ms"] for r in rows}
+    return entry
 
 
 def resblock_breakdown() -> list:
@@ -832,8 +919,9 @@ def _launch_ms(plans, iters: int = 20) -> list:
     """For each (fn, launches per call, sets) of ``plans``: the device ms of
     each CUDA launch of one ``fn`` call, by its place in the call, over
     ``iters`` calls rotating over ``sets``, and the kernels' names.
-    torch.profiler's kernel records, all plans in one session (a second
-    session in a process may record no kernels)."""
+    torch.profiler's kernel records, all plans in one session; the records
+    are assigned by their order, so a session that lost a record (the
+    profiler drops one now and then) is run again, at most three times."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -841,14 +929,18 @@ def _launch_ms(plans, iters: int = 20) -> list:
         for s in sets[:2]:
             fn(*s)
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn, _, sets in plans:
-            for i in range(iters):
-                fn(*sets[i % len(sets)])
-            torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
-                     key=lambda e: e.time_range.start)
     total = sum(n for _, n, _ in plans) * iters
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fn, _, sets in plans:
+                for i in range(iters):
+                    fn(*sets[i % len(sets)])
+                torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) == total:
+            break
+        log(dict(phase="profiler", recorded=len(kernels), expected=total, note="profiled again"))
     assert len(kernels) == total, f"{len(kernels)} launches recorded, expected {total}"
     out, first = [], 0
     for _, n, _ in plans:
@@ -1257,60 +1349,82 @@ def _timed_step(model, batch, it):
     return _floats(logs), time.perf_counter() - t0
 
 
-def check_small_train_against_cpu() -> None:
+def check_small_train_against_cpu(model_cls=AdaINModel, flags=None,
+                                  per_step=FUSED_PER_STEP) -> None:
     """One f32 main step at the CPU tests' size on the card (kernels 9/10)
     against the same step on the CPU (their plain versions), from the same
-    weights, batch and styles, without noise."""
+    weights, batch and styles; without noise, or with ``--use_dropout`` with
+    every draw of the step (noise, eps, dropout masks) made from the card
+    model's generator on the card and handed to the CPU run."""
+    flags = flags or {}
+    random_draws = bool(flags.get("use_dropout"))
+    what = f"f32 train step {model_cls.__name__} {flags}"
     host, dev = train_batch(SMALL_TRAIN_ARGS, seed=21)
     rng = np.random.default_rng(22)
-    z = [rng.standard_normal((2, 4)).astype(np.float32) for _ in range(2)]
-    card = AdaINModel(default_train_args(fused_resblock="auto", **SMALL_TRAIN_ARGS))
-    cpu = AdaINModel(default_train_args(fused_resblock="on", **SMALL_TRAIN_ARGS), device="cpu")
+    z = [torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32)) for _ in range(2)]
+    card = model_cls(default_train_args(fused_resblock="auto", **flags, **SMALL_TRAIN_ARGS))
+    cpu = model_cls(default_train_args(fused_resblock="on", **flags, **SMALL_TRAIN_ARGS),
+                    device="cpu")
+    draws = StepDraws(card.generator if random_draws else None, z_sr=z[0].cuda(), z_sr2=z[1].cuda())
     before = fused_counts()
-    on_card = _floats(card.main_step(dev, StepDraws(z_sr=torch.from_numpy(z[0]).cuda(),
-                                                    z_sr2=torch.from_numpy(z[1]).cuda())))
+    on_card = _floats(card.main_step(dev, draws))
     delta = {k: v - before[k] for k, v in fused_counts().items()}
-    assert delta == FUSED_PER_STEP, f"small train step launches {delta}"
-    on_cpu = _floats(cpu.main_step(host, StepDraws(z_sr=torch.from_numpy(z[0]),
-                                                   z_sr2=torch.from_numpy(z[1]))))
+    assert delta == per_step, f"{what}: launches {delta}"
+    masks = [k for k in draws.given if ".drop" in k]
+    if random_draws:
+        assert masks and all(draws.given[k].is_cuda for k in masks), "no masks drawn on the card"
+    on_cpu = _floats(cpu.main_step(host, StepDraws(**{k: v.cpu() for k, v in draws.given.items()})))
     loss_err = max(abs(on_card[k] - v) / max(abs(v), 1e-6) for k, v in on_cpu.items())
     lr = on_cpu["lr"]
     diffs = torch.cat([(p.detach().cpu() - q.detach()).abs().flatten()
                        for n in cpu.nets for p, q in zip(card.nets[n].parameters(),
                                                          cpu.nets[n].parameters())])
     share = (diffs > 0.1 * lr).float().mean().item()
-    log(dict(phase="card_vs_cpu", dtype="f32 train step", max_rel_loss_err=loss_err,
+    log(dict(phase="card_vs_cpu", model=model_cls.__name__, flags=flags, dtype="f32 train step",
+             draws_on_card=sorted(draws.given) if random_draws else ["z_sr", "z_sr2"],
+             dropout_masks=len(masks), max_rel_loss_err=loss_err,
              param_share_beyond_0_1_lr=share, max_param_diff_in_lr=diffs.max().item() / lr,
              tol=dict(loss=TRAIN_CPU_LOSS_TOL, share=TRAIN_CPU_FLIP_SHARE), launches=delta))
-    assert loss_err <= TRAIN_CPU_LOSS_TOL, f"train step card vs CPU: losses {loss_err}"
-    assert share <= TRAIN_CPU_FLIP_SHARE, f"train step card vs CPU: params {share}"
+    assert loss_err <= TRAIN_CPU_LOSS_TOL, f"{what} card vs CPU: losses {loss_err}"
+    assert share <= TRAIN_CPU_FLIP_SHARE, f"{what} card vs CPU: params {share}"
 
 
-def train(card: str) -> dict:
-    """The training main path at the flagship config: a warm-up main step,
+def train(card: str, model_cls=AdaINModel, flags=None, per_step=FUSED_PER_STEP,
+          phase="train") -> dict:
+    """A training main path at the flagship config: a warm-up main step,
     three timed main steps, one timed d_iter cycle (main + 2 content steps);
     then the same first step composed (``--fused_resblock off``) from the same
-    weights and draws. Returns the kernel 9/10 launches over the timed run."""
-    args = default_train_args(**TRAIN_ARGS)
+    weights and draws, and three timed composed main steps; then the moments
+    kernel at each shape of the main step (:func:`check_moments_path`).
+    Returns the kernel 9/10 and moments launches over the timed run and,
+    under ``per_main_step``, each kernel's launches (and the moments
+    kernel's ms) per main step."""
+    flags = flags or {}
+    args = default_train_args(**flags, **TRAIN_ARGS)
     _, batch = train_batch(TRAIN_ARGS, seed=31)
-    model = AdaINModel(args)
+    model = model_cls(args)
     model.generator.manual_seed(1)
-    first, first_s = _timed_step(model, batch, 0)  # warm-up: cuDNN picks its algorithms
+    with recording_moments(collections.Counter()) as moments_calls:
+        first, first_s = _timed_step(model, batch, 0)  # warm-up: cuDNN picks its algorithms
+    moments_per_step = sum(moments_calls.values())
 
-    krb.resblock_fwd.launches = krb.resblock_bwd.launches = 0
+    krb.resblock_fwd.launches = krb.resblock_bwd.launches = kmoments.moments.launches = 0
     torch.cuda.reset_peak_memory_stats()
     before = _snapshot(model)
     main_s, steps = [], []
     for it in (3, 6, 9):
-        counts0 = fused_counts()
+        counts0 = {**fused_counts(), "moments": kmoments.moments.launches}
         logs, secs = _timed_step(model, batch, it)
         delta = {k: v - counts0[k] for k, v in fused_counts().items()}
-        assert delta == FUSED_PER_STEP, f"kernel 9/10 launches per main step {delta}"
+        assert delta == per_step, f"{phase}: kernel 9/10 launches per main step {delta}"
+        moments = kmoments.moments.launches - counts0["moments"]
+        assert moments == moments_per_step, \
+            f"{phase}: {moments} moments launches in a main step, {moments_per_step} in the first"
         main_s.append(secs)
         steps.append(logs)
     changed = _changed(model, before)
     want = {n: n != "content_discriminator" for n in model.nets}
-    assert changed == want, f"main steps changed {changed}, expected {want}"
+    assert changed == want, f"{phase}: main steps changed {changed}, expected {want}"
     before = _snapshot(model)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1318,51 +1432,82 @@ def train(card: str) -> dict:
     torch.cuda.synchronize()
     cycle_s = time.perf_counter() - t0
     assert set(cycle[1]) == set(cycle[2]) == {"d_content_cls"}
-    assert all(_changed(model, before).values()), "a d_iter cycle must move every net"
-    launched = fused_counts()
+    assert all(_changed(model, before).values()), f"{phase}: a d_iter cycle must move every net"
+    launched = {**fused_counts(), "moments": kmoments.moments.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1024**3
     for logs in [first, *steps, *map(_floats, cycle)]:
         bad = [k for k, v in logs.items() if not math.isfinite(v)]
-        assert not bad, f"non-finite losses {bad}"
+        assert not bad, f"{phase}: non-finite losses {bad}"
     del model
     torch.cuda.empty_cache()
 
-    off = AdaINModel(default_train_args(**{**TRAIN_ARGS, "fused_resblock": "off"}))
+    off = model_cls(default_train_args(**flags, **{**TRAIN_ARGS, "fused_resblock": "off"}))
     off.generator.manual_seed(1)
     counts0 = fused_counts()
     composed, composed_first_s = _timed_step(off, batch, 0)
     composed_s = [_timed_step(off, batch, it)[1] for it in (3, 6, 9)]
-    assert fused_counts() == counts0, "the composed step launched kernel 9 or 10"
+    assert fused_counts() == counts0, f"{phase}: the composed step launched kernel 9 or 10"
     gap = {k: abs(first[k] - v) / max(abs(v), 1.0) for k, v in composed.items()}
     worst = max(gap, key=gap.get)
     del off
     torch.cuda.empty_cache()
     log(dict(
-        phase="train", card=card, config={k: v for k, v in TRAIN_ARGS.items() if k != "seed"},
+        phase=phase, model=model_cls.__name__, flags=flags, card=card,
+        config={k: v for k, v in TRAIN_ARGS.items() if k != "seed"},
         images_per_side=B, main_step_s=main_s, main_it_per_s=len(main_s) / sum(main_s),
         cycle_s=cycle_s, schedule_img_per_s=3 * 2 * B / cycle_s, first_step_s=first_s,
         composed_first_step_s=composed_first_s, composed_step_s=composed_s,
         composed_it_per_s=len(composed_s) / sum(composed_s),
         peak_memory_allocated_gb=peak_gb, launches=launched,
-        per_main_step=FUSED_PER_STEP, first_step_losses=first,
+        per_main_step=per_step, first_step_losses=first,
         fused_vs_composed=dict(worst=worst, rel_gap=gap[worst], tol=TRAIN_LOSS_TOL),
     ))
-    assert gap[worst] <= TRAIN_LOSS_TOL, f"fused vs composed {worst}: {gap[worst]}"
+    assert gap[worst] <= TRAIN_LOSS_TOL, f"{phase}: fused vs composed {worst}: {gap[worst]}"
+    launched["per_main_step"] = {**{k: dict(launches=n) for k, n in per_step.items()},
+                                 **{f"moments/{k}": v for k, v in
+                                    check_moments_path(phase, moments_calls).items()}}
     return launched
 
 
-def profile_train() -> None:
+def base_train(card: str, per_call_ms: dict) -> dict:
+    """BaseModel's training main paths, configs A and B, after their small
+    f32 steps on the card against the CPU, and the small AdaINModel
+    ``--use_dropout`` step with its draws made on the card. ``per_call_ms``:
+    kernel -> {batch: ms per call at (batch, 256, 64, 64)}, from 7's timings.
+    Returns the launches of each config's timed run and per main step."""
+    for name, flags in BASE_CONFIGS.items():
+        check_small_train_against_cpu(BaseModel, flags, SMALL_PER_STEP[name])
+    check_small_train_against_cpu(AdaINModel, dict(use_dropout=True), SMALL_PER_STEP["dropout"])
+    launched = {}
+    for name, flags in BASE_CONFIGS.items():
+        got = train(card, BaseModel, flags, BASE_PER_STEP[name], f"base_train/{name}")
+        assert got["moments"] > 0, f"base_train/{name}: the moments kernel did not run"
+        ms = {k: sum(per_call_ms[k][b] * n for b, n in calls.items())
+              for k, calls in BASE_RESBLOCK_CALLS[name].items()}
+        for k, t in ms.items():
+            got["per_main_step"][k]["ms"] = t
+        log(dict(phase=f"base_train/{name}", kernel_ms_per_main_step=ms,
+                 calls_per_main_step=BASE_RESBLOCK_CALLS[name],
+                 note="ms per call of the kernel timings (7) times the calls"))
+        launched[name] = got
+    return launched
+
+
+def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    model = AdaINModel(default_train_args(**TRAIN_ARGS))
+    model = model_cls(default_train_args(**(flags or {}), **TRAIN_ARGS))
     _, batch = train_batch(TRAIN_ARGS, seed=31)
     model.optimize_parameters(batch, 0)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, seconds = _timed_step(model, batch, 3)
-    _log_profile(prof, "train main step", seconds, 25)
+    what = "train main step"
+    if model_cls is not AdaINModel:
+        what = f"{model_cls.__name__} {flags} {what}"
+    _log_profile(prof, what, seconds, 25)
     del model
     torch.cuda.empty_cache()
 
@@ -1454,12 +1599,23 @@ def main(argv) -> int:
     for e in train_entries:
         e["launches"] = launched[e["name"]]
     entries += train_entries
+    per_main_step = {"train": launched["per_main_step"]}
+    base_launched = base_train(card, {e["name"]: e["ms_per_call"] for e in train_entries})
+    per_main_step.update({f"base_train/{k}": v["per_main_step"] for k, v in base_launched.items()})
+    # each training phase's launches (moments also ms, bound ms and error)
+    # per main step, beside the serving launches in "launches"
+    for e in entries:
+        if e["name"] in ("moments/f32", "moments/bf16", "resblock_fwd", "resblock_bwd"):
+            e["per_main_step"] = {ph: v.get(e["name"], dict(launches=0))
+                                  for ph, v in per_main_step.items()}
     if "--profile" in argv:
         for dtype_name in DTYPES:
             profile(dtype_name)
         profile("f32", int8=True)
         profile("f32", True, BaseModel, BASE_CONFIGS["A"])
         profile_train()
+        for flags in BASE_CONFIGS.values():
+            profile_train(BaseModel, flags)
     for e in entries:
         assert e["launches"], f"{e['name']} was not launched on the main path"
 

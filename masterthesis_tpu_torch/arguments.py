@@ -4,9 +4,9 @@ The port's own copy of the JAX package's ``default_train_args`` /
 ``default_test_args`` and the parsers they read, so that a configuration
 means the same in both packages. The port reads the model's shape (``dim``,
 ``latent_dim``, ``num_domains``, ``input_dim``, ``crop_size``), BaseModel's
-``concat`` and ``reparam``, ``use_dropout`` (inert at serving; it keeps
-resblocks off the whole-block kernels, as in the JAX package; training with
-it raises until the dropout draw is ported),
+``concat`` and ``reparam``, ``use_dropout`` (inert at serving, dropout
+masks from the step's draws in training; either way it keeps resblocks off
+the whole-block kernels, as in the JAX package),
 ``enc_norm``/``dec_norm``/``up_type``, ``compute_dtype``,
 ``init_type``/``init_gain`` and ``seed``, and for training the optimizer,
 schedule and loss flags, ``use_dis_content``/``d_iter``, the discriminators'

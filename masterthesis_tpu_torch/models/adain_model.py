@@ -32,18 +32,7 @@ class AdaINModel(TranslationModel):
             norm=a.dec_norm, dropout=bool(a.use_dropout), dtype=dtype,
         )
         if self.is_train():
-            self._check_train_flags()
-            self.nets.discriminator1, self.nets.discriminator2 = (networks.Discriminator(
-                a.input_dim, dim=a.dim, norm=a.dis_norm, num_domains=a.num_domains,
-                image_size=a.crop_size, n_layers=a.dis_n_layers or 6, dtype=dtype,
-            ) for _ in range(2))
-            if a.use_dis_content:
-                self.nets.content_discriminator = networks.ContentDiscriminator(
-                    self.nets.content_encoder.output_dim, dim=self.nets.content_encoder.output_dim,
-                    num_domains=a.num_domains, n_layers=a.dis_content_layers or 3,
-                    kernel_size=a.dis_content_kernel or 7,
-                    final_kernel=a.dis_content_final_kernel or 4, dtype=dtype,
-                )
+            self._add_training_nets(dtype)
         for net in self.nets.values():
             net.to(self.device)
             if not self.is_train():

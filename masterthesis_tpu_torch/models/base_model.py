@@ -1,9 +1,10 @@
 """BaseModel: style injected by concatenation and 1x1 mixing in the decoder.
 
 The port of ``masterthesis_tpu/models/base_model.py``: the content encoder,
-the plain or (``--reparam``) reparameterized style encoder, and ``Decoder``
-or (``--concat``) ``DecoderConcat``. Serving only: the discriminators and the
-training step come with ROADMAP item A.7's training part.
+the plain or (``--reparam``) reparameterized style encoder, ``Decoder`` or
+(``--concat``) ``DecoderConcat``, and for training two discriminators and
+the optional content discriminator. It serves and trains as
+:class:`TranslationModel` does.
 """
 from __future__ import annotations
 
@@ -17,10 +18,6 @@ class BaseModel(TranslationModel):
     def __init__(self, args, device=None):
         """Builds the nets on ``device`` (default the card; raises without one
         unless ``device="cpu"``) and draws their weights from ``args.seed``."""
-        if "train" in (args.mode or "train"):
-            raise NotImplementedError(
-                "BaseModel training is not ported to masterthesis_tpu_torch yet (ROADMAP A.7); "
-                "build it with mode='test' to serve")
         super().__init__(args, device)
         a = args
         self.reparam = bool(a.reparam)
@@ -39,14 +36,18 @@ class BaseModel(TranslationModel):
                 a.input_dim, output_dim=a.latent_dim, dim=a.dim, num_domains=a.num_domains,
                 activation="lrelu", dtype=dtype,
             )
-        dec = dict(output_dim=a.input_dim, dim=self.nets.content_encoder.output_dim,
-                   num_domains=a.num_domains, latent_dim=a.latent_dim, up_type=a.up_type,
-                   norm=a.dec_norm, dtype=dtype)
+        content_dim = self.nets.content_encoder.output_dim
+        dec = dict(output_dim=a.input_dim, dim=content_dim, num_domains=a.num_domains,
+                   latent_dim=a.latent_dim, up_type=a.up_type, norm=a.dec_norm,
+                   dropout=bool(a.use_dropout), dtype=dtype)
         if a.concat:
-            self.nets.decoder = networks.DecoderConcat(dropout=bool(a.use_dropout), **dec)
+            self.nets.decoder = networks.DecoderConcat(**dec)
         else:
             self.nets.decoder = networks.Decoder(**dec)
+        if self.is_train():
+            self._add_training_nets(dtype)
         for net in self.nets.values():
             net.to(self.device)
-            net.requires_grad_(False)
+            if not self.is_train():
+                net.requires_grad_(False)
         self.initialize()

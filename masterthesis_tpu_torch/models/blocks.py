@@ -29,6 +29,14 @@ cap) runs as one differentiable whole-block op, kernels 9 and 10
 JAX package does; the same blocks route there, so the two packages compare
 like with like. Elsewhere the blocks compose, and autograd goes through the
 norms' Functions.
+
+Dropout. A block built with ``dropout`` (``ResnetBlock``,
+``AdaINResnetBlock``, ``DecResnetBlock``) takes a keep ``mask`` of its
+output's shape from its caller and applies Flax's ``nn.Dropout(0.5)`` with it
+before the residual (:func:`dropout`); without a mask it is the identity,
+the JAX block's ``deterministic=True``. It never draws one: the training step
+does (``translation.StepDraws.masks``). Such a block never takes the
+whole-block kernels (6, 9, 10), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -379,6 +387,18 @@ class DownResnetBlock(nn.Module):
         return h + s
 
 
+DROPOUT_RATE = 0.5
+
+
+def dropout(h: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Flax ``nn.Dropout(0.5)`` with a given keep mask (bool, h's shape): the
+    kept values scaled by 1 / (1 - rate), the others 0; h itself without a
+    mask."""
+    if mask is None:
+        return h
+    return torch.where(mask, h / (1.0 - DROPOUT_RATE), torch.zeros_like(h))
+
+
 def _fused_train(x: torch.Tensor, padding_type: Optional[str]) -> bool:
     """The JAX package's routing of a training resblock to the whole-block op."""
     return (krb.fused_train_active(x) and padding_type in ("reflect", "zero", None)
@@ -386,12 +406,12 @@ def _fused_train(x: torch.Tensor, padding_type: Optional[str]) -> bool:
 
 
 class ResnetBlock(nn.Module):
-    """conv -> norm -> act -> conv -> norm, plus the input.
+    """conv -> norm -> act -> conv -> norm [-> dropout], plus the input.
 
-    ``dropout`` is inert at serving (the JAX block's dropout is
-    deterministic there); as in the JAX package it keeps the block off the
-    whole-block int8 and training kernels, so its int8 convs compose through
-    :func:`kint8.conv3x3` with statistics."""
+    ``dropout``: the block applies its caller's mask (:func:`dropout`) and,
+    as in the JAX package, stays off the whole-block int8 and training
+    kernels, so its int8 convs compose through :func:`kint8.conv3x3` with
+    statistics."""
 
     def __init__(self, features: int, norm: Optional[str] = "instance",
                  padding_type: Optional[str] = "reflect", activation: Optional[str] = "relu",
@@ -401,10 +421,10 @@ class ResnetBlock(nn.Module):
                                padding_type=padding_type, dtype=dtype)
         self.conv2 = ConvBlock(features, features, 3, 1, 1, norm=norm,
                                padding_type=padding_type, dtype=dtype)
-        self.padding_type, self.dtype = padding_type, dtype
+        self.padding_type, self.dtype, self.dropout = padding_type, dtype, dropout
         self.fusible = norm == "instance" and activation == "relu" and not dropout
 
-    def forward(self, x):
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
         if self.fusible and self.conv1.conv.int8 and self.conv2.conv.int8:
             zero = torch.zeros(x.shape[:2], device=x.device, dtype=torch.float32)
             return kint8.resblock(x, self.conv1.conv.quant(), self.conv2.conv.quant(), zero, zero)
@@ -413,18 +433,17 @@ class ResnetBlock(nn.Module):
             zero = torch.zeros(x.shape[:2], device=x.device, dtype=torch.float32)
             return krb.fused_resblock(x.to(self.dtype), self.conv1.conv.weight,
                                       self.conv2.conv.weight, zero, zero, self.padding_type)
-        return x + self.conv2(self.conv1(x))
+        return x + dropout(self.conv2(self.conv1(x)), mask)
 
 
 class AdaINResnetBlock(nn.Module):
     """Residual block with one AdaIN, shared by both convs (its style
     projection too).
 
-    ``dropout`` is inert at serving, as the JAX block's deterministic
-    dropout; as in the JAX package it keeps the block off the whole-block
+    ``dropout``: the block applies its caller's mask after the second AdaIN
+    (:func:`dropout`) and, as in the JAX package, stays off the whole-block
     int8 and training kernels, so its int8 convs compose through
-    :func:`kint8.conv3x3` with the AdaIN after each. Training with it raises
-    (``_UNPORTED``) until the dropout draw is ported."""
+    :func:`kint8.conv3x3` with the AdaIN after each."""
 
     def __init__(self, features: int, style_dim: int, padding_type: Optional[str] = "reflect",
                  activation: Optional[str] = "relu", dropout: bool = False,
@@ -432,6 +451,7 @@ class AdaINResnetBlock(nn.Module):
         super().__init__()
         self.adain = AdaptiveInstanceNorm(features, style_dim, dtype=dtype)
         self.activation, self.padding_type, self.dtype = activation, padding_type, dtype
+        self.dropout = dropout
         self.fusible = activation in ("relu", None) and not dropout
         self.act = get_activation(activation)
         self.conv1 = ConvBlock(features, features, 3, 1, 1, padding_type=padding_type, dtype=dtype)
@@ -444,7 +464,7 @@ class AdaINResnetBlock(nn.Module):
         h = z.float() @ p.weight.float().t() + p.bias.float()
         return (t.contiguous() for t in h.chunk(2, dim=-1))
 
-    def forward(self, x, z):
+    def forward(self, x, z, mask: Optional[torch.Tensor] = None):
         if self.fusible and self.conv1.conv.int8 and self.conv2.conv.int8:
             gamma, beta = self._style_affine(z)
             return kint8.resblock(x, self.conv1.conv.quant(), self.conv2.conv.quant(),
@@ -457,7 +477,7 @@ class AdaINResnetBlock(nn.Module):
         h = self.act(self.adain(self.conv1(x), z))
         # no activation after the second AdaIN
         h = self.adain(self.conv2(h), z)
-        return x + h
+        return x + dropout(h, mask)
 
 
 class DecResnetBlock(nn.Module):
@@ -467,11 +487,14 @@ class DecResnetBlock(nn.Module):
     bias, each followed by relu. The 3x3 convs have no norm of their own
     (``norm1`` and ``norm2`` are separate modules), so int8 runs them
     through :func:`kint8.conv3x3` without prologue or statistics, and the
-    norms take a moments launch each. ``dropout`` is inert at serving and
-    routes nothing here."""
+    norms take a moments launch each. ``dropout``: the block applies its
+    caller's mask after ``mix2`` (:func:`dropout`); it routes nothing, as
+    this block has no whole-block kernel."""
 
-    def __init__(self, features: int, style_dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, style_dim: int, dropout: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dropout = dropout
         cat = features + style_dim
         self.conv1 = ConvBlock(features, features, 3, 1, 1, padding_type="reflect", dtype=dtype)
         self.norm1 = InstanceNorm()
@@ -482,12 +505,12 @@ class DecResnetBlock(nn.Module):
         self.block2_a = Conv2d(cat, cat, 1, dtype=dtype)
         self.block2_b = Conv2d(cat, features, 1, dtype=dtype)
 
-    def forward(self, x, z):
+    def forward(self, x, z, mask: Optional[torch.Tensor] = None):
         def mix(a, b, h):
             return F.relu(b(F.relu(a(concat_label(h, z)))))
 
         h = mix(self.block1_a, self.block1_b, self.norm1(self.conv1(x)))
-        return x + mix(self.block2_a, self.block2_b, self.norm2(self.conv2(h)))
+        return x + dropout(mix(self.block2_a, self.block2_b, self.norm2(self.conv2(h))), mask)
 
 
 class GaussianNoise(nn.Module):

@@ -9,10 +9,16 @@ child names (``stem``, ``down0``, ``res0``, ``head``, ``linear.fc0``,
 ``layer0``, ``patch_head``, ``cls_head``). Channel concats follow the JAX
 order: [x, c] for the domain map, [h, z] for the style map, and
 DecoderConcat's [content, c, z].
+
+A decoder's ``forward`` takes ``masks``, a mask source for its ``dropout``
+blocks: ``masks(block name, shape)`` gives the keep mask of that block
+(``dec1_0``, ...) at the shape of its input, which is its output's (the
+blocks are residual), or None. Without a source, or where it gives None, a
+block is deterministic.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -35,6 +41,16 @@ from masterthesis_tpu_torch.models.blocks import (
 )
 
 MAX_FILTER_SIZE = 256
+
+
+MaskSource = Callable[[str, torch.Size], Optional[torch.Tensor]]
+
+
+def _mask(masks: Optional[MaskSource], name: str, block: nn.Module,
+          h: torch.Tensor) -> Optional[torch.Tensor]:
+    """The keep mask that ``masks`` gives the block ``name`` on its input h,
+    or None for a block without ``dropout``."""
+    return masks(name, h.shape) if masks is not None and block.dropout else None
 
 
 class ContentEncoder(nn.Module):
@@ -194,7 +210,7 @@ class _DecoderTail(nn.Module):
 class AdaINDecoder(nn.Module):
     """One style code from the style MLP modulates n_blocks AdaIN resblocks,
     then the upsampling tail. ``dropout`` routes the blocks as in the JAX
-    package (see :class:`AdaINResnetBlock`)."""
+    package and applies the given masks (see :class:`AdaINResnetBlock`)."""
 
     def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 4,
                  num_domains: int = 2, num_ups: int = 2, latent_dim: int = 8,
@@ -209,38 +225,43 @@ class AdaINDecoder(nn.Module):
         self.dec2 = _DecoderTail(output_dim, dim, num_ups, up_type, norm, activation,
                                  use_bias, dtype=dtype)
 
-    def forward(self, x, z, c):
+    def forward(self, x, z, c, masks: Optional[MaskSource] = None):
         style = self.linear(z, c)
         h = x
         for i in range(self.n_blocks):
-            h = getattr(self, f"dec1_{i}")(h, style)
+            name = f"dec1_{i}"
+            block = getattr(self, name)
+            h = block(h, style, _mask(masks, name, block, h))
         return self.dec2(h)
 
 
 class Decoder(nn.Module):
     """BaseModel's default decoder: the style MLP's output, split into one
     ``dim``-wide chunk per block, feeds n_blocks DecResnetBlocks, then the
-    upsampling tail. (The JAX module's ``dropout`` routes nothing at serving
-    here: the blocks' convs run kernel 4 either way.)"""
+    upsampling tail. ``dropout`` goes to every block, which applies its
+    mask after its second mix (the blocks' convs run kernel 4 in int8
+    serving either way)."""
 
     def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 4,
                  num_domains: int = 2, num_ups: int = 2, latent_dim: int = 8,
-                 up_type: str = "transpose", norm: Optional[str] = "layer",
-                 activation: Optional[str] = "relu", use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 up_type: str = "transpose", dropout: bool = False,
+                 norm: Optional[str] = "layer", activation: Optional[str] = "relu",
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.linear = _StyleMLP(latent_dim + num_domains, dim * n_blocks, dtype=dtype)
         for i in range(n_blocks):
-            setattr(self, f"dec1_{i}", DecResnetBlock(dim, dim, dtype=dtype))
+            setattr(self, f"dec1_{i}", DecResnetBlock(dim, dim, dropout=dropout, dtype=dtype))
         self.dim, self.n_blocks = dim, n_blocks
         self.dec2 = _DecoderTail(output_dim, dim, num_ups, up_type, norm, activation,
                                  use_bias, dtype=dtype)
 
-    def forward(self, x, z, c):
+    def forward(self, x, z, c, masks: Optional[MaskSource] = None):
         chunks = self.linear(z, c)
         h = x
         for i in range(self.n_blocks):
-            h = getattr(self, f"dec1_{i}")(h, chunks[:, i * self.dim:(i + 1) * self.dim])
+            name = f"dec1_{i}"
+            block = getattr(self, name)
+            h = block(h, chunks[:, i * self.dim:(i + 1) * self.dim], _mask(masks, name, block, h))
         return self.dec2(h)
 
 
@@ -249,7 +270,8 @@ class DecoderConcat(nn.Module):
     through n_blocks resblocks, and z concatenated again before each of two
     transposed-conv upsamples and the 1x1 tanh head (``dec4``, no bias).
     With dim 256, latent 8 and 4 domains the widths are 268 (resblocks),
-    276 -> 138, 146 -> 73 and 81 -> 3."""
+    276 -> 138, 146 -> 73 and 81 -> 3. ``dropout`` goes to the ``dec1_*``
+    blocks, not to ``dec_share``, as in the JAX package."""
 
     def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 3,
                  num_domains: int = 2, latent_dim: int = 8, up_type: str = "transpose",
@@ -270,10 +292,12 @@ class DecoderConcat(nn.Module):
         self.dec4 = UpsampleBlock(nch // 2 + latent_dim, output_dim, 1, 1, 0, activation="tanh",
                                   dtype=dtype)
 
-    def forward(self, x, z, c):
+    def forward(self, x, z, c, masks: Optional[MaskSource] = None):
         h = concat_label(concat_label(self.dec_share(x), c), z)
         for i in range(self.n_blocks):
-            h = getattr(self, f"dec1_{i}")(h)
+            name = f"dec1_{i}"
+            block = getattr(self, name)
+            h = block(h, _mask(masks, name, block, h))
         h = self.dec2(concat_label(h, z))
         h = self.dec3(concat_label(h, z))
         return self.dec4(concat_label(h, z))

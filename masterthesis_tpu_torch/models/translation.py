@@ -17,7 +17,11 @@ D2, then G phase 1 on the three generator nets, then G phase 2 on the
 content encoder and the decoder. The main step runs inside
 ``resblock_train.fused_train_trace``, so that its resblocks take kernels 9
 and 10 (``--fused_resblock auto``: on the card); the content step, as in the
-JAX package, does not. Random draws come from :class:`StepDraws`.
+JAX package, does not. Random draws come from :class:`StepDraws`, the
+dropout masks of ``--use_dropout`` too. Without ``reparam`` (BaseModel's
+plain style encoder) the step takes the JAX package's other branches: the
+style code's L2 in place of the KL term, and phase 2 regresses the style
+code itself in place of mu.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from typing import Optional
 import torch
 
 from masterthesis_tpu_torch.models import losses as L
+from masterthesis_tpu_torch.models import networks
+from masterthesis_tpu_torch.models.blocks import DROPOUT_RATE
 from masterthesis_tpu_torch.models.functions import apply_updates
 from masterthesis_tpu_torch.models.model import Model
 from masterthesis_tpu_torch.models.quantize import LEAF, extract_amax, int8_convs, merge_amax
@@ -48,21 +54,24 @@ _UNPORTED = (
     (lambda a: a.vgg_loss is not None, "--vgg_loss", "A.6 (VGG weights)"),
     (lambda a: a.remat, "--remat", "A.6"),
     (lambda a: a.int8_train, "--int8_train", "A.6"),
-    (lambda a: a.use_dropout, "--use_dropout", "A.1 (the dropout draw)"),
 )
 
 
 class StepDraws:
-    """The normal draws of one training step, by name.
+    """The random draws of one training step, by name.
 
     A draw that the caller passed (``given``) is used as it is; any other is
     drawn from ``generator`` on first use, or, without a generator, left out:
-    no content noise, and z = mu from the style encoder, the deterministic
-    step that the JAX package evaluates with ``ks=None, train=False``. The
-    styles ``z_sr`` and ``z_sr2`` (B, latent) are needed either way. Names:
-    ``{d,g1,g2,c}.noise`` and ``g1.noise_rec`` (content noise, the code's
-    shape), ``{d,g1,g2}.eps`` and ``g1.eps_rec`` (VAE eps, (2B, latent)),
-    ``z_sr``, ``z_sr2``.
+    no content noise, z = mu from the style encoder and no dropout, the
+    deterministic step that the JAX package evaluates with ``ks=None,
+    train=False``. The styles ``z_sr`` and ``z_sr2`` (B, latent) are needed
+    either way. Normal draws: ``{d,g1,g2,c}.noise`` and ``g1.noise_rec``
+    (content noise, the code's shape), ``{d,g1,g2}.eps`` and ``g1.eps_rec``
+    (VAE eps, (2B, latent)), ``z_sr``, ``z_sr2``. Dropout keep masks (bool,
+    kept with probability 1/2), one set per decode, as the JAX step gives
+    each decode its own rng: ``{d,g1,g2}.drop.<block>`` and
+    ``g1.drop_rec.<block>``, one per dropout block of the decoder, of that
+    block's output shape.
     """
 
     def __init__(self, generator: Optional[torch.Generator] = None, **given):
@@ -77,6 +86,20 @@ class StepDraws:
         if t is None and required:
             raise ValueError(f"draw {name!r} is needed: pass it, or a generator")
         return t
+
+    def masks(self, name: str) -> networks.MaskSource:
+        """The mask source of one decode: ``source(block, shape)`` gives the
+        keep mask ``<name>.<block>`` as given, or drawn from the generator on
+        first use, or None (no dropout) without either."""
+        def source(block: str, shape) -> Optional[torch.Tensor]:
+            key = f"{name}.{block}"
+            t = self.given.get(key)
+            if t is None and self.generator is not None:
+                g = self.generator
+                t = torch.rand(tuple(shape), generator=g, device=g.device) < 1.0 - DROPOUT_RATE
+                self.given[key] = t
+            return t
+        return source
 
 
 def _nchw(img: torch.Tensor) -> torch.Tensor:
@@ -112,8 +135,10 @@ class TranslationModel(Model):
             return self.nets.style_encoder(img, c), None, None
         return self.nets.style_encoder(img, c, eps)
 
-    def decode(self, z_c: torch.Tensor, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        return self.nets.decoder(z_c, z, c)
+    def decode(self, z_c: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
+               masks: Optional[networks.MaskSource] = None) -> torch.Tensor:
+        """``masks``: the dropout mask source of this decode (training), or None."""
+        return self.nets.decoder(z_c, z, c, masks)
 
     def get_z_random(self, batch_size: int, generator: torch.Generator | None = None):
         device = self.device if generator is None else generator.device
@@ -202,6 +227,25 @@ class TranslationModel(Model):
                 raise NotImplementedError(
                     f"{flag} is not ported to masterthesis_tpu_torch yet (ROADMAP {item})")
 
+    def _add_training_nets(self, dtype: torch.dtype) -> None:
+        """The nets beside the generators: ``discriminator1``,
+        ``discriminator2`` and, with ``use_dis_content``, the
+        ``content_discriminator`` on the content codes, as both JAX models
+        build them; a flag whose branch is not ported raises first."""
+        self._check_train_flags()
+        a = self.args
+        self.nets.discriminator1, self.nets.discriminator2 = (networks.Discriminator(
+            a.input_dim, dim=a.dim, norm=a.dis_norm, num_domains=a.num_domains,
+            image_size=a.crop_size, n_layers=a.dis_n_layers or 6, dtype=dtype,
+        ) for _ in range(2))
+        if a.use_dis_content:
+            content_dim = self.nets.content_encoder.output_dim
+            self.nets.content_discriminator = networks.ContentDiscriminator(
+                content_dim, dim=content_dim, num_domains=a.num_domains,
+                n_layers=a.dis_content_layers or 3, kernel_size=a.dis_content_kernel or 7,
+                final_kernel=a.dis_content_final_kernel or 4, dtype=dtype,
+            )
+
     def _batch(self, batch):
         """(img NCHW f32, c_org f32, b) from a batch of NHWC x1, x2 and one-hot y1, y2."""
         img = torch.cat([self._tensor(batch["x1"]), self._tensor(batch["x2"])], dim=0)
@@ -213,7 +257,8 @@ class TranslationModel(Model):
         return self.encode_content(img, draws.normal(name, shape))
 
     def _style(self, img, c, draws: StepDraws, name: str):
-        return self.encode_style(img, c, draws.normal(name, (img.shape[0], self.latent_dim)))
+        eps = draws.normal(name, (img.shape[0], self.latent_dim)) if self.reparam else None
+        return self.encode_style(img, c, eps)
 
     def _update(self, names, loss: torch.Tensor, lr: float) -> None:
         """Gradients of ``loss`` over the nets ``names`` (all taken before any
@@ -238,7 +283,7 @@ class TranslationModel(Model):
             fakes = self.decode(
                 torch.cat([z_cb, z_cb, z_ca, z_ca]),
                 torch.cat([z_sa, z_sr.to(z_s.dtype), z_sb, z_sr.to(z_s.dtype)]),
-                torch.cat([cls_a, cls_a, cls_b, cls_b]),
+                torch.cat([cls_a, cls_a, cls_b, cls_b]), draws.masks("d.drop"),
             )
             img_ba, img_br, img_ab, img_ar = fakes.chunk(4)
             return torch.cat([img_ba, img_ab]), torch.cat([img_br, img_ar])
@@ -268,26 +313,29 @@ class TranslationModel(Model):
 
     def _g1_loss(self, img, c_org, b, draws):
         """G phase 1: translation, self and cycle reconstruction, the KL
-        terms, the content adversary and D1's terms. Returns (total, logs)."""
+        terms (the style code's L2 without ``reparam``), the content
+        adversary and D1's terms. Returns (total, logs)."""
         a = self.args
         cls_a, cls_b = c_org[:b], c_org[b:]
         z_c = self._content(img, draws, "g1.noise")
         z_s, mu, logvar = self._style(img, c_org, draws, "g1.eps")
         z_ca, z_cb, z_sa, z_sb = z_c[:b], z_c[b:], z_s[:b], z_s[b:]
-        fakes = self.decode(torch.cat([z_cb, z_ca, z_ca, z_cb]), torch.cat([z_sa, z_sa, z_sb, z_sb]),
-                            torch.cat([cls_a, cls_a, cls_b, cls_b]))
+        fakes = self.decode(torch.cat([z_cb, z_ca, z_ca, z_cb]),
+                            torch.cat([z_sa, z_sa, z_sb, z_sb]),
+                            torch.cat([cls_a, cls_a, cls_b, cls_b]), draws.masks("g1.drop"))
         img_ba, img_aa, img_ab, img_bb = fakes.chunk(4)
         img_fake = torch.cat([img_ba, img_ab])
         img_self = torch.cat([img_aa, img_bb])
         z_c_rec = self._content(img_fake, draws, "g1.noise_rec")
         z_s_rec, _, _ = self._style(img_fake, c_org, draws, "g1.eps_rec")
         img_recon = self.decode(torch.cat([z_c_rec[b:], z_c_rec[:b]]),
-                                torch.cat([z_s_rec[:b], z_s_rec[b:]]), c_org)
+                                torch.cat([z_s_rec[:b], z_s_rec[b:]]), c_org,
+                                draws.masks("g1.drop_rec"))
         logs = dict(
             l1_self_rec=L.l1_loss(img, img_self) * a.lambda_rec,
             l1_cc_rec=L.l1_loss(img, img_recon) * a.lambda_rec,
             kl_zc=L.l2_regularize(z_c) * 0.01,
-            kl_zs=L.kl_divergence(mu, logvar) * 0.01,
+            kl_zs=(L.kl_divergence(mu, logvar) if self.reparam else L.l2_regularize(z_s)) * 0.01,
         )
         total = logs["l1_self_rec"] + logs["l1_cc_rec"] + logs["kl_zc"] + logs["kl_zs"]
         if a.use_dis_content:
@@ -299,12 +347,15 @@ class TranslationModel(Model):
         return total, logs
 
     def _g2_loss(self, img, c_org, b, z_sr2, draws):
-        """G phase 2: decode with a random style, regress it back (on mu),
-        and D2's terms. Returns (total, logs)."""
+        """G phase 2: decode with a random style, regress it back (on mu, or
+        on the style code itself without ``reparam``), and D2's terms.
+        Returns (total, logs)."""
         z_c = self._content(img, draws, "g2.noise")
-        img_random = self.decode(torch.cat([z_c[b:], z_c[:b]]), torch.cat([z_sr2, z_sr2]), c_org)
-        _, mu2, _ = self._style(img_random, c_org, draws, "g2.eps")
-        loss_z = (L.l1_loss(mu2[:b], z_sr2) + L.l1_loss(mu2[b:], z_sr2)) * 10.0
+        img_random = self.decode(torch.cat([z_c[b:], z_c[:b]]), torch.cat([z_sr2, z_sr2]), c_org,
+                                 draws.masks("g2.drop"))
+        z_rec, mu2, _ = self._style(img_random, c_org, draws, "g2.eps")
+        target = mu2 if self.reparam else z_rec
+        loss_z = (L.l1_loss(target[:b], z_sr2) + L.l1_loss(target[b:], z_sr2)) * 10.0
         adv2, cls2 = self._g_adv_loss(img_random, c_org, "discriminator2")
         return loss_z + adv2 + cls2, dict(l1_recon_z=loss_z, gan2=adv2, gan2_cls=cls2)
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Serving A/B of two checkouts of the PyTorch port on one NVIDIA card.
+"""Serving (and training) A/B of two checkouts of the PyTorch port on one
+NVIDIA card.
 
     python3 scripts/port_serve_ab.py PARENT_DIR CHANGE_DIR [--rounds 3]
-        [--paths bf16 f32 int8 base_A_f32 base_B_f32 base_A_int8 base_B_int8]
+        [--paths bf16 f32 int8 base_A_f32 base_B_f32 base_A_int8 base_B_int8 train]
 
 Runs ``chip_smoke.py``'s ``serve`` phase (bf16, f32) and its ``int8_serve``
 phase alone (the flagship AdaINModel at B=8, 256px, dim 64), and with
 ``base_A_f32`` / ``base_B_f32`` its ``serve`` phase, with ``base_A_int8`` /
 ``base_B_int8`` its ``int8_serve`` phase, on BaseModel's configs A and B,
-each time in a fresh process
+and with ``train`` its ``train`` phase (AdaINModel's main steps; their ms
+stand in for the request ms below), each time in a fresh process
 from the root of one checkout, in the order parent, change, change, parent
 per round. Prints one JSON line per process and path: the side, img/s, and
 the median and least request ms; then one summary line per path: each
@@ -43,6 +45,8 @@ for path in sys.argv[1:]:
         cfg = path.split("_")[1]
         cs.int8_serve(card, cs.BaseModel, cs.BASE_CONFIGS[cfg], cs.BASE_INT8_PER_FORWARD[cfg],
                       f"base_int8_serve/{cfg}", reps=2)
+    elif path == "train":
+        cs.train(card)
     elif path.startswith("base_"):
         cfg = path.split("_")[1]
         cs.serve("f32", card, cs.BaseModel, cs.BASE_CONFIGS[cfg], cs.BASE_FLOAT_PER_FORWARD,
@@ -63,13 +67,17 @@ def run(side: str, root: str, dtypes) -> list:
             continue
         d = json.loads(line)
         if d.get("phase") not in ("serve", "int8_serve", "base_serve/A", "base_serve/B",
-                                  "base_int8_serve/A", "base_int8_serve/B"):
+                                  "base_int8_serve/A", "base_int8_serve/B", "train"):
             continue
-        ms = sorted(1e3 * s for s in d["request_s"])
-        path = d.get("dtype", "int8")
+        if d["phase"] == "train":
+            ms = sorted(1e3 * s for s in d["main_step_s"])
+            path, rate = "train", dict(main_it_per_s=d["main_it_per_s"])
+        else:
+            ms = sorted(1e3 * s for s in d["request_s"])
+            path, rate = d.get("dtype", "int8"), dict(img_per_s=d["img_per_s"])
         if d["phase"].startswith("base_"):
             path = f"base_{d['phase'][-1]}_{path}"
-        rows.append(dict(side=side, path=path, img_per_s=d["img_per_s"],
+        rows.append(dict(side=side, path=path, **rate,
                          median_ms=statistics.median(ms), min_ms=ms[0], card=d["card"]))
         print(json.dumps(rows[-1]), flush=True)
     return rows
@@ -101,7 +109,7 @@ def main(argv) -> int:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--paths", nargs="+", default=["bf16", "f32", "int8"],
                    choices=["bf16", "f32", "int8", "base_A_f32", "base_B_f32", "base_A_int8",
-                            "base_B_int8"])
+                            "base_B_int8", "train"])
     a = p.parse_args(argv)
     rows = []
     for _ in range(a.rounds):

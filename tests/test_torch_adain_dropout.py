@@ -5,8 +5,8 @@ there), but it routes: a dropout ``AdaINResnetBlock`` never takes the
 whole-block int8 kernel (kernel 6) or the training kernels (9, 10), so in
 int8 serving the decoder's four blocks compose through the stride-1 int8
 conv (kernel 4) with an AdaIN after each conv, while the content encoder's
-four blocks keep kernel 6. Training with the flag raises until the dropout
-draw is ported.
+four blocks keep kernel 6. In training the step draws the blocks' dropout
+masks (tests/test_torch_dropout.py holds the blocks' dropout against Flax).
 
 One JAX ``AdaINModel.initialize()`` tree (crop 32, dim 8, latent 4, 4
 domains, B=2) and its calibrated amax tree are carried into the port. The
@@ -160,7 +160,31 @@ def test_float_forward_is_unchanged_by_the_flag(setup, dtype):
 
 
 @pytest.mark.parametrize("fused_resblock", ["off", "on"])
-def test_training_with_dropout_raises(fused_resblock):
+def test_training_with_dropout_draws_and_applies_masks(fused_resblock):
+    """Training with the flag builds, and a main step with the model's
+    generator draws a keep mask per decoder block for each of its four
+    decodes (4B images in the D fakes and G1's first decode, 2B in G1's
+    cycle and G2), applies them (the losses differ from the same step
+    without masks), and takes no training kernel (the blocks have dropout,
+    the encoder's 32 channels fail the gate)."""
+    from masterthesis_tpu_torch.models.translation import StepDraws
+    from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
+
     args = default_train_args(use_dropout=True, fused_resblock=fused_resblock, **SHAPE)
-    with pytest.raises(NotImplementedError, match="--use_dropout.*A.1"):
-        AdaINModel(args, device="cpu")
+    rng = np.random.default_rng(4)
+    batch = dict(x1=rng.uniform(-1, 1, (B, SIZE, SIZE, 3)).astype(np.float32),
+                 x2=rng.uniform(-1, 1, (B, SIZE, SIZE, 3)).astype(np.float32),
+                 y1=np.eye(K, dtype=np.float32)[[0, 2]], y2=np.eye(K, dtype=np.float32)[[1, 3]])
+    model = AdaINModel(args, device="cpu")
+    calls = krb.resblock_fwd_plain.calls
+    draws = StepDraws(model.generator)
+    logs = model.main_step(batch, draws)
+    masks = {k: tuple(v.shape) for k, v in draws.given.items() if ".drop" in k}
+    assert masks == {f"{name}.dec1_{i}": (n, 32, 8, 8) for i in range(4)
+                     for name, n in (("d.drop", 4 * B), ("g1.drop", 4 * B),
+                                     ("g1.drop_rec", 2 * B), ("g2.drop", 2 * B))}
+    assert krb.resblock_fwd_plain.calls == calls
+    assert all(np.isfinite(float(v)) for v in logs.values())
+    nodrop = {k: v for k, v in draws.given.items() if ".drop" not in k}
+    again = AdaINModel(args, device="cpu").main_step(batch, StepDraws(**nodrop))
+    assert float(logs["l1_self_rec"]) != float(again["l1_self_rec"])

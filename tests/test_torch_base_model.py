@@ -32,9 +32,10 @@ import torch
 pytest.importorskip("flax")
 
 from masterthesis_tpu.arguments import default_test_args as jax_test_args
+from masterthesis_tpu.arguments import default_train_args as jax_train_args
 from masterthesis_tpu.models import BaseModel as JaxBaseModel
 from masterthesis_tpu.ops.pallas import conv_int8 as jq
-from masterthesis_tpu_torch.arguments import default_test_args
+from masterthesis_tpu_torch.arguments import default_test_args, default_train_args
 from masterthesis_tpu_torch.models import BaseModel
 from masterthesis_tpu_torch.ops.kernels import adain as kadain
 from masterthesis_tpu_torch.ops.kernels import head as khead
@@ -453,6 +454,36 @@ def test_converters_raise_on_a_missing_or_extra_leaf(setups, config):
         quant_from_jax({**s.quant, "decoder": q}, tm)
 
 
-def test_training_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        BaseModel(default_test_args(mode="train", **SHAPE), device="cpu")
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_training_mode_builds_the_training_nets(config):
+    """``mode="train"`` adds both discriminators and the content
+    discriminator, trainable, with Adam state for every net;
+    ``params_from_jax`` carries the JAX BaseModel's own init tree into all
+    six nets (the discriminators then agree with JAX's within the f32
+    forward tolerance) and raises on a leaf left over."""
+    flags = dict(use_dis_content=True, dis_content_layers=1, dis_content_final_kernel=2,
+                 **CONFIGS[config], **SHAPE)
+    tm = BaseModel(default_train_args(**flags), device="cpu")
+    assert list(tm.nets) == ["content_encoder", "style_encoder", "decoder", "discriminator1",
+                             "discriminator2", "content_discriminator"]
+    assert all(p.requires_grad for net in tm.nets.values() for p in net.parameters())
+    assert set(tm.state.opt_state) == set(tm.nets) and tm.generator is not None
+    jm = JaxBaseModel(jax_train_args(logdir=None, **flags))
+    # the generators' tree from the port's own weights; the training nets' from
+    # their Flax init (the two discriminators are one module config)
+    params = _jax_tree(tm)
+    for i, name in enumerate(("discriminator1", "discriminator2", "content_discriminator")):
+        net = jm.nets["discriminator1" if i < 2 else name]
+        init = jax.jit(net.init)
+        tree = init(jax.random.PRNGKey(i), *jm._dummy_inputs(name)[0])["params"]
+        params[name] = jax.tree_util.tree_map(np.asarray, tree)
+    tm.load_params(params_from_jax(params, tm))
+    img = np.random.default_rng(5).uniform(-1, 1, (B, SIZE, SIZE, 3)).astype(np.float32)
+    pred, cls = jm.nets["discriminator1"].apply({"params": params["discriminator1"]}, img)
+    with torch.no_grad():
+        tpred, tcls = tm.nets.discriminator1(_nchw(img))
+    _close(_nhwc(tpred), pred, "float32")
+    _close(tcls.numpy(), cls, "float32")
+    extra = {**params["discriminator1"], "layer9": {"conv": {"kernel": np.zeros((3, 3, 4, 4))}}}
+    with pytest.raises(KeyError, match="layer9/conv/kernel"):
+        params_from_jax({**params, "discriminator1": extra}, tm)
