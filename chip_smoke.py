@@ -5,7 +5,8 @@ against its plain PyTorch version.
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also a torch.profiler breakdown of one forward
                                        # (f32, bf16, int8; BaseModel A int8) and of one
-                                       # training main step (AdaINModel, BaseModel A, B)
+                                       # training main step (AdaINModel, reference and
+                                       # fused GAN step; BaseModel A, B)
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -114,7 +115,26 @@ against its plain PyTorch version.
    3's tolerance and timed there: its launches and ms per main step, by
    dtype, go into the kernels line (``per_main_step``, beside kernels 9/10's
    launches per main step of each phase).
-9. Last lines: the card, the ``{"kernels": [...]}`` line, then
+9. ``train_variants``: first a small f32 main step of each training flag
+   on the card against the CPU (tolerances of 7), every draw (noise, eps,
+   dropout masks, WGAN-GP's eps) made on the card: the fused GAN step on
+   AdaINModel and BaseModel A, hinge, RaGAN, WGAN-GP at ``--lambda_gp 10``,
+   spectral norm, the multi-scale discriminator, the VGG
+   perceptual loss (l2) and ``--remat``. Then AdaINModel at 7's config
+   with ``bench.py``'s GAN step (``--gan_step fused``, bench.py:160-185): a
+   warm-up main step without draws, three timed main steps, each launching
+   kernel 9 28 times and kernel 10 24 times, and a timed d_iter cycle;
+   then the reference GAN step from the same weights, whose first step
+   without draws must give losses within 3 % (both compute one update),
+   and three of its main steps timed. The moments kernel is held at the
+   fused step's shapes as in 7. Then each other flag alone on that config
+   (hinge, RaGAN, WGAN-GP, spectral norm, the multi-scale discriminator, the
+   VGG perceptual loss, ``--remat``): a warm-up and two timed main steps
+   with their launches asserted (``--remat``: kernel 9 52 times, the 24
+   blocks of G1 and G2 recomputed in backward), finite losses, every net
+   but the content discriminator moved; seconds per step and peak memory
+   beside the fused step's. Cumulative seconds are printed after 7, 8, 9.
+10. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -260,6 +280,54 @@ BASE_PER_STEP = {cfg: {k: sum(v.values()) for k, v in calls.items()}
 # --use_dropout keeps only its encoder's blocks on kernels 9/10
 SMALL_PER_STEP = {"A": BASE_PER_STEP["A"], "B": BASE_PER_STEP["B"],
                   "dropout": {"resblock_fwd": 16, "resblock_bwd": 12}}
+# train_variants: AdaINModel at TRAIN_ARGS with bench.py's GAN step
+# (bench.py:160-185: --gan_step fused), then each other training flag alone
+# on that config. The fused step runs kernel 9 28 times per main step (G1's
+# two encodes and two decodes 16, the D2 decode 4, G2 8) and kernel 10 24.
+FUSED_GAN_ARGS = dict(TRAIN_ARGS, gan_step="fused")
+# kernel 9/10 calls per main step by batch: 2B images through G1's encodes
+# and cycle decode, the D2 decode and G2 (24; backward 20), 4B through G1's
+# first decode (4; backward 4); --remat runs kernel 9 again for each block
+# recomputed in G1's and G2's backward (2B 20, 4B 4)
+FUSED_GAN_CALLS = {"resblock_fwd": {2 * B: 24, 4 * B: 4}, "resblock_bwd": {2 * B: 20, 4 * B: 4}}
+REMAT_CALLS = {"resblock_fwd": {2 * B: 44, 4 * B: 8}, "resblock_bwd": {2 * B: 20, 4 * B: 4}}
+FUSED_GAN_PER_STEP = {k: sum(v.values()) for k, v in FUSED_GAN_CALLS.items()}
+REMAT_PER_STEP = {k: sum(v.values()) for k, v in REMAT_CALLS.items()}
+VARIANT_FLAGS = {
+    "hinge": dict(gan_mode="hinge"),
+    "ragan": dict(use_ragan=True),
+    "wgangp": dict(gan_mode="wgangp", lambda_gp=10.0),
+    "dis_sn": dict(dis_sn=True),
+    "ms_dis": dict(ms_dis=True),
+    "vgg_l2": dict(vgg_loss="l2"),
+    "remat": dict(remat=True),
+}
+# small steps against the CPU, every draw made on the card: each flag on
+# AdaINModel's reference step (the multi-scale discriminator at 3 layers, 2
+# scales), the fused step on AdaINModel and on BaseModel A. WGAN-GP's step
+# keeps the default discriminator: with instance-normed ones its G
+# gradients are too ill-conditioned in f32 for the 1 % bound on params
+# (two CPU paths of that step part by more), so the double backward through
+# the moments kernel is held alone, by the card tests' penalty test
+REF_PER_STEP = FUSED_PER_STEP
+# hinge's and WGAN's G terms are means of signed logits, which cancel to far
+# below the logits themselves (hinge's small step: g_adv about -1.3e-6 at
+# this init, card and CPU 4e-4 of it apart); the variant steps hold each
+# loss within TRAIN_CPU_LOSS_TOL of max(|loss|, 1e-2): 1e-6 absolute below
+# 1e-2
+VARIANT_LOSS_FLOOR = 1e-2
+SMALL_VARIANTS = {
+    "fused": (AdaINModel, dict(gan_step="fused"), FUSED_GAN_PER_STEP),
+    "base_A_fused": (BaseModel, dict(gan_step="fused"),
+                     {"resblock_fwd": 12, "resblock_bwd": 12}),
+    "hinge": (AdaINModel, dict(gan_mode="hinge"), REF_PER_STEP),
+    "ragan": (AdaINModel, dict(use_ragan=True), REF_PER_STEP),
+    "wgangp": (AdaINModel, dict(gan_mode="wgangp", lambda_gp=10.0), REF_PER_STEP),
+    "dis_sn": (AdaINModel, dict(dis_sn=True), REF_PER_STEP),
+    "ms_dis": (AdaINModel, dict(ms_dis=True, dis_n_layers=3, num_scales=2), REF_PER_STEP),
+    "vgg_l2": (AdaINModel, dict(vgg_loss="l2"), REF_PER_STEP),
+    "remat": (AdaINModel, dict(remat=True), {"resblock_fwd": 32 + 24, "resblock_bwd": 24}),
+}
 
 
 def log(obj) -> None:
@@ -1350,14 +1418,18 @@ def _timed_step(model, batch, it):
 
 
 def check_small_train_against_cpu(model_cls=AdaINModel, flags=None,
-                                  per_step=FUSED_PER_STEP) -> None:
+                                  per_step=FUSED_PER_STEP, random_draws=None,
+                                  loss_floor=1e-6) -> None:
     """One f32 main step at the CPU tests' size on the card (kernels 9/10)
     against the same step on the CPU (their plain versions), from the same
-    weights, batch and styles; without noise, or with ``--use_dropout`` with
-    every draw of the step (noise, eps, dropout masks) made from the card
-    model's generator on the card and handed to the CPU run."""
+    weights, batch and styles; without noise, or with ``random_draws``
+    (default: with ``--use_dropout``) with every draw of the step (noise,
+    eps, dropout masks, WGAN-GP's eps) made from the card model's generator
+    on the card and handed to the CPU run. Losses within
+    TRAIN_CPU_LOSS_TOL of max(|loss|, ``loss_floor``)."""
     flags = flags or {}
-    random_draws = bool(flags.get("use_dropout"))
+    if random_draws is None:
+        random_draws = bool(flags.get("use_dropout"))
     what = f"f32 train step {model_cls.__name__} {flags}"
     host, dev = train_batch(SMALL_TRAIN_ARGS, seed=21)
     rng = np.random.default_rng(22)
@@ -1371,10 +1443,12 @@ def check_small_train_against_cpu(model_cls=AdaINModel, flags=None,
     delta = {k: v - before[k] for k, v in fused_counts().items()}
     assert delta == per_step, f"{what}: launches {delta}"
     masks = [k for k in draws.given if ".drop" in k]
-    if random_draws:
+    if flags.get("use_dropout"):
         assert masks and all(draws.given[k].is_cuda for k in masks), "no masks drawn on the card"
     on_cpu = _floats(cpu.main_step(host, StepDraws(**{k: v.cpu() for k, v in draws.given.items()})))
-    loss_err = max(abs(on_card[k] - v) / max(abs(v), 1e-6) for k, v in on_cpu.items())
+    errs = {k: abs(on_card[k] - v) / max(abs(v), loss_floor) for k, v in on_cpu.items()}
+    worst = max(errs, key=errs.get)
+    loss_err = errs[worst]
     lr = on_cpu["lr"]
     diffs = torch.cat([(p.detach().cpu() - q.detach()).abs().flatten()
                        for n in cpu.nets for p, q in zip(card.nets[n].parameters(),
@@ -1382,11 +1456,44 @@ def check_small_train_against_cpu(model_cls=AdaINModel, flags=None,
     share = (diffs > 0.1 * lr).float().mean().item()
     log(dict(phase="card_vs_cpu", model=model_cls.__name__, flags=flags, dtype="f32 train step",
              draws_on_card=sorted(draws.given) if random_draws else ["z_sr", "z_sr2"],
-             dropout_masks=len(masks), max_rel_loss_err=loss_err,
+             dropout_masks=len(masks), max_rel_loss_err=loss_err, worst_loss=worst,
+             worst_loss_values=[on_card[worst], on_cpu[worst]], loss_floor=loss_floor,
              param_share_beyond_0_1_lr=share, max_param_diff_in_lr=diffs.max().item() / lr,
              tol=dict(loss=TRAIN_CPU_LOSS_TOL, share=TRAIN_CPU_FLIP_SHARE), launches=delta))
     assert loss_err <= TRAIN_CPU_LOSS_TOL, f"{what} card vs CPU: losses {loss_err}"
     assert share <= TRAIN_CPU_FLIP_SHARE, f"{what} card vs CPU: params {share}"
+
+
+def _moments_by_dtype(calls: collections.Counter) -> dict:
+    names = {dtype: name for name, dtype in DTYPES.items()}
+    out = collections.Counter()
+    for (_, dtype), n in calls.items():
+        out[f"moments/{names[dtype]}"] += n
+    return dict(out)
+
+
+def _timed_main_steps(model, batch, its, per_step, moments_per_step, phase) -> tuple:
+    """Timed main steps at iterations ``its``, each asserted to launch
+    kernels 9/10 ``per_step`` times and the moments kernel as often as the
+    warm-up step; returns (their logs, seconds)."""
+    steps, secs = [], []
+    for it in its:
+        counts0 = {**fused_counts(), "moments": kmoments.moments.launches}
+        logs, t = _timed_step(model, batch, it)
+        delta = {k: v - counts0[k] for k, v in fused_counts().items()}
+        assert delta == per_step, f"{phase}: kernel 9/10 launches per main step {delta}"
+        moments = kmoments.moments.launches - counts0["moments"]
+        assert moments == moments_per_step, \
+            f"{phase}: {moments} moments launches in a main step, {moments_per_step} in the first"
+        steps.append(logs)
+        secs.append(t)
+    return steps, secs
+
+
+def _check_finite(phase, *logs) -> None:
+    for step in logs:
+        bad = [k for k, v in step.items() if not math.isfinite(v)]
+        assert not bad, f"{phase}: non-finite losses {bad}"
 
 
 def train(card: str, model_cls=AdaINModel, flags=None, per_step=FUSED_PER_STEP,
@@ -1411,17 +1518,7 @@ def train(card: str, model_cls=AdaINModel, flags=None, per_step=FUSED_PER_STEP,
     krb.resblock_fwd.launches = krb.resblock_bwd.launches = kmoments.moments.launches = 0
     torch.cuda.reset_peak_memory_stats()
     before = _snapshot(model)
-    main_s, steps = [], []
-    for it in (3, 6, 9):
-        counts0 = {**fused_counts(), "moments": kmoments.moments.launches}
-        logs, secs = _timed_step(model, batch, it)
-        delta = {k: v - counts0[k] for k, v in fused_counts().items()}
-        assert delta == per_step, f"{phase}: kernel 9/10 launches per main step {delta}"
-        moments = kmoments.moments.launches - counts0["moments"]
-        assert moments == moments_per_step, \
-            f"{phase}: {moments} moments launches in a main step, {moments_per_step} in the first"
-        main_s.append(secs)
-        steps.append(logs)
+    steps, main_s = _timed_main_steps(model, batch, (3, 6, 9), per_step, moments_per_step, phase)
     changed = _changed(model, before)
     want = {n: n != "content_discriminator" for n in model.nets}
     assert changed == want, f"{phase}: main steps changed {changed}, expected {want}"
@@ -1435,9 +1532,7 @@ def train(card: str, model_cls=AdaINModel, flags=None, per_step=FUSED_PER_STEP,
     assert all(_changed(model, before).values()), f"{phase}: a d_iter cycle must move every net"
     launched = {**fused_counts(), "moments": kmoments.moments.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1024**3
-    for logs in [first, *steps, *map(_floats, cycle)]:
-        bad = [k for k, v in logs.items() if not math.isfinite(v)]
-        assert not bad, f"{phase}: non-finite losses {bad}"
+    _check_finite(phase, first, *steps, *map(_floats, cycle))
     del model
     torch.cuda.empty_cache()
 
@@ -1493,19 +1588,158 @@ def base_train(card: str, per_call_ms: dict) -> dict:
     return launched
 
 
+def train_fused_gan(card: str) -> tuple[dict, float]:
+    """``train_variants/fused``: AdaINModel's training main path with
+    bench.py's GAN step. A first main step without draws (no noise, z = mu:
+    the deterministic step) as warm-up, recording the moments kernel's
+    shapes; three timed main steps and a timed d_iter cycle with draws from
+    the model's generator; then the reference GAN step from the same
+    weights: its first step without draws must give the fused step's losses
+    within 3 % (the two compute one update then), and three of its main
+    steps are timed. Returns the per-main-step launches (kernels 9/10, and
+    the moments kernel held at its shapes) and the fused main step's
+    seconds."""
+    phase = "train_variants/fused"
+    _, batch = train_batch(TRAIN_ARGS, seed=31)
+    rng = np.random.default_rng(32)
+    z = {k: torch.from_numpy(rng.standard_normal((B, TRAIN_ARGS["latent_dim"])).astype(
+        np.float32)).cuda() for k in ("z_sr", "z_sr2")}
+    model = AdaINModel(default_train_args(**FUSED_GAN_ARGS))
+    model.generator.manual_seed(1)
+    weights = {n: {k: v.clone() for k, v in net.state_dict().items()}
+               for n, net in model.nets.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_moments(collections.Counter()) as moments_calls:
+        first = _floats(model.main_step(batch, StepDraws(**z)))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    moments_per_step = sum(moments_calls.values())
+
+    krb.resblock_fwd.launches = krb.resblock_bwd.launches = kmoments.moments.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    before = _snapshot(model)
+    steps, main_s = _timed_main_steps(model, batch, (3, 6, 9), FUSED_GAN_PER_STEP,
+                                      moments_per_step, phase)
+    changed = _changed(model, before)
+    want = {n: n != "content_discriminator" for n in model.nets}
+    assert changed == want, f"{phase}: main steps changed {changed}, expected {want}"
+    before = _snapshot(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cycle = [model.optimize_parameters(batch, it) for it in (12, 13, 14)]
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    assert set(cycle[1]) == set(cycle[2]) == {"d_content_cls"}
+    assert all(_changed(model, before).values()), f"{phase}: a d_iter cycle must move every net"
+    launched = {**fused_counts(), "moments": kmoments.moments.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1024**3
+    _check_finite(phase, first, *steps, *map(_floats, cycle))
+    del model
+    torch.cuda.empty_cache()
+
+    ref = AdaINModel(default_train_args(**TRAIN_ARGS))
+    ref.load_params(weights)
+    ref.generator.manual_seed(1)
+    with recording_moments(collections.Counter()) as ref_calls:
+        ref_first = _floats(ref.main_step(batch, StepDraws(**z)))
+    torch.cuda.reset_peak_memory_stats()
+    _, ref_s = _timed_main_steps(ref, batch, (3, 6, 9), FUSED_PER_STEP,
+                                 sum(ref_calls.values()), f"{phase} reference")
+    ref_peak_gb = torch.cuda.max_memory_allocated() / 1024**3
+    del ref, weights
+    torch.cuda.empty_cache()
+    gap = {k: abs(first[k] - v) / max(abs(v), 1.0) for k, v in ref_first.items()}
+    worst = max(gap, key=gap.get)
+    log(dict(
+        phase=phase, model="AdaINModel", card=card,
+        config={k: v for k, v in FUSED_GAN_ARGS.items() if k != "seed"}, images_per_side=B,
+        main_step_s=main_s, main_it_per_s=len(main_s) / sum(main_s), cycle_s=cycle_s,
+        schedule_img_per_s=3 * 2 * B / cycle_s, first_step_s=first_s,
+        peak_memory_allocated_gb=peak_gb, launches=launched, per_main_step=FUSED_GAN_PER_STEP,
+        moments_per_main_step=moments_per_step,
+        reference_moments_per_main_step=sum(ref_calls.values()), reference_step_s=ref_s, reference_it_per_s=len(ref_s) / sum(ref_s),
+        reference_peak_memory_allocated_gb=ref_peak_gb, first_step_losses=first,
+        fused_vs_reference=dict(worst=worst, rel_gap=gap[worst], tol=TRAIN_LOSS_TOL),
+    ))
+    assert gap[worst] <= TRAIN_LOSS_TOL, f"{phase}: fused vs reference {worst}: {gap[worst]}"
+    per_step = {**{k: dict(launches=n) for k, n in FUSED_GAN_PER_STEP.items()},
+                **{f"moments/{k}": v for k, v in check_moments_path(phase, moments_calls).items()}}
+    return per_step, sum(main_s) / len(main_s)
+
+
+def train_variant(card: str, name: str, fused_s: float, timed: int = 2) -> dict:
+    """``train_variants/<name>``: one training flag on the fused GAN step at
+    the flagship config: a warm-up main step, ``timed`` timed main steps
+    with their launches asserted, finite losses (the flag's own among them),
+    every net but the content discriminator moved. Returns its launches per
+    main step."""
+    phase = f"train_variants/{name}"
+    flags = VARIANT_FLAGS[name]
+    per_step = REMAT_PER_STEP if name == "remat" else FUSED_GAN_PER_STEP
+    _, batch = train_batch(TRAIN_ARGS, seed=31)
+    model = AdaINModel(default_train_args(**{**FUSED_GAN_ARGS, **flags}))
+    model.generator.manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    with recording_moments(collections.Counter()) as moments_calls:
+        first, first_s = _timed_step(model, batch, 0)
+    before = _snapshot(model)
+    steps, secs = _timed_main_steps(model, batch, (3, 6, 9)[:timed], per_step,
+                                    sum(moments_calls.values()), phase)
+    changed = _changed(model, before)
+    want = {n: n != "content_discriminator" for n in model.nets}
+    assert changed == want, f"{phase}: main steps changed {changed}, expected {want}"
+    _check_finite(phase, first, *steps)
+    own = {"wgangp": {"d_gp"}, "vgg_l2": {"g_p", "g_p2"}}.get(name, set())
+    assert own <= set(first), f"{phase}: no {own - set(first)} in the logs"
+    peak_gb = torch.cuda.max_memory_allocated() / 1024**3
+    del model
+    torch.cuda.empty_cache()
+    moments = _moments_by_dtype(moments_calls)
+    log(dict(phase=phase, flags=flags, card=card, step_s=secs, first_step_s=first_s,
+             s_per_step=sum(secs) / len(secs), fused_gan_s_per_step=fused_s,
+             peak_memory_allocated_gb=peak_gb, per_main_step=per_step,
+             moments_per_main_step=moments, first_step_losses=first))
+    return {**{k: dict(launches=n) for k, n in per_step.items()},
+            **{k: dict(launches=n) for k, n in moments.items()}}
+
+
+def train_variants(card: str, per_call_ms: dict) -> dict:
+    """The small steps of every training flag on the card against the CPU,
+    then the fused GAN step and each flag at the flagship config. Returns
+    each path's launches per main step, by phase, with kernel 9/10 ms per
+    main step (``per_call_ms``, 7's per-call times, times the calls) for the
+    fused step and ``--remat``."""
+    for name, (model_cls, flags, per_step) in SMALL_VARIANTS.items():
+        check_small_train_against_cpu(model_cls, flags, per_step, random_draws=True,
+                                      loss_floor=VARIANT_LOSS_FLOOR)
+    per_main_step = {}
+    per_main_step["train_variants/fused"], fused_s = train_fused_gan(card)
+    for name in VARIANT_FLAGS:
+        per_main_step[f"train_variants/{name}"] = train_variant(card, name, fused_s)
+    for name, calls in (("fused", FUSED_GAN_CALLS), ("remat", REMAT_CALLS)):
+        ms = {k: sum(per_call_ms[k][b] * n for b, n in c.items()) for k, c in calls.items()}
+        for k, t in ms.items():
+            per_main_step[f"train_variants/{name}"][k]["ms"] = t
+        log(dict(phase=f"train_variants/{name}", kernel_ms_per_main_step=ms,
+                 calls_per_main_step=calls,
+                 note="ms per call of the kernel timings (7) times the calls"))
+    return per_main_step
+
+
 def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    model = model_cls(default_train_args(**(flags or {}), **TRAIN_ARGS))
+    model = model_cls(default_train_args(**{**TRAIN_ARGS, **(flags or {})}))
     _, batch = train_batch(TRAIN_ARGS, seed=31)
     model.optimize_parameters(batch, 0)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, seconds = _timed_step(model, batch, 3)
     what = "train main step"
-    if model_cls is not AdaINModel:
+    if model_cls is not AdaINModel or flags:
         what = f"{model_cls.__name__} {flags} {what}"
     _log_profile(prof, what, seconds, 25)
     del model
@@ -1600,8 +1834,13 @@ def main(argv) -> int:
         e["launches"] = launched[e["name"]]
     entries += train_entries
     per_main_step = {"train": launched["per_main_step"]}
+    log(dict(phase="seconds", upto="train", seconds=time.perf_counter() - t0))
     base_launched = base_train(card, {e["name"]: e["ms_per_call"] for e in train_entries})
     per_main_step.update({f"base_train/{k}": v["per_main_step"] for k, v in base_launched.items()})
+    log(dict(phase="seconds", upto="base_train", seconds=time.perf_counter() - t0))
+    per_main_step.update(train_variants(card, {e["name"]: e["ms_per_call"]
+                                               for e in train_entries}))
+    log(dict(phase="seconds", upto="train_variants", seconds=time.perf_counter() - t0))
     # each training phase's launches (moments also ms, bound ms and error)
     # per main step, beside the serving launches in "launches"
     for e in entries:
@@ -1614,10 +1853,12 @@ def main(argv) -> int:
         profile("f32", int8=True)
         profile("f32", True, BaseModel, BASE_CONFIGS["A"])
         profile_train()
+        profile_train(flags=dict(gan_step="fused"))
         for flags in BASE_CONFIGS.values():
             profile_train(BaseModel, flags)
     for e in entries:
         assert e["launches"], f"{e['name']} was not launched on the main path"
+    log(dict(phase="seconds", upto="end", seconds=time.perf_counter() - t0))
 
     log(card)
     log({"kernels": entries})

@@ -51,6 +51,7 @@ from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kint8
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
 from masterthesis_tpu_torch.ops.norms import AdaptiveInstanceNorm, InstanceNorm, LayerNorm
+from masterthesis_tpu_torch.ops.spectral import SpectralNorm
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -165,16 +166,20 @@ class Conv2d(_Int8State):
     (stride 1) or :func:`kint8.downconv` (stride 2), with the
     per-(sample, channel) stats when ``serving_stats`` (set by a ConvBlock
     with instance norm), as the JAX ``_int8_eligible`` convs do off the TPU.
-    Other convs (the 7x7 stem, the 1x1 mix convs) calibrate but stay float."""
+    Other convs (the 7x7 stem, the 1x1 mix convs) calibrate but stay float.
+
+    ``sn`` (the discriminators' convs under ``--dis_sn``): the kernel goes
+    through its :class:`SpectralNorm` ``sn`` on every float forward."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, use_bias: bool = True, padding_type: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32):
+                 sn: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride, self.padding, self.padding_type, self.dtype = stride, padding, padding_type, dtype
         self.kernel_size = kernel_size
         self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.sn = SpectralNorm(features) if sn else None
         self.serving_stats = False
         self._init_int8()
 
@@ -202,7 +207,8 @@ class Conv2d(_Int8State):
             x = pad2d(x, pad, self.padding_type)
             pad = 0
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias, self.stride, pad)
+        weight = self.weight if self.sn is None else self.sn(self.weight)
+        return F.conv2d(x.to(self.dtype), weight.to(self.dtype), bias, self.stride, pad)
 
 
 class ConvTranspose2d(_Int8State):
@@ -264,7 +270,7 @@ class Dense(nn.Linear):
 
 
 class ConvBlock(nn.Module):
-    """pad -> conv -> norm -> activation.
+    """pad -> (spectrally normalized, ``sn``) conv -> norm -> activation.
 
     ``use_bias`` defaults to False, as in the JAX ConvBlock: the resblock
     convs and the 1x1 head have no bias, the stem, downs and ups ask for one.
@@ -278,10 +284,10 @@ class ConvBlock(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, use_bias: bool = False, norm: Optional[str] = None,
                  activation: Optional[str] = None, padding_type: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32):
+                 sn: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = Conv2d(in_features, features, kernel_size, stride, padding,
-                           use_bias=use_bias, padding_type=padding_type, dtype=dtype)
+                           use_bias=use_bias, padding_type=padding_type, sn=sn, dtype=dtype)
         self.conv.serving_stats = norm == "instance"
         self.norm_type, self.activation, self.dtype = norm, activation, dtype
         self.norm = make_norm(norm, features)

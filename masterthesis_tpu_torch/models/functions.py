@@ -25,12 +25,14 @@ from masterthesis_tpu_torch.models.blocks import Conv2d, ConvTranspose2d
 from masterthesis_tpu_torch.models.state import AdamState
 from masterthesis_tpu_torch.ops.initializers import conv_kernel, uniform_fan_in
 from masterthesis_tpu_torch.ops.norms import LayerNorm
+from masterthesis_tpu_torch.ops.spectral import SpectralNorm, l2_normalize
 
 
 @torch.no_grad()
 def init_net(net: nn.Module, generator: torch.Generator, init_type=None,
              init_gain: float = 0.02) -> None:
-    """Draw every parameter of ``net`` by the JAX package's scheme, in module order."""
+    """Draw every parameter of ``net`` by the JAX package's scheme, in module
+    order, and each spectral norm's ``u`` as Flax does: a normalized normal draw."""
     for m in net.modules():
         if isinstance(m, (Conv2d, ConvTranspose2d)):
             m.weight.copy_(conv_kernel(m.weight.shape, m.fan_in, generator, init_type, init_gain))
@@ -43,6 +45,8 @@ def init_net(net: nn.Module, generator: torch.Generator, init_type=None,
         elif isinstance(m, LayerNorm) and m.scale is not None:
             m.scale.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, SpectralNorm):
+            m.u.copy_(l2_normalize(torch.randn(m.u.shape, generator=generator)))
 
 
 def make_lr_schedule(lr: float, lr_policy: str = "step", n_iters: int = 1_000_000,

@@ -40,6 +40,8 @@ class Model:
         self.nets: dict[str, nn.Module] = AttributeDict()
         self.state: TrainState | None = None
         self.generator: torch.Generator | None = None
+        self.loss: dict = {}  # the last iteration's logs
+        self.print_loss: list[str] = []  # the names print_losses reports
         self.schedule = make_lr_schedule(
             lr=args.lr or 1e-4, lr_policy=args.lr_policy or "step",
             n_iters=args.n_iters or 1_000_000, n_iter_decay=args.n_iter_decay or 600_000,
@@ -76,6 +78,10 @@ class Model:
             weight_decay=1e-4 if a.wd is None else float(a.wd),
             clip_norm=5.0 if name == "content_discriminator" else None,
         )
+
+    def print_losses(self) -> dict[str, float]:
+        """The last iteration's losses named in ``print_loss``, as floats."""
+        return {k: float(v) for k, v in self.loss.items() if k in self.print_loss}
 
     def load_params(self, state_dicts: dict) -> None:
         """Load one state_dict per net; every net and every key must be there."""

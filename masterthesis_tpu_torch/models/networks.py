@@ -3,10 +3,11 @@
 Ports of ``masterthesis_tpu/models/networks.py``: ``ContentEncoder``,
 ``StyleEncoder``, ``ReparameterizedStyleEncoder``, ``_StyleMLP``,
 ``_DecoderTail``, ``AdaINDecoder``, ``Decoder`` and ``DecoderConcat``, and
-for training ``Discriminator`` and ``ContentDiscriminator``, with the Flax
-child names (``stem``, ``down0``, ``res0``, ``head``, ``linear.fc0``,
-``dec1_0``, ``dec2.up0``, ``dec2.head``, ``dec_share``, ``dec3``, ``dec4``,
-``layer0``, ``patch_head``, ``cls_head``). Channel concats follow the JAX
+for training ``Discriminator``, ``MultiScaleDiscriminator`` and
+``ContentDiscriminator``, with the Flax child names (``stem``, ``down0``,
+``res0``, ``head``, ``linear.fc0``, ``dec1_0``, ``dec2.up0``, ``dec2.head``,
+``dec_share``, ``dec3``, ``dec4``, ``layer0``, ``patch_head``, ``cls_head``,
+``dis_head``). Channel concats follow the JAX
 order: [x, c] for the domain map, [h, z] for the style map, and
 DecoderConcat's [content, c, z].
 
@@ -34,6 +35,7 @@ from masterthesis_tpu_torch.models.blocks import (
     ResnetBlock,
     UpsampleBlock,
     apply_pending,
+    avg_pool2d,
     concat_label,
     get_activation,
     global_avg_pool,
@@ -307,17 +309,18 @@ class Discriminator(nn.Module):
     """PatchGAN discriminator with a domain classifier; returns
     (patch logits (N, 1, h, w), class logits (N, num_domains)).
 
-    ``n_layers`` stride-2 3x3 convs (the last without a norm), then a 1x1
-    patch head with zero padding 1 and no bias, and a class head whose kernel
-    covers the remaining map (``image_size / 2**n_layers``), averaged."""
+    ``n_layers`` stride-2 3x3 convs (the last without a norm; spectrally
+    normalized with ``sn``), then a 1x1 patch head with zero padding 1 and no
+    bias, and a class head whose kernel covers the remaining map
+    (``image_size / 2**n_layers``), averaged."""
 
     def __init__(self, input_dim: int = 3, dim: int = 64, n_layers: int = 6,
                  num_domains: int = 2, norm: Optional[str] = None, activation: str = "lrelu",
                  padding_type: str = "reflect", use_bias: bool = True, image_size: int = 256,
-                 dtype: torch.dtype = torch.float32):
+                 sn: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         common = dict(use_bias=use_bias, activation=activation, padding_type=padding_type,
-                      dtype=dtype)
+                      sn=sn, dtype=dtype)
         d = dim
         self.layer0 = ConvBlock(input_dim, d, 3, 2, 1, norm=norm, **common)
         for i in range(n_layers - 2):
@@ -334,6 +337,43 @@ class Discriminator(nn.Module):
         for i in range(self.n_layers):
             h = getattr(self, f"layer{i}")(h)
         return self.patch_head(h), global_avg_pool(self.cls_head(h))
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """One trunk applied at ``num_scales`` scales of the input, each scale
+    pooled from the last by a 3x3/s2 average (padding 1, padding not
+    counted). Returns a list of (patch logits (N, 1, h, w), class logits
+    (N, num_domains)), one per scale.
+
+    The trunk: ``n_layers`` 4x4/s2 convs with zero padding 1 and no bias,
+    ``dim`` doubling after the first (64 -> 2048 at six layers), all but the
+    first normed, spectrally normalized with ``sn``; then a 1x1 ``dis_head``
+    and a 1x1 ``cls_head``, both with bias, the class logits averaged."""
+
+    def __init__(self, input_dim: int = 3, dim: int = 64, n_layers: int = 6,
+                 num_domains: int = 2, norm: Optional[str] = None, activation: str = "lrelu",
+                 padding_type: Optional[str] = None, num_scales: int = 3, sn: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        common = dict(activation=activation, padding_type=padding_type, sn=sn, dtype=dtype)
+        self.layer0 = ConvBlock(input_dim, dim, 4, 2, 1, **common)
+        d = dim
+        for i in range(n_layers - 1):
+            setattr(self, f"layer{i + 1}", ConvBlock(d, 2 * d, 4, 2, 1, norm=norm, **common))
+            d *= 2
+        self.n_layers, self.num_scales = n_layers, num_scales
+        self.dis_head = Conv2d(d, 1, 1, 1, 0, use_bias=True, dtype=dtype)
+        self.cls_head = Conv2d(d, num_domains, 1, 1, 0, use_bias=True, dtype=dtype)
+
+    def forward(self, x):
+        outputs = []
+        for _ in range(self.num_scales):
+            h = x
+            for i in range(self.n_layers):
+                h = getattr(self, f"layer{i}")(h)
+            outputs.append((self.dis_head(h), global_avg_pool(self.cls_head(h))))
+            x = avg_pool2d(x, 3, 2, padding=1, count_include_pad=False)
+        return outputs
 
 
 class ContentDiscriminator(nn.Module):

@@ -12,16 +12,27 @@ and contiguous: images are permuted once on entry and once on exit.
 Training updates the nets' parameters in place: each phase takes the
 gradients of its loss with ``torch.autograd.grad`` over its nets'
 parameters, at the parameters the previous phase left, then applies the
-optax chain of ``models/functions.py``. The order is the JAX package's: D1,
-D2, then G phase 1 on the three generator nets, then G phase 2 on the
-content encoder and the decoder. The main step runs inside
-``resblock_train.fused_train_trace``, so that its resblocks take kernels 9
-and 10 (``--fused_resblock auto``: on the card); the content step, as in the
-JAX package, does not. Random draws come from :class:`StepDraws`, the
-dropout masks of ``--use_dropout`` too. Without ``reparam`` (BaseModel's
-plain style encoder) the step takes the JAX package's other branches: the
-style code's L2 in place of the KL term, and phase 2 regresses the style
-code itself in place of mu.
+optax chain of ``models/functions.py``. ``--gan_step`` picks the main step:
+"reference" (D fakes from their own forward; D1, D2, then G phase 1 on the
+three generator nets, then G phase 2 on the content encoder and the
+decoder) or "fused" (G phase 1's forward first, whose fakes and content
+codes feed D1 and D2, then its backward against the updated D1; the
+JAX package's ``_main_step_fused_body``, which ``bench.py`` times). The
+main step runs inside ``resblock_train.fused_train_trace``, so that its
+resblocks take kernels 9 and 10 (``--fused_resblock auto``: on the card);
+the content step, as in the JAX package, does not. Random draws come from
+:class:`StepDraws`, the dropout masks of ``--use_dropout`` and WGAN-GP's
+eps too. Without ``reparam`` (BaseModel's plain style encoder) the step
+takes the JAX package's other branches: the style code's L2 in place of the
+KL term, and phase 2 regresses the style code itself in place of mu.
+
+The loss variants are the JAX package's: ``--gan_mode hinge`` (hinge's D
+and G forms), ``--use_ragan``, ``--gan_mode wgangp --lambda_gp > 0`` (the
+gradient penalty, a double backward through D), ``--dis_sn`` (spectral
+norm on the discriminators' convs, ``ops/spectral.py``), ``--ms_dis`` (the
+multi-scale discriminator), ``--vgg_loss`` (the perceptual terms ``g_p`` and
+``g_p2``, in f32) and ``--remat`` (``torch.utils.checkpoint`` around the
+content encoder and the decoder). Only ``--int8_train`` is not ported.
 """
 from __future__ import annotations
 
@@ -29,13 +40,15 @@ import time
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from masterthesis_tpu_torch.models import losses as L
 from masterthesis_tpu_torch.models import networks
-from masterthesis_tpu_torch.models.blocks import DROPOUT_RATE
+from masterthesis_tpu_torch.models.blocks import DROPOUT_RATE, Conv2d
 from masterthesis_tpu_torch.models.functions import apply_updates
 from masterthesis_tpu_torch.models.model import Model
 from masterthesis_tpu_torch.models.quantize import LEAF, extract_amax, int8_convs, merge_amax
+from masterthesis_tpu_torch.ops import spectral
 from masterthesis_tpu_torch.ops.kernels.resblock_train import fused_train_trace
 
 INT8_NETS = ("content_encoder", "decoder")
@@ -44,16 +57,7 @@ GEN_NETS = ("content_encoder", "style_encoder", "decoder")
 # flags of the JAX package whose branches the port does not have yet, with
 # the ROADMAP item that holds them
 _UNPORTED = (
-    (lambda a: a.gan_step == "fused", "--gan_step fused", "A.6"),
-    (lambda a: a.ms_dis, "--ms_dis", "A.6"),
-    (lambda a: a.dis_sn, "--dis_sn", "A.6"),
-    (lambda a: a.use_ragan, "--use_ragan", "A.6"),
-    (lambda a: "hinge" in (a.gan_mode or ""), "--gan_mode hinge", "A.6"),
-    (lambda a: "wgangp" in (a.gan_mode or "") and (a.lambda_gp or 0.0) > 0.0,
-     "--gan_mode wgangp with --lambda_gp > 0", "A.6"),
-    (lambda a: a.vgg_loss is not None, "--vgg_loss", "A.6 (VGG weights)"),
-    (lambda a: a.remat, "--remat", "A.6"),
-    (lambda a: a.int8_train, "--int8_train", "A.6"),
+    (lambda a: a.int8_train, "--int8_train", "A.8, QAT"),
 )
 
 
@@ -67,10 +71,12 @@ class StepDraws:
     train=False``. The styles ``z_sr`` and ``z_sr2`` (B, latent) are needed
     either way. Normal draws: ``{d,g1,g2,c}.noise`` and ``g1.noise_rec``
     (content noise, the code's shape), ``{d,g1,g2}.eps`` and ``g1.eps_rec``
-    (VAE eps, (2B, latent)), ``z_sr``, ``z_sr2``. Dropout keep masks (bool,
-    kept with probability 1/2), one set per decode, as the JAX step gives
-    each decode its own rng: ``{d,g1,g2}.drop.<block>`` and
-    ``g1.drop_rec.<block>``, one per dropout block of the decoder, of that
+    (VAE eps, (2B, latent)), ``z_sr``, ``z_sr2``. Uniform draws: WGAN-GP's
+    interpolation ``{d1,d2}.gp_eps`` (2B, 1, 1, 1). Dropout keep masks
+    (bool, kept with probability 1/2), one set per decode, as the JAX step
+    gives each decode its own rng: ``{d,g1,g2}.drop.<block>`` and
+    ``g1.drop_rec.<block>`` (the fused step: ``d2.drop.<block>`` for its D2
+    decode, and no ``d.*``), one per dropout block of the decoder, of that
     block's output shape.
     """
 
@@ -78,14 +84,22 @@ class StepDraws:
         self.generator = generator
         self.given = dict(given)
 
-    def normal(self, name: str, shape, required: bool = False) -> Optional[torch.Tensor]:
+    def _draw(self, name: str, shape, sample) -> Optional[torch.Tensor]:
         t = self.given.get(name)
         if t is None and self.generator is not None:
-            t = torch.randn(tuple(shape), generator=self.generator, device=self.generator.device)
+            t = sample(tuple(shape), generator=self.generator, device=self.generator.device)
             self.given[name] = t
+        return t
+
+    def normal(self, name: str, shape, required: bool = False) -> Optional[torch.Tensor]:
+        t = self._draw(name, shape, torch.randn)
         if t is None and required:
             raise ValueError(f"draw {name!r} is needed: pass it, or a generator")
         return t
+
+    def uniform(self, name: str, shape) -> Optional[torch.Tensor]:
+        """U[0, 1) draw ``name``, or None without it or a generator."""
+        return self._draw(name, shape, torch.rand)
 
     def masks(self, name: str) -> networks.MaskSource:
         """The mask source of one decode: ``source(block, shape)`` gives the
@@ -122,6 +136,8 @@ class TranslationModel(Model):
         self.latent_dim = int(args.latent_dim)
         # the installed amax tree per net, or None: the float path
         self.quant: dict | None = None
+        self.perceptual: L.VGGPerceptualLoss | None = None  # --vgg_loss, training
+        self.print_loss = ["g_adv", "g_cls", "l1_cc_rec"]
 
     # NCHW building blocks
     def encode_content(self, img: torch.Tensor, noise=None) -> torch.Tensor:
@@ -222,22 +238,33 @@ class TranslationModel(Model):
 
     # training
     def _check_train_flags(self) -> None:
+        a = self.args
+        if a.int8_train and a.remat:
+            raise ValueError("--int8_train is incompatible with --remat, as in the JAX package")
         for selected, flag, item in _UNPORTED:
-            if selected(self.args):
+            if selected(a):
                 raise NotImplementedError(
                     f"{flag} is not ported to masterthesis_tpu_torch yet (ROADMAP {item})")
 
     def _add_training_nets(self, dtype: torch.dtype) -> None:
         """The nets beside the generators: ``discriminator1``,
-        ``discriminator2`` and, with ``use_dis_content``, the
-        ``content_discriminator`` on the content codes, as both JAX models
-        build them; a flag whose branch is not ported raises first."""
+        ``discriminator2`` (``Discriminator``, or with ``ms_dis`` the
+        ``MultiScaleDiscriminator`` at its own width 64, as both JAX models
+        build it; spectrally normalized with ``dis_sn``) and, with
+        ``use_dis_content``, the ``content_discriminator`` on the content
+        codes; with ``vgg_loss`` the frozen f32 ``perceptual`` loss, outside
+        ``nets``. A flag whose branch is not ported raises first."""
         self._check_train_flags()
         a = self.args
-        self.nets.discriminator1, self.nets.discriminator2 = (networks.Discriminator(
-            a.input_dim, dim=a.dim, norm=a.dis_norm, num_domains=a.num_domains,
-            image_size=a.crop_size, n_layers=a.dis_n_layers or 6, dtype=dtype,
-        ) for _ in range(2))
+        common = dict(norm=a.dis_norm, num_domains=a.num_domains, n_layers=a.dis_n_layers or 6,
+                      sn=bool(a.dis_sn), dtype=dtype)
+        if a.ms_dis:
+            make = lambda: networks.MultiScaleDiscriminator(  # noqa: E731
+                a.input_dim, num_scales=a.num_scales or 3, **common)
+        else:
+            make = lambda: networks.Discriminator(  # noqa: E731
+                a.input_dim, dim=a.dim, image_size=a.crop_size, **common)
+        self.nets.discriminator1, self.nets.discriminator2 = make(), make()
         if a.use_dis_content:
             content_dim = self.nets.content_encoder.output_dim
             self.nets.content_discriminator = networks.ContentDiscriminator(
@@ -245,6 +272,32 @@ class TranslationModel(Model):
                 n_layers=a.dis_content_layers or 3, kernel_size=a.dis_content_kernel or 7,
                 final_kernel=a.dis_content_final_kernel or 4, dtype=dtype,
             )
+        if a.vgg_loss is not None:
+            self.perceptual = L.VGGPerceptualLoss(
+                a.vgg_layers, a.layer_weights, a.vgg_type, a.vgg_loss, bool(a.norm_feat),
+                a.input_dim).to(self.device).requires_grad_(False)
+            self.print_loss += ["g_p", "g_p2"]
+
+    def initialize(self, seed=None) -> None:
+        """:meth:`Model.initialize`, then the perceptual loss's VGG: from
+        ``args.vgg_weights`` (:func:`losses.load_vgg_params`) or, without,
+        random as in the JAX package, N(0, 1 / fan_in) kernels and zero
+        biases from the seed."""
+        super().initialize(seed)
+        if self.perceptual is None:
+            return
+        vgg = self.perceptual.vgg
+        if self.args.vgg_weights:
+            vgg.load_state_dict(L.load_vgg_params(self.args.vgg_weights, vgg))
+            return
+        if seed is None:
+            seed = self.args.seed or 0
+        g = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            for m in vgg.modules():
+                if isinstance(m, Conv2d):
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=g) * m.fan_in ** -0.5)
+                    m.bias.zero_()
 
     def _batch(self, batch):
         """(img NCHW f32, c_org f32, b) from a batch of NHWC x1, x2 and one-hot y1, y2."""
@@ -252,20 +305,34 @@ class TranslationModel(Model):
         c_org = torch.cat([self._tensor(batch["y1"]), self._tensor(batch["y2"])], dim=0)
         return _nchw(img), c_org, len(batch["x1"])
 
+    def _remat(self, fn, *args):
+        """``fn(*args)``, rematerialized in backward under ``--remat`` (the
+        JAX package's ``jax.checkpoint`` of the content encoder and the
+        decoder). Draws are made outside ``fn`` or cached by name
+        (:class:`StepDraws`), so the recompute sees the same ones; none comes
+        from torch's global generators, whose state is not kept."""
+        if self.args.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
     def _content(self, img, draws: StepDraws, name: str):
         shape = self.nets.content_encoder.code_shape(img.shape)
-        return self.encode_content(img, draws.normal(name, shape))
+        return self._remat(self.encode_content, img, draws.normal(name, shape))
 
     def _style(self, img, c, draws: StepDraws, name: str):
         eps = draws.normal(name, (img.shape[0], self.latent_dim)) if self.reparam else None
         return self.encode_style(img, c, eps)
 
-    def _update(self, names, loss: torch.Tensor, lr: float) -> None:
-        """Gradients of ``loss`` over the nets ``names`` (all taken before any
-        update), then one optimizer step per net."""
+    def _decode(self, z_c, z, c, draws: StepDraws, name: str):
+        return self._remat(self.decode, z_c, z, c, draws.masks(name))
+
+    def _update(self, names, loss, lr: float, grad_outputs=None) -> None:
+        """Gradients of ``loss`` (a tensor, or tensors with their
+        ``grad_outputs``) over the nets ``names``, all taken before any
+        update, then one optimizer step per net."""
         params = {n: list(self.nets[n].parameters()) for n in names}
         grads = torch.autograd.grad(loss, [p for n in names for p in params[n]],
-                                    allow_unused=True)
+                                    grad_outputs=grad_outputs, allow_unused=True)
         i = 0
         for n in names:
             k = len(params[n])
@@ -274,63 +341,128 @@ class TranslationModel(Model):
             i += k
 
     def _make_d_fakes(self, img, c_org, b, z_sr, draws):
-        """The D phase's fakes: one 4b decode, no gradient."""
+        """The reference step's D fakes: one 4b decode, no gradient."""
         with torch.no_grad():
             cls_a, cls_b = c_org[:b], c_org[b:]
             z_c = self._content(img, draws, "d.noise")
             z_s, _, _ = self._style(img, c_org, draws, "d.eps")
             z_ca, z_cb, z_sa, z_sb = z_c[:b], z_c[b:], z_s[:b], z_s[b:]
-            fakes = self.decode(
+            fakes = self._decode(
                 torch.cat([z_cb, z_cb, z_ca, z_ca]),
                 torch.cat([z_sa, z_sr.to(z_s.dtype), z_sb, z_sr.to(z_s.dtype)]),
-                torch.cat([cls_a, cls_a, cls_b, cls_b]), draws.masks("d.drop"),
+                torch.cat([cls_a, cls_a, cls_b, cls_b]), draws, "d.drop",
             )
             img_ba, img_br, img_ab, img_ar = fakes.chunk(4)
             return torch.cat([img_ba, img_ab]), torch.cat([img_br, img_ar])
 
-    def _d_loss(self, d_name, real, fake, c_org):
-        """One D forward over concat(fake, real): the adversarial terms on
-        each half, the domain classification on the real half."""
-        a = self.args
-        b_f = fake.shape[0]
-        pred, cls = self.nets[d_name](torch.cat([fake, real.to(fake.dtype)]))
-        adv = L.gan_loss(pred[:b_f], False, a.gan_mode) + L.gan_loss(pred[b_f:], True, a.gan_mode)
-        cls = L.bce_logits_loss(cls[b_f:], c_org)
-        total = adv + a.lambda_cls * cls
-        return total, {"d_adv": adv, "d_cls": cls, "d_total": total}
+    def _gradient_penalty(self, d_name, real, fake, eps):
+        """WGAN-GP: mean((|grad_x sum D(x)[patch]| - 1)^2) at x = eps real +
+        (1 - eps) fake, interpolated in f32 and cast to the real images'
+        dtype; the first scale's patch under ``ms_dis``. The gradient keeps
+        its graph, so the penalty's own gradient reaches D's parameters (a
+        double backward through D), from the stored spectral ``u``."""
+        x = (eps * real.float() + (1.0 - eps) * fake.float()).detach().requires_grad_(True)
+        out = self.nets[d_name](x.to(real.dtype))
+        pred = out[0][0] if isinstance(out, list) else out[0]
+        (g,) = torch.autograd.grad(pred.float().sum(), x, create_graph=True)
+        norms = torch.sqrt(g.square().sum(dim=(1, 2, 3)) + 1e-12)
+        return (norms - 1.0).square().mean()
 
-    def _update_d(self, d_name, img, fake, c_org, lr, logs, prefix):
-        total, d_logs = self._d_loss(d_name, img, fake, c_org)
+    def _d_loss(self, d_name, real, fake, c_org, gp_eps=None):
+        """One D forward over concat(fake, real), recording the spectral
+        ``u`` it reaches: the adversarial terms (hinge's D form, RaGAN's, or
+        ``gan_loss`` per half; under ``ms_dis`` ``gan_loss`` per half and
+        scale, whatever the mode), the domain classification on the real
+        half, and with ``gp_eps`` under WGAN-GP the penalty."""
+        a = self.args
+        mode = a.gan_mode
+        b_f = fake.shape[0]
+        net = self.nets[d_name]
+        with spectral.recording(net):
+            out = net(torch.cat([fake, real.to(fake.dtype)]))
+        if a.ms_dis:
+            adv = sum(L.gan_loss(p[:b_f], False, mode) + L.gan_loss(p[b_f:], True, mode)
+                      for p, _ in out)
+            cls = sum(L.bce_logits_loss(c[b_f:], c_org) for _, c in out)
+        else:
+            pred_fake, pred_real = out[0][:b_f], out[0][b_f:]
+            if a.use_ragan:
+                adv = L.ragan_loss(pred_real, pred_fake, True, mode)
+            elif "hinge" in mode:
+                adv = L.hinge_d_loss(pred_real, pred_fake)
+            else:
+                adv = L.gan_loss(pred_fake, False, mode) + L.gan_loss(pred_real, True, mode)
+            cls = L.bce_logits_loss(out[1][b_f:], c_org)
+        total = adv + a.lambda_cls * cls
+        logs = {"d_adv": adv, "d_cls": cls, "d_total": total}
+        if gp_eps is not None:
+            gp = self._gradient_penalty(d_name, real, fake, gp_eps)
+            total = total + float(a.lambda_gp) * gp
+            logs.update(d_gp=gp, d_total=total)
+        return total, logs
+
+    def _update_d(self, d_name, img, fake, c_org, lr, logs, prefix, draws):
+        """One discriminator's update; its spectral ``u`` is stored after.
+        Under WGAN-GP the penalty's eps is the draw ``<prefix>.gp_eps``
+        (2b, 1, 1, 1); without it (no generator), no penalty, as the JAX
+        package's step without an rng."""
+        a = self.args
+        gp_eps = None
+        if "wgangp" in a.gan_mode and float(a.lambda_gp or 0.0) > 0.0:
+            gp_eps = draws.uniform(f"{prefix}.gp_eps", (fake.shape[0], 1, 1, 1))
+        total, d_logs = self._d_loss(d_name, img, fake, c_org, gp_eps)
         self._update((d_name,), total, lr)
+        spectral.commit(self.nets[d_name])
         d_logs = {k: v.detach() for k, v in d_logs.items()}
         logs.update({f"{prefix}_{k}": v for k, v in d_logs.items()})
         logs.update(d_logs)  # the JAX package's keys: the last write (d2) wins
 
-    def _g_adv_loss(self, fake, c_org, d_name):
-        pred, cls = self.nets[d_name](fake)
-        return (L.gan_loss(pred, True, self.args.gan_mode),
-                L.bce_logits_loss(cls, c_org) * self.args.lambda_cls_G)
+    def _g_adv_loss(self, img, fake, c_org, d_fake, d_real=None):
+        """(adversarial, weighted classification) terms of the generator on
+        ``d_fake``'s logits of ``fake``: ``gan_loss`` per scale under
+        ``ms_dis``; RaGAN's against ``d_real``'s (default ``d_fake``) logits
+        of the real images; hinge's G form; else ``gan_loss``."""
+        a = self.args
+        mode = a.gan_mode
+        if a.ms_dis:
+            outs = self.nets[d_fake](fake)
+            return (sum(L.gan_loss(p, True, mode) for p, _ in outs),
+                    sum(L.bce_logits_loss(c, c_org) for _, c in outs) * a.lambda_cls_G)
+        pred_fake, cls = self.nets[d_fake](fake)
+        if a.use_ragan:
+            pred_real, _ = self.nets[d_real or d_fake](img)
+            adv = L.ragan_loss(pred_real, pred_fake, False, mode)
+        elif "hinge" in mode:
+            adv = L.hinge_g_loss(pred_fake)
+        else:
+            adv = L.gan_loss(pred_fake, True, mode)
+        return adv, L.bce_logits_loss(cls, c_org) * a.lambda_cls_G
 
-    def _g1_loss(self, img, c_org, b, draws):
-        """G phase 1: translation, self and cycle reconstruction, the KL
-        terms (the style code's L2 without ``reparam``), the content
-        adversary and D1's terms. Returns (total, logs)."""
+    def _perceptual_term(self, img, fake):
+        return self.perceptual(img, fake) * self.args.lambda_perceptual
+
+    def _g1_forward(self, img, c_org, b, draws):
+        """G phase 1 without D1's terms: translation, self and cycle
+        reconstruction, the KL terms (the style code's L2 without
+        ``reparam``), the content adversary and the perceptual term ``g_p``
+        on [img_ab, img_ba]. Returns (total, img_fake, the detached content
+        codes (z_ca, z_cb), logs)."""
         a = self.args
         cls_a, cls_b = c_org[:b], c_org[b:]
         z_c = self._content(img, draws, "g1.noise")
         z_s, mu, logvar = self._style(img, c_org, draws, "g1.eps")
         z_ca, z_cb, z_sa, z_sb = z_c[:b], z_c[b:], z_s[:b], z_s[b:]
-        fakes = self.decode(torch.cat([z_cb, z_ca, z_ca, z_cb]),
-                            torch.cat([z_sa, z_sa, z_sb, z_sb]),
-                            torch.cat([cls_a, cls_a, cls_b, cls_b]), draws.masks("g1.drop"))
+        fakes = self._decode(torch.cat([z_cb, z_ca, z_ca, z_cb]),
+                             torch.cat([z_sa, z_sa, z_sb, z_sb]),
+                             torch.cat([cls_a, cls_a, cls_b, cls_b]), draws, "g1.drop")
         img_ba, img_aa, img_ab, img_bb = fakes.chunk(4)
         img_fake = torch.cat([img_ba, img_ab])
         img_self = torch.cat([img_aa, img_bb])
         z_c_rec = self._content(img_fake, draws, "g1.noise_rec")
         z_s_rec, _, _ = self._style(img_fake, c_org, draws, "g1.eps_rec")
-        img_recon = self.decode(torch.cat([z_c_rec[b:], z_c_rec[:b]]),
-                                torch.cat([z_s_rec[:b], z_s_rec[b:]]), c_org,
-                                draws.masks("g1.drop_rec"))
+        img_recon = self._decode(torch.cat([z_c_rec[b:], z_c_rec[:b]]),
+                                 torch.cat([z_s_rec[:b], z_s_rec[b:]]), c_org, draws,
+                                 "g1.drop_rec")
         logs = dict(
             l1_self_rec=L.l1_loss(img, img_self) * a.lambda_rec,
             l1_cc_rec=L.l1_loss(img, img_recon) * a.lambda_rec,
@@ -341,43 +473,107 @@ class TranslationModel(Model):
         if a.use_dis_content:
             logs["g_content"] = L.bce_logits_loss(self.nets.content_discriminator(z_c), 1.0 - c_org)
             total = total + logs["g_content"]
-        adv, cls = self._g_adv_loss(img_fake, c_org, "discriminator1")
+        if self.perceptual is not None:
+            logs["g_p"] = self._perceptual_term(img, torch.cat([img_ab, img_ba]))
+            total = total + logs["g_p"]
+        return total, img_fake, (z_ca.detach(), z_cb.detach()), logs
+
+    def _g1_loss(self, img, c_org, b, draws):
+        """G phase 1 with D1's terms. Returns (total, logs)."""
+        total, img_fake, _, logs = self._g1_forward(img, c_org, b, draws)
+        adv, cls = self._g_adv_loss(img, img_fake, c_org, "discriminator1")
         total = total + adv + cls
         logs.update(g_adv=adv, g_cls=cls, total_g=total)
         return total, logs
 
-    def _g2_loss(self, img, c_org, b, z_sr2, draws):
-        """G phase 2: decode with a random style, regress it back (on mu, or
-        on the style code itself without ``reparam``), and D2's terms.
-        Returns (total, logs)."""
+    def _g2_forward(self, img, c_org, b, z_sr2, draws):
+        """G phase 2 without the adversary: decode with a random style,
+        regress it back (on mu, or on the style code itself without
+        ``reparam``), and the perceptual term ``g_p2`` on [img_ar, img_br].
+        Returns (total, img_random, logs)."""
         z_c = self._content(img, draws, "g2.noise")
-        img_random = self.decode(torch.cat([z_c[b:], z_c[:b]]), torch.cat([z_sr2, z_sr2]), c_org,
-                                 draws.masks("g2.drop"))
+        img_random = self._decode(torch.cat([z_c[b:], z_c[:b]]), torch.cat([z_sr2, z_sr2]),
+                                  c_org, draws, "g2.drop")
         z_rec, mu2, _ = self._style(img_random, c_org, draws, "g2.eps")
         target = mu2 if self.reparam else z_rec
         loss_z = (L.l1_loss(target[:b], z_sr2) + L.l1_loss(target[b:], z_sr2)) * 10.0
-        adv2, cls2 = self._g_adv_loss(img_random, c_org, "discriminator2")
-        return loss_z + adv2 + cls2, dict(l1_recon_z=loss_z, gan2=adv2, gan2_cls=cls2)
+        logs = dict(l1_recon_z=loss_z)
+        total = loss_z
+        if self.perceptual is not None:
+            logs["g_p2"] = self._perceptual_term(
+                img, torch.cat([img_random[b:], img_random[:b]]))
+            total = total + logs["g_p2"]
+        return total, img_random, logs
+
+    def _g2_phase(self, img, c_org, b, draws, lr, logs) -> None:
+        """G phase 2 and its update of the content encoder and the decoder.
+        The adversary is D2, except under ``ms_dis`` (D1) and RaGAN (D1's
+        logits of the fakes against D2's of the real images), the JAX
+        package's selection."""
+        a = self.args
+        z_sr2 = draws.normal("z_sr2", (b, self.latent_dim), required=True)
+        total, img_random, g_logs = self._g2_forward(img, c_org, b, z_sr2, draws)
+        if a.ms_dis:
+            adv2, cls2 = self._g_adv_loss(img, img_random, c_org, "discriminator1")
+        elif a.use_ragan:
+            adv2, cls2 = self._g_adv_loss(img, img_random, c_org, "discriminator1",
+                                          "discriminator2")
+        else:
+            adv2, cls2 = self._g_adv_loss(img, img_random, c_org, "discriminator2")
+        self._update(("content_encoder", "decoder"), total + adv2 + cls2, lr)
+        g_logs.update(gan2=adv2, gan2_cls=cls2)
+        logs.update({k: v.detach() for k, v in g_logs.items()})
+
+    def _reference_step(self, img, c_org, b, draws, lr, logs) -> None:
+        """The reference GAN step: D fakes from their own forward, D1, D2,
+        then G phase 1 against the updated D1, then G phase 2."""
+        z_sr = draws.normal("z_sr", (b, self.latent_dim), required=True)
+        img_fake, img_random = self._make_d_fakes(img, c_org, b, z_sr, draws)
+        self._update_d("discriminator1", img, img_fake, c_org, lr, logs, "d1", draws)
+        self._update_d("discriminator2", img, img_random, c_org, lr, logs, "d2", draws)
+        total, g_logs = self._g1_loss(img, c_org, b, draws)
+        self._update(GEN_NETS, total, lr)
+        logs.update({k: v.detach() for k, v in g_logs.items()})
+        self._g2_phase(img, c_org, b, draws, lr, logs)
+
+    def _fused_step(self, img, c_org, b, draws, lr, logs) -> None:
+        """``--gan_step fused``: G phase 1's forward at the pre-update
+        params, its graph kept; D1 on its detached fakes; D2 on one
+        random-style 2b decode of its detached content codes (no gradient,
+        dropout masks ``d2.drop``); then D1's terms against the updated D1,
+        their gradient at the fakes, and the generators' gradients in one
+        backward of (the phase-1 total, the fakes) with (1, that gradient),
+        the saved vjp of the JAX package; then G phase 2. G1's graph holds
+        nothing that D1 or D2 update (the content discriminator, which it
+        does hold, is not updated here): autograd's version counters would
+        say so at the backward."""
+        aux, img_fake, (z_ca, z_cb), g_logs = self._g1_forward(img, c_org, b, draws)
+        self._update_d("discriminator1", img, img_fake.detach(), c_org, lr, logs, "d1", draws)
+        z_sr = draws.normal("z_sr", (b, self.latent_dim), required=True)
+        with torch.no_grad():
+            img_random = self._decode(torch.cat([z_cb, z_ca]), torch.cat([z_sr, z_sr]), c_org,
+                                      draws, "d2.drop")
+        self._update_d("discriminator2", img, img_random, c_org, lr, logs, "d2", draws)
+        fake = img_fake.detach().requires_grad_(True)
+        adv, cls = self._g_adv_loss(img, fake, c_org, "discriminator1")
+        advcls = adv + cls
+        (fake_cot,) = torch.autograd.grad(advcls, fake)
+        self._update(GEN_NETS, [aux, img_fake], lr, [torch.ones_like(aux), fake_cot])
+        g_logs.update(g_adv=adv, g_cls=cls, total_g=aux + advcls)
+        logs.update({k: v.detach() for k, v in g_logs.items()})
+        self._g2_phase(img, c_org, b, draws, lr, logs)
 
     def main_step(self, batch, draws: Optional[StepDraws] = None) -> dict:
-        """D1, D2, G phase 1, G phase 2; returns the logged losses (0-dim
-        tensors on the device) and ``lr``."""
+        """D1, D2, G phase 1, G phase 2, by ``args.gan_step`` ("reference"
+        or "fused"); returns the logged losses (0-dim tensors on the
+        device) and ``lr``."""
         img, c_org, b = self._batch(batch)
         draws = draws or StepDraws(self.generator)
         lr = self.schedule(self.state.step)
         logs = {}
+        step = self._fused_step if self.args.gan_step == "fused" else self._reference_step
         with fused_train_trace(self.args.fused_resblock or "off"):
-            z_sr = draws.normal("z_sr", (b, self.latent_dim), required=True)
-            img_fake, img_random = self._make_d_fakes(img, c_org, b, z_sr, draws)
-            self._update_d("discriminator1", img, img_fake, c_org, lr, logs, "d1")
-            self._update_d("discriminator2", img, img_random, c_org, lr, logs, "d2")
-            total, g_logs = self._g1_loss(img, c_org, b, draws)
-            self._update(GEN_NETS, total, lr)
-            logs.update({k: v.detach() for k, v in g_logs.items()})
-            z_sr2 = draws.normal("z_sr2", (b, self.latent_dim), required=True)
-            total, g_logs = self._g2_loss(img, c_org, b, z_sr2, draws)
-            self._update(("content_encoder", "decoder"), total, lr)
-            logs.update({k: v.detach() for k, v in g_logs.items()})
+            step(img, c_org, b, draws, lr, logs)
         logs["lr"] = lr
         self.state.step += 1
         return logs

@@ -21,9 +21,10 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 
 def moments_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, C, H, W) -> (sum, sumsq) over H, W, both f32 (B, C): summed in
-    f64 and rounded once, as the kernel does."""
+    f64 and rounded once, as the kernel does; f64 for an f64 x."""
     x64 = x.double()
-    return x64.sum(dim=(2, 3)).float(), (x64 * x64).sum(dim=(2, 3)).float()
+    out = torch.promote_types(x.dtype, torch.float32)
+    return x64.sum(dim=(2, 3)).to(out), (x64 * x64).sum(dim=(2, 3)).to(out)
 
 
 def _library() -> ctypes.CDLL:

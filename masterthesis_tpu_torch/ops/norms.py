@@ -18,7 +18,10 @@ itself is plain torch.
 Gradients. Statistics are a ``torch.autograd.Function`` whose backward is the
 JAX package's ``_moments_bwd`` (``ops/pallas/moments.py:267-277``):
 dx = (dmean + 2 (x - mean) dvar) / N; autograd through the normalize then
-gives the analytic instance- and layer-norm VJPs of ``ops/norms.py``. AdaIN
+gives the analytic instance- and layer-norm VJPs of ``ops/norms.py``. That
+backward is itself differentiable (torch ops on x and the saved mean), so
+WGAN-GP's double backward runs through it; on the CPU an f64 input keeps
+f64 statistics, for ``gradgradcheck``. AdaIN
 is a Function whose backward is ``_fused_adain_bwd`` (``ops/pallas/adain.py``),
 over centered statistics. Both backwards are elementwise torch, as in the JAX
 package, where they are jnp and no Pallas kernel.
@@ -54,25 +57,26 @@ class _Moments(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dmean, dvar):
         x, mean = ctx.saved_tensors
-        dx = (dmean + 2.0 * (x.float() - mean) * dvar) / ctx.n
+        dx = (dmean + 2.0 * (x.to(mean.dtype) - mean) * dvar) / ctx.n
         return dx.to(x.dtype), None
 
 
 def moments(x: torch.Tensor, per_sample: bool = False):
-    """f32 mean and variance of NCHW ``x`` over (H, W), shaped (B, C, 1, 1),
-    or over (C, H, W) when ``per_sample``, shaped (B, 1, 1, 1)."""
+    """f32 (f64 for f64 ``x``) mean and variance of NCHW ``x`` over (H, W),
+    shaped (B, C, 1, 1), or over (C, H, W) when ``per_sample``, shaped
+    (B, 1, 1, 1)."""
     return _Moments.apply(x, per_sample)
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     mean, var = moments(x)
-    return ((x.float() - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return ((x.to(mean.dtype) - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale=None, bias=None, eps: float = EPS) -> torch.Tensor:
     """Normalize each sample over (C, H, W); ``scale``/``bias`` are (C,)."""
     mean, var = moments(x, per_sample=True)
-    y = (x.float() - mean) * torch.rsqrt(var + eps)
+    y = (x.to(mean.dtype) - mean) * torch.rsqrt(var + eps)
     if scale is not None:
         y = y * scale.float()[:, None, None]
     if bias is not None:

@@ -12,10 +12,21 @@ so each port parameter finds its leaf by its own path. Per leaf:
   transposed conv correlates with the flipped kernel;
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in); ``blocks.Dense`` nests
   its leaves under ``Dense_0``, AdaIN's ``style_proj`` does not;
-- LayerNorm ``scale``/``bias`` (C,) as they are; biases as they are.
+- LayerNorm ``scale``/``bias`` (C,) as they are; biases as they are;
+- with ``extra`` (the JAX state's ``extra`` tree, ``{net: {"layer0":
+  {"conv": {"sn": {"u": (out,)}}}}}`` under ``--dis_sn``), each spectral
+  norm's ``u`` buffer as it is.
 
+The discriminators of either kind (``Discriminator``,
+``MultiScaleDiscriminator``) map by their module names like every other net.
 It raises on a leaf it does not consume and on a port parameter it leaves
-unset, so a model whose shape differs from the tree's cannot load silently.
+unset, so a model whose shape differs from the tree's cannot load silently;
+without ``extra``, the ``u`` buffers are left out of the state_dicts, which
+``load_params`` then refuses.
+
+``perceptual_from_jax(perceptual_params, model)`` maps the JAX model's
+``perceptual_params`` (``{"vgg": {"conv1_1": {"kernel", "bias"}, ...}}``)
+to a state_dict of the port's ``model.perceptual``, in the same way.
 
 ``quant_from_jax(quant_cols, model)`` does the same for the JAX package's
 int8 amax tree (``TranslationModel.quant_cols``: ``{net: {"down0": {"conv":
@@ -31,6 +42,7 @@ from torch import nn
 from masterthesis_tpu_torch.models.blocks import Conv2d, ConvTranspose2d, Dense
 from masterthesis_tpu_torch.models.quantize import LEAF, int8_convs
 from masterthesis_tpu_torch.ops.norms import LayerNorm
+from masterthesis_tpu_torch.ops.spectral import SpectralNorm
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -73,38 +85,60 @@ def _leaf(module: nn.Module, prefix: str, pname: str):
         return base + ("kernel" if pname == "weight" else pname), (
             np.transpose if pname == "weight" else _same
         )
-    if isinstance(module, LayerNorm):
+    if isinstance(module, (LayerNorm, SpectralNorm)):
         return base + pname, _same
     raise TypeError(f"no JAX mapping for parameter {pname} of {type(module).__name__}")
 
 
-def params_from_jax(tree: dict, model) -> dict[str, dict[str, torch.Tensor]]:
-    """One state_dict per net of ``model`` from the JAX param ``tree``."""
+def _state_dict(what: str, net: nn.Module, leaves: dict[str, np.ndarray],
+                with_u: bool) -> dict[str, torch.Tensor]:
+    """``net``'s state_dict from its flat JAX ``leaves``; each spectral
+    norm's ``u`` too with ``with_u``."""
+    consumed, sd = set(), {}
+    for mod_name, module in net.named_modules():
+        entries = list(module.named_parameters(recurse=False))
+        if with_u and isinstance(module, SpectralNorm):
+            entries.append(("u", module.u))
+        for pname, p in entries:
+            key = f"{mod_name}.{pname}" if mod_name else pname
+            path, convert = _leaf(module, mod_name.replace(".", "/"), pname)
+            if path not in leaves:
+                raise KeyError(f"{what}: no JAX leaf {path} for port parameter {key}")
+            value = np.array(convert(leaves[path]), dtype=np.float32, order="C", copy=True)
+            if value.shape != tuple(p.shape):
+                raise ValueError(
+                    f"{what}.{key}: shape {tuple(p.shape)}, JAX leaf {path} converts to {value.shape}"
+                )
+            sd[key] = torch.from_numpy(value)
+            consumed.add(path)
+    unused = sorted(set(leaves) - consumed)
+    if unused:
+        raise KeyError(f"{what}: JAX leaves with no port parameter: {unused}")
+    return sd
+
+
+def params_from_jax(tree: dict, model, extra: dict | None = None) -> dict[str, dict[str, torch.Tensor]]:
+    """One state_dict per net of ``model`` from the JAX param ``tree`` (and
+    the spectral ``u`` vectors from ``extra``, the JAX state's extra tree)."""
     if set(tree) != set(model.nets):
         raise KeyError(f"JAX nets {sorted(tree)} != port nets {sorted(model.nets)}")
+    if extra is not None and not set(extra) <= set(model.nets):
+        raise KeyError(f"JAX extra for {sorted(set(extra) - set(model.nets))}, not port nets")
     out = {}
     for net_name, net in model.nets.items():
         leaves = _flatten(tree[net_name])
-        consumed, sd = set(), {}
-        for mod_name, module in net.named_modules():
-            for pname, p in module.named_parameters(recurse=False):
-                key = f"{mod_name}.{pname}" if mod_name else pname
-                path, convert = _leaf(module, mod_name.replace(".", "/"), pname)
-                if path not in leaves:
-                    raise KeyError(f"{net_name}: no JAX leaf {path} for port parameter {key}")
-                value = np.array(convert(leaves[path]), dtype=np.float32, order="C", copy=True)
-                if value.shape != tuple(p.shape):
-                    raise ValueError(
-                        f"{net_name}.{key}: shape {tuple(p.shape)}, JAX leaf {path} "
-                        f"converts to {value.shape}"
-                    )
-                sd[key] = torch.from_numpy(value)
-                consumed.add(path)
-        unused = sorted(set(leaves) - consumed)
-        if unused:
-            raise KeyError(f"{net_name}: JAX leaves with no port parameter: {unused}")
-        out[net_name] = sd
+        if extra is not None:
+            leaves.update(_flatten(extra.get(net_name) or {}))
+        out[net_name] = _state_dict(net_name, net, leaves, extra is not None)
     return out
+
+
+def perceptual_from_jax(perceptual_params: dict, model) -> dict[str, torch.Tensor]:
+    """A state_dict of ``model.perceptual`` from the JAX model's
+    ``perceptual_params``."""
+    if model.perceptual is None:
+        raise ValueError("the model has no perceptual loss (--vgg_loss)")
+    return _state_dict("perceptual", model.perceptual, _flatten(perceptual_params), False)
 
 
 def quant_from_jax(quant_cols: dict, model) -> dict[str, dict[str, torch.Tensor]]:

@@ -8,14 +8,23 @@ The JAX reference step is assembled from the JAX model's own pieces with
 tests/test_fused_step.py evaluates them: ``_make_d_fakes``, then per
 discriminator ``jax.value_and_grad(_d_loss)`` and ``apply_updates``, then
 ``_g1_loss`` over the generator nets and ``_g2_loss`` over the content
-encoder and the decoder, with the same ``z_sr``/``z_sr2``. With ``fused`` it
-runs inside ``set_fused_resblock("interpret")`` and ``fused_train_trace()``,
-restored in ``finally``. The weights are the port's seeded init (biases
+encoder and the decoder, with the same ``z_sr``/``z_sr2``. Its fused GAN
+step (``gan_step="fused"``, ``_main_step_fused_body``) so too: G1's fakes and
+content codes from ``_g1_forward`` at the step's first params, D1 on the
+fakes, D2 on a random-style decode of the codes, then ``_g1_forward``'s vjp
+at (1, the gradient of ``_g_adv_loss`` against the updated D1 at the
+fakes), then G2. Under ``--dis_sn`` the D updates store the ``u`` that
+``_d_loss(update_u=True)`` returns; WGAN-GP's penalty runs where a D's key
+is given (``gp_keys``). With ``fused`` it runs inside
+``set_fused_resblock("interpret")`` and ``fused_train_trace()``, restored in
+``finally``. The weights are the port's seeded init (biases
 redrawn small), carried into the JAX tree by the inverse of
 ``params_from_jax`` (which the round trip checks), so that no Flax init runs.
 :func:`jax_kernel_calls` counts the JAX package's kernel 9/10 calls while it
 traces, one per launch of the step it traces; :func:`jax_step_calls` counts
-them over a trace of the fused step alone, which runs nothing.
+them over a trace of the fused step alone, which runs nothing, and
+:func:`jax_body_calls` over a trace of the JAX package's whole main step
+body, reference or fused.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from masterthesis_tpu.models import AdaINModel as JaxAdaINModel
 from masterthesis_tpu.models import BaseModel as JaxBaseModel
 from masterthesis_tpu.models import losses as JL
 from masterthesis_tpu.models.functions import apply_updates as jax_apply_updates
+from masterthesis_tpu.models.state import TrainState
 from masterthesis_tpu.ops.pallas import resblock_bf16 as jrb
 from masterthesis_tpu_torch.arguments import default_train_args
 from masterthesis_tpu_torch.models import AdaINModel, BaseModel
@@ -38,6 +48,7 @@ from masterthesis_tpu_torch.models import translation
 from masterthesis_tpu_torch.models.blocks import ConvTranspose2d
 from masterthesis_tpu_torch.models.translation import StepDraws
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
+from masterthesis_tpu_torch.ops.spectral import SpectralNorm
 from masterthesis_tpu_torch.tools.convert_jax import _leaf, params_from_jax
 
 B, SIZE, K, LATENT = 2, 32, 3, 4
@@ -47,13 +58,14 @@ GEN_NETS = ("content_encoder", "style_encoder", "decoder")
 JAX_MODELS = {AdaINModel: JaxAdaINModel, BaseModel: JaxBaseModel}
 
 
-def port_model(dtype: str, fused: str, seed: int = 0, model_cls=AdaINModel, **flags):
-    """The port's model (``model_cls`` with ``flags``) at its seeded init, with
-    every bias but a norm's redrawn small: the init's zero conv biases would
-    get gradients of mere roundoff (they sit before a norm), whose Adam steps
-    go either way."""
+def port_model(dtype: str, fused: str, seed: int = 0, model_cls=AdaINModel, shape=SHAPE,
+               **flags):
+    """The port's model (``model_cls`` with ``flags``, at ``shape``) at its
+    seeded init, with every bias but a norm's redrawn small: the init's zero
+    conv biases would get gradients of mere roundoff (they sit before a
+    norm), whose Adam steps go either way."""
     model = model_cls(default_train_args(compute_dtype=dtype, fused_resblock=fused, seed=seed,
-                                         **flags, **SHAPE), device="cpu")
+                                         **{**shape, **flags}), device="cpu")
     g = torch.Generator().manual_seed(seed + 100)
     with torch.no_grad():
         for net in model.nets.values():
@@ -73,21 +85,42 @@ def _from_port(module, pname, value: np.ndarray) -> np.ndarray:
     return np.transpose(value, (2, 3, 1, 0))
 
 
+def jax_tree_of(model, net_name: str, values: dict) -> dict:
+    """One net's JAX tree of port tensors by state_dict key (params or
+    gradients): params_from_jax inverted."""
+    out = {}
+    for mod_name, module in model.nets[net_name].named_modules():
+        for pname, _ in module.named_parameters(recurse=False):
+            key = f"{mod_name}.{pname}" if mod_name else pname
+            path, _ = _leaf(module, mod_name.replace(".", "/"), pname)
+            value = _from_port(module, pname, values[key].detach().float().numpy())
+            node = out
+            *parents, leaf = path.split("/")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = np.array(value, dtype=np.float32, copy=True)
+    return out
+
+
 def jax_tree(model) -> dict:
     """The JAX param tree of the port's weights: params_from_jax inverted."""
-    tree = {}
+    return {n: jax_tree_of(model, n, dict(net.named_parameters()))
+            for n, net in model.nets.items()}
+
+
+def jax_extra(model) -> dict:
+    """The JAX state's ``extra`` tree of the port's spectral ``u`` buffers
+    ({} for a net without spectral norm)."""
+    extra = {}
     for net_name, net in model.nets.items():
-        out = tree.setdefault(net_name, {})
+        out = extra.setdefault(net_name, {})
         for mod_name, module in net.named_modules():
-            for pname, p in module.named_parameters(recurse=False):
-                path, _ = _leaf(module, mod_name.replace(".", "/"), pname)
-                value = _from_port(module, pname, p.detach().float().numpy())
+            if isinstance(module, SpectralNorm):
                 node = out
-                *parents, leaf = path.split("/")
-                for k in parents:
+                for k in mod_name.split("."):
                     node = node.setdefault(k, {})
-                node[leaf] = np.array(value, dtype=np.float32, copy=True)
-    return tree
+                node["u"] = module.u.detach().float().numpy().copy()
+    return extra
 
 
 def to_port(model, net: str, tree: dict, like: dict) -> dict:
@@ -112,8 +145,9 @@ def batch_and_draws(seed: int = 0):
 @contextlib.contextmanager
 def recording(model):
     """Record every optimizer step of the port inside the block: a list of
-    (net, its gradients by state_dict key, the whole model's JAX tree just
-    before the step). A missing gradient is recorded as zeros."""
+    (net, its gradients by state_dict key, the whole model's JAX tree and
+    extra tree just before the step). A missing gradient is recorded as
+    zeros."""
     names = {id(s): n for n, s in model.state.opt_state.items()}
     updates = []
     real = translation.apply_updates
@@ -122,7 +156,8 @@ def recording(model):
         net = names[id(state)]
         keys = [k for k, _ in model.nets[net].named_parameters()]
         updates.append((net, {k: (torch.zeros_like(p) if g is None else g.detach().float().clone())
-                              for k, p, g in zip(keys, params, grads)}, jax_tree(model)))
+                              for k, p, g in zip(keys, params, grads)}, jax_tree(model),
+                        jax_extra(model)))
         return real(params, grads, state, *a, **kw)
 
     translation.apply_updates = record
@@ -132,19 +167,26 @@ def recording(model):
         translation.apply_updates = real
 
 
-def run_port(model, batch, z_sr, z_sr2):
-    """One main step without noise. Returns (logs, grads by phase, trees):
-    grads as [{net: {key: tensor}}] for D1, D2, G1 (three nets), G2 (two),
-    and trees the model's JAX trees before each phase and after the step."""
+def run_port(model, batch, z_sr, z_sr2, extras=None, **given):
+    """One main step without noise (``given``: further draws by name).
+    Returns (logs, grads by phase, trees): grads as [{net: {key: tensor}}]
+    for D1, D2, G1 (three nets), G2 (two), and trees the model's JAX trees
+    before each phase and after the step; ``extras``, a list, gets the extra
+    trees at the same points."""
     with recording(model) as updates:
-        draws = StepDraws(z_sr=torch.from_numpy(z_sr), z_sr2=torch.from_numpy(z_sr2))
+        draws = StepDraws(z_sr=torch.from_numpy(z_sr), z_sr2=torch.from_numpy(z_sr2),
+                          **{k: torch.as_tensor(v) for k, v in given.items()})
         logs = model.optimize_parameters(batch, 0, draws)
     phases, trees, i = [], [], 0
     for n in (1, 1, 3, 2):
-        phases.append({net: g for net, g, _ in updates[i:i + n]})
+        phases.append({net: g for net, g, *_ in updates[i:i + n]})
         trees.append(updates[i][2])
+        if extras is not None:
+            extras.append(updates[i][3])
         i += n
     assert i == len(updates), [u[0] for u in updates]
+    if extras is not None:
+        extras.append(jax_extra(model))
     return logs, phases, trees + [jax_tree(model)]
 
 
@@ -179,22 +221,24 @@ def jax_model(args_kw, model_cls=AdaINModel):
     return jm
 
 
-def _jax_pieces(jm, batch, z_sr, z_sr2):
+def _jax_pieces(jm, batch, z_sr, z_sr2, aux=None):
     """The JAX step's pieces on one batch: (img, c_org, the D fakes of the
     params, G1's loss and G2's loss of (the updated nets' params, all
-    params))."""
+    params, the extra tree)); ``aux`` the perceptual params."""
     img = jnp.concatenate([batch["x1"], batch["x2"]])
     c_org = jnp.concatenate([batch["y1"], batch["y2"]])
+    aux = aux or {}
+    b = len(batch["x1"])
 
     def d_fakes(p):
-        return jm._make_d_fakes(p, {}, img, c_org, B, jnp.asarray(z_sr), None, train=False)
+        return jm._make_d_fakes(p, {}, img, c_org, b, jnp.asarray(z_sr), None, train=False)
 
-    def g1(gp, params):
-        return jm._g1_loss({**params, **gp}, {}, img, c_org, B, None, {}, train=False)
+    def g1(gp, params, extra=None):
+        return jm._g1_loss({**params, **gp}, extra or {}, img, c_org, b, None, aux, train=False)
 
-    def g2(gp, params):
-        return jm._g2_loss({**params, **gp}, {}, img, c_org, B, jnp.asarray(z_sr2), None,
-                           {}, train=False)
+    def g2(gp, params, extra=None):
+        return jm._g2_loss({**params, **gp}, extra or {}, img, c_org, b, jnp.asarray(z_sr2),
+                           None, aux, train=False)
 
     return img, c_org, d_fakes, g1, g2
 
@@ -217,17 +261,27 @@ def jax_step_calls(args_kw, tree, batch, z_sr, z_sr2, model_cls=AdaINModel) -> t
     return calls["fwd"], calls["bwd"]
 
 
-def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINModel):
-    """The JAX reference main step, each phase at the port's parameters at
-    the start of that phase (``trees`` from :func:`run_port`), so that a
-    difference in one phase does not carry into the next through Adam, whose
-    first steps are about lr x sign(gradient). The Adam state is the JAX
-    package's own. Returns (logs, grads by phase, each phase's updated nets),
-    grads and nets as [{net: tree}]."""
+def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINModel,
+            gan_step: str = "reference", extras=None, gp_keys=None, aux=None,
+            spectral_out=None):
+    """The JAX main step (``gan_step`` "reference" or "fused"), each phase at
+    the port's parameters at the start of that phase (``trees`` from
+    :func:`run_port`, and ``extras``, its extra trees, under ``--dis_sn``), so
+    that a difference in one phase does not carry into the next through
+    Adam, whose first steps are about lr x sign(gradient). The Adam state is
+    the JAX package's own. ``gp_keys``: {"d1" | "d2": key} for WGAN-GP's
+    penalty; ``aux``: the perceptual params; ``spectral_out``, a dict, gets
+    each D's stored ``u`` tree. Returns (logs, grads by phase, each phase's
+    updated nets), grads and nets as [{net: tree}]."""
     jm = jax_model(args_kw, model_cls)
     trees = [jax.tree_util.tree_map(jnp.asarray, t) for t in trees]
+    extras = [jax.tree_util.tree_map(jnp.asarray, e) for e in (extras or [{}] * len(trees))]
     opt = {n: jm.tx[n].init(trees[0][n]) for n in trees[0]}
-    img, c_org, d_fakes, g1, g2 = _jax_pieces(jm, batch, z_sr, z_sr2)
+    img, c_org, d_fakes, g1, g2 = _jax_pieces(jm, batch, z_sr, z_sr2, aux)
+    b = len(batch["x1"])
+    aux = aux or {}
+    sn = bool(jm.args.dis_sn)
+    gp_keys = gp_keys or {}
     lr = jm.schedule(jnp.zeros((), jnp.int32))
     logs, phases, updated = {}, [], []
 
@@ -238,31 +292,83 @@ def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINMode
         phases.append(dict(g))
         updated.append(new)
 
+    def update_d(i, d, f, prefix):
+        (_, d_logs), g = jax.jit(jax.value_and_grad(
+            lambda dp, p, ex, f, k: jm._d_loss(d, dp, p, ex, img, f, c_org, k, update_u=sn),
+            has_aux=True))(trees[i][d], trees[i], extras[i], f, gp_keys.get(prefix))
+        if sn and spectral_out is not None:
+            spectral_out[d] = d_logs["_spectral"]
+        d_logs.pop("_spectral", None)
+        logs.update({f"{prefix}_{k}": v for k, v in d_logs.items()})
+        logs.update(d_logs)
+        update(trees[i], (d,), {d: g})
+
+    def g1_fused(gp, p, ex):
+        """G1 of the fused step: _g1_forward's vjp at (1, the gradient of D1's
+        terms at the fakes); D1 in ``p`` is the updated one."""
+        (aux_total, fake, z_pack, g_logs), vjp = jax.vjp(
+            lambda gp_: jm._g1_forward({**p, **gp_}, ex, img, c_org, b, None, aux, train=False),
+            gp)
+
+        def adv1(f):
+            adv, cls = jm._g_adv_loss(p, ex, img, f, c_org, "discriminator1")
+            return adv + cls, (adv, cls)
+
+        (advcls, (adv, cls)), cot = jax.value_and_grad(adv1, has_aux=True)(fake)
+        (g,) = vjp((jnp.ones_like(aux_total), cot, jax.tree.map(jnp.zeros_like, z_pack),
+                    jax.tree.map(jnp.zeros_like, g_logs)))
+        return (aux_total + advcls, dict(g_logs, g_adv=adv, g_cls=cls,
+                                         total_g=aux_total + advcls)), g
+
     if fused:
         jrb.set_fused_resblock("interpret")
     try:
         # each piece jitted inside the context: the routing is read at trace time
         with jrb.fused_train_trace() if fused else contextlib.nullcontext():
-            fake, rand = jax.jit(d_fakes)(trees[0])
-            for i, (d, f, prefix) in enumerate((("discriminator1", fake, "d1"),
-                                                ("discriminator2", rand, "d2"))):
-                (_, d_logs), g = jax.jit(jax.value_and_grad(
-                    lambda dp, p, f, d=d: jm._d_loss(d, dp, p, {}, img, f, c_org),
-                    has_aux=True))(trees[i][d], trees[i], f)
-                logs.update({f"{prefix}_{k}": v for k, v in d_logs.items()})
-                logs.update(d_logs)
-                update(trees[i], (d,), {d: g})
-            for params, loss, nets in ((trees[2], g1, GEN_NETS),
-                                       (trees[3], g2, ("content_encoder", "decoder"))):
-                (_, g_logs), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-                    {n: params[n] for n in nets}, params)
+            if gan_step == "fused":
+                fake, (z_ca, z_cb) = jax.jit(lambda p: jax.tree.map(
+                    jax.lax.stop_gradient,
+                    jm._g1_forward(p, {}, img, c_org, b, None, aux, train=False)[1:3]))(trees[0])
+                update_d(0, "discriminator1", fake, "d1")
+                rand = jax.jit(lambda p: jm.decode(
+                    p, jnp.concatenate([z_cb, z_ca]), jnp.concatenate([z_sr, z_sr]), c_org,
+                    train=False))(trees[1])
+                update_d(1, "discriminator2", rand, "d2")
+                g1_grad = jax.jit(g1_fused)
+            else:
+                fake, rand = jax.jit(d_fakes)(trees[0])
+                update_d(0, "discriminator1", fake, "d1")
+                update_d(1, "discriminator2", rand, "d2")
+                g1_grad = jax.jit(jax.value_and_grad(g1, has_aux=True))
+            g2_grad = jax.jit(jax.value_and_grad(g2, has_aux=True))
+            for i, grad, nets in ((2, g1_grad, GEN_NETS), (3, g2_grad, ("content_encoder", "decoder"))):
+                (_, g_logs), g = grad({n: trees[i][n] for n in nets}, trees[i], extras[i])
                 logs.update(g_logs)
-                update(params, nets, g)
+                update(trees[i], nets, g)
     finally:
         jrb.set_fused_resblock("auto")
     logs["lr"] = lr
     to_np = lambda t: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), t)  # noqa: E731
     return to_np(logs), [to_np(p) for p in phases], [to_np(u) for u in updated]
+
+
+def jax_body_calls(args_kw, model, batch, gan_step: str, model_cls=AdaINModel) -> tuple[int, int]:
+    """The kernel 9 / 10 calls of the JAX package's whole main-step body
+    (``_main_step_body`` or ``_main_step_fused_body``) at the port model's
+    weights, counted over one trace (``jax.make_jaxpr``: nothing runs)."""
+    jm = jax_model(args_kw, model_cls)
+    params = jax.tree_util.tree_map(jnp.asarray, jax_tree(model))
+    state = TrainState.create(params, {n: jm.tx[n].init(params[n]) for n in params},
+                              jax.tree_util.tree_map(jnp.asarray, jax_extra(model)))
+    body = jm._main_step_fused_body if gan_step == "fused" else jm._main_step_body
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jrb.set_fused_resblock("interpret")
+    try:
+        with jax_kernel_calls() as calls, jrb.fused_train_trace():
+            jax.make_jaxpr(body)(state, jbatch, jax.random.PRNGKey(0), {})
+    finally:
+        jrb.set_fused_resblock("auto")
+    return calls["fwd"], calls["bwd"]
 
 
 def _norm(tensors) -> float:
@@ -377,7 +483,7 @@ def assert_content_step_matches(model, batch, args_kw, model_cls=AdaINModel) -> 
         logs = model.optimize_parameters(batch, 1, StepDraws())
     assert krb.resblock_fwd_plain.calls == f0 and set(logs) == {"d_content_cls"}
     assert model.state.step == step + 1
-    [(net, grads, tree)] = updates
+    [(net, grads, tree, _)] = updates
 
     jm = jax_model(args_kw, model_cls)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
