@@ -134,7 +134,28 @@ against its plain PyTorch version.
    blocks of G1 and G2 recomputed in backward), finite losses, every net
    but the content discriminator moved; seconds per step and peak memory
    beside the fused step's. Cumulative seconds are printed after 7, 8, 9.
-10. Last lines: the card, the ``{"kernels": [...]}`` line, then
+10. ``train_cli``: the train CLI, ``TrainArguments().parse(argv)`` and
+   ``Trainer().run(args)``, at 9's fused config (AdaINModel, 286 -> 256 px,
+   dim 64, latent 8, 4 domains, batch 8, bf16, the content discriminator
+   with d_iter 3, ``--gan_step fused``, ``--fused_resblock auto``) over a
+   seeded tree of 4 x 8 JPEGs at 540 x 960 (written under ``chiprun_out/``
+   and removed after), 15 iterations (five d_iter cycles), once with host
+   transforms (the native decode where its library builds, else PIL's) and
+   once with ``--device_preproc``, the launch counts set to 0 before each
+   run and read after. Every main step must launch kernels 9/10 28 / 24
+   times and the moments kernel as often as in 9; losses finite;
+   ``model_{k}.ckpt``/``opt_{k}.ckpt`` at 0, 9 and the final 15, and
+   ``gen_0.jpg``, ``gen_9.jpg``, as the JAX package's cadence gives. A
+   fresh trainer resumed from the checkpoint at 9 (``--resume``,
+   ``--resume_opt``, ``--last_iter 9``) must restore params, Adam state and
+   step bit for bit, and its iterations 10-12 give the unbroken run's
+   losses within 1e-5 relative. Prints the trainer's it/s per cycle and
+   schedule img/s beside 9's fused step, host syncs inside the steps of one
+   cycle, the device idle share over that cycle (torch.profiler),
+   checkpoint seconds and sizes; then the loader alone in img/s (native,
+   PIL, the host side of ``--device_preproc``) and the device preprocess in
+   ms per batch. Cumulative seconds are printed after it.
+11. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -146,15 +167,26 @@ import collections
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity
+from torch.profiler import profile as torch_profile
 
-from masterthesis_tpu_torch.arguments import default_test_args, default_train_args
+from masterthesis_tpu_torch import checkpoint as ckpt
+from masterthesis_tpu_torch import native
+from masterthesis_tpu_torch.arguments import TrainArguments, default_test_args, default_train_args
+from masterthesis_tpu_torch.data import DataLoader, PairedDataset, infinite
+from masterthesis_tpu_torch.data.device_preproc import preprocess_pair_batch
 from masterthesis_tpu_torch.models import AdaINModel, BaseModel
 from masterthesis_tpu_torch.models.translation import StepDraws
 from masterthesis_tpu_torch.ops import norms
@@ -164,6 +196,7 @@ from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
+from masterthesis_tpu_torch.train import STEP, Trainer, iteration_generator
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, published
@@ -990,9 +1023,6 @@ def _launch_ms(plans, iters: int = 20) -> list:
     torch.profiler's kernel records, all plans in one session; the records
     are assigned by their order, so a session that lost a record (the
     profiler drops one now and then) is run again, at most three times."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     for fn, _, sets in plans:
         for s in sets[:2]:
             fn(*s)
@@ -1588,7 +1618,7 @@ def base_train(card: str, per_call_ms: dict) -> dict:
     return launched
 
 
-def train_fused_gan(card: str) -> tuple[dict, float]:
+def train_fused_gan(card: str) -> tuple[dict, float, dict]:
     """``train_variants/fused``: AdaINModel's training main path with
     bench.py's GAN step. A first main step without draws (no noise, z = mu:
     the deterministic step) as warm-up, recording the moments kernel's
@@ -1597,8 +1627,8 @@ def train_fused_gan(card: str) -> tuple[dict, float]:
     weights: its first step without draws must give the fused step's losses
     within 3 % (the two compute one update then), and three of its main
     steps are timed. Returns the per-main-step launches (kernels 9/10, and
-    the moments kernel held at its shapes) and the fused main step's
-    seconds."""
+    the moments kernel held at its shapes), the fused main step's seconds,
+    and its main-step it/s and schedule img/s."""
     phase = "train_variants/fused"
     _, batch = train_batch(TRAIN_ARGS, seed=31)
     rng = np.random.default_rng(32)
@@ -1665,7 +1695,8 @@ def train_fused_gan(card: str) -> tuple[dict, float]:
     assert gap[worst] <= TRAIN_LOSS_TOL, f"{phase}: fused vs reference {worst}: {gap[worst]}"
     per_step = {**{k: dict(launches=n) for k, n in FUSED_GAN_PER_STEP.items()},
                 **{f"moments/{k}": v for k, v in check_moments_path(phase, moments_calls).items()}}
-    return per_step, sum(main_s) / len(main_s)
+    rates = dict(main_it_per_s=len(main_s) / sum(main_s), schedule_img_per_s=3 * 2 * B / cycle_s)
+    return per_step, sum(main_s) / len(main_s), rates
 
 
 def train_variant(card: str, name: str, fused_s: float, timed: int = 2) -> dict:
@@ -1704,17 +1735,17 @@ def train_variant(card: str, name: str, fused_s: float, timed: int = 2) -> dict:
             **{k: dict(launches=n) for k, n in moments.items()}}
 
 
-def train_variants(card: str, per_call_ms: dict) -> dict:
+def train_variants(card: str, per_call_ms: dict) -> tuple[dict, dict]:
     """The small steps of every training flag on the card against the CPU,
     then the fused GAN step and each flag at the flagship config. Returns
     each path's launches per main step, by phase, with kernel 9/10 ms per
     main step (``per_call_ms``, 7's per-call times, times the calls) for the
-    fused step and ``--remat``."""
+    fused step and ``--remat``; and the fused step's it/s and img/s."""
     for name, (model_cls, flags, per_step) in SMALL_VARIANTS.items():
         check_small_train_against_cpu(model_cls, flags, per_step, random_draws=True,
                                       loss_floor=VARIANT_LOSS_FLOOR)
     per_main_step = {}
-    per_main_step["train_variants/fused"], fused_s = train_fused_gan(card)
+    per_main_step["train_variants/fused"], fused_s, fused_rates = train_fused_gan(card)
     for name in VARIANT_FLAGS:
         per_main_step[f"train_variants/{name}"] = train_variant(card, name, fused_s)
     for name, calls in (("fused", FUSED_GAN_CALLS), ("remat", REMAT_CALLS)):
@@ -1724,14 +1755,321 @@ def train_variants(card: str, per_call_ms: dict) -> dict:
         log(dict(phase=f"train_variants/{name}", kernel_ms_per_main_step=ms,
                  calls_per_main_step=calls,
                  note="ms per call of the kernel timings (7) times the calls"))
-    return per_main_step
+    return per_main_step, fused_rates
+
+
+# --------------------------------------------------------------- train CLI --
+
+# train_cli: the train CLI (TrainArguments().parse, Trainer().run) at the
+# flagship training config of train_variants/fused, on a seeded JPEG tree
+CLI_DOMAINS = ("cloud", "fog", "rain", "sun")
+CLI_PER_DOMAIN = 8
+CLI_IMAGE = (540, 960)  # EvalTransform's size, a photograph's
+# iterations 0..14, five d_iter cycles: 0-2 a warm-up, 3-5 recorded for host
+# syncs and profiled, 6-8 and 12-14 timed clean, 9-11 with a checkpoint and
+# an image grid at 9; StepTimer reports it/s per cycle (--print_freq 3)
+CLI_ITERS, CLI_SAVE, CLI_PROFILED, CLI_CLEAN = 14, 9, (3, 4, 5), (2, 4)
+CLI_ARGV = ["--model", "AdaINModel", "--dataset", "PairedDataset", "--load_size", "286",
+            "--crop_size", "256", "--dim", "64", "--latent_dim", "8", "--num_domains", "4",
+            "--batch_size", str(B), "--compute_dtype", "bfloat16", "--use_dis_content",
+            "--d_iter", "3", "--gan_step", "fused", "--fused_resblock", "auto", "--seed", "0",
+            "--print_freq", "3", "--save_freq", str(CLI_SAVE), "--display_freq", str(CLI_SAVE)]
+# the resumed run's first iteration against the unbroken run's, relative, of
+# max(|loss|, 1e-2); the later ones within RESUME_DRIFT_TOL: the content
+# step's update on the card is not bit-reproducible (a repeat of iterations
+# 10-11 from the same checkpoint, batches and draws shows the same drift;
+# 1.3e-4 measured at iteration 11)
+RESUME_LOSS_TOL, RESUME_DRIFT_TOL = 1e-5, 1e-3
+
+
+def write_jpeg_tree(root: Path, seed: int = 0) -> int:
+    """``root/train/<domain>/img{i}.jpg``: 4 domains x 8 seeded 540 x 960
+    JPEGs (quality 90), smooth patterns (a gradient and six sinusoids per
+    channel) with mild noise, about the size of a photograph each. Returns
+    the bytes written."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = CLI_IMAGE
+    yy, xx = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
+                         np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
+    total = 0
+    for name in CLI_DOMAINS:
+        d = root / "train" / name
+        d.mkdir(parents=True)
+        for i in range(CLI_PER_DOMAIN):
+            img = np.empty((h, w, 3), np.float32)
+            for c in range(3):
+                acc = rng.uniform(60, 190) + rng.uniform(-60, 60) * yy
+                for _ in range(6):
+                    fy, fx = rng.uniform(1, 24, 2)
+                    acc = acc + rng.uniform(5, 30) * np.sin(
+                        2 * np.pi * (fx * xx + fy * yy) + rng.uniform(0, 2 * np.pi))
+                img[..., c] = acc
+            img += rng.normal(0, 6, (h, w, 1)).astype(np.float32)
+            path = d / f"img{i}.jpg"
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path, quality=90)
+            total += path.stat().st_size
+    return total
+
+
+class CliTrainer(Trainer):
+    keep = ()  # iterations whose device batches are kept
+
+    """The train CLI's Trainer with its iterations recorded: each main
+    step's kernel 9/10 and moments launches, every iteration's losses
+    (device tensors, read after the run), host syncs inside the step over
+    CLI_PROFILED (``torch.cuda.set_sync_debug_mode``), a torch.profiler
+    window over that d_iter cycle (from its first step's start to its last
+    step's end, the loop between them included) and each checkpoint save's
+    seconds."""
+
+    def create_model(self, args):
+        model = super().create_model(args)
+        self.records, self.syncs, self.saves, self.prof = {}, [], [], None
+        self.window_s, self.batches = None, {}
+        step, save = model.optimize_parameters, model.save
+        self.step = step
+
+        def recorded(batch, it, draws=None):
+            profiled = it in CLI_PROFILED
+            if it == CLI_PROFILED[0]:
+                torch.cuda.synchronize()
+                self.prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self._t0 = time.perf_counter()
+            counts0 = {**fused_counts(), "moments": kmoments.moments.launches}
+            if profiled:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        logs = step(batch, it, draws)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                self.syncs += [str(w.message).splitlines()[0] for w in caught
+                               if "called a synchronizing" in str(w.message)]
+            else:
+                logs = step(batch, it, draws)
+            if it == CLI_PROFILED[-1]:
+                torch.cuda.synchronize()
+                self.window_s = time.perf_counter() - self._t0
+                self.prof.__exit__(None, None, None)
+            delta = {k: v - counts0[k] for k, v in
+                     {**fused_counts(), "moments": kmoments.moments.launches}.items()}
+            self.records[it] = (delta, {k: v.detach().clone() for k, v in logs.items()
+                                        if isinstance(v, torch.Tensor)})
+            if it in self.keep:
+                self.batches[it] = batch
+            return logs
+
+        def timed_save(it):
+            t0 = time.perf_counter()
+            save(it)
+            self.saves.append((it, time.perf_counter() - t0))
+
+        model.optimize_parameters, model.save = recorded, timed_save
+        return model
+
+
+def _device_busy_ms(prof) -> float:
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            total += us / 1e3
+    return total
+
+
+def _losses(records, its) -> dict:
+    return {it: {k: float(v) for k, v in records[it][1].items()} for it in its}
+
+
+def _check_restored(model, model_path, opt_path) -> None:
+    """Params, spectral u, Adam moments and counts, and step equal the
+    checkpoint files bit for bit."""
+    params, opt = ckpt.load_pytree(model_path), ckpt.load_pytree(opt_path)
+    assert model.state.step == opt["step"], (model.state.step, opt["step"])
+    for n, net in model.nets.items():
+        for k, v in net.state_dict().items():
+            assert torch.equal(v.cpu(), params["params"][n][k]), f"train_cli resume: {n}.{k}"
+        s, saved = model.state.opt_state[n], opt["opt_state"][n]
+        assert s.count == saved["count"], f"train_cli resume: {n} Adam count"
+        for mine, theirs in zip(s.mu + s.nu, saved["mu"] + saved["nu"]):
+            assert torch.equal(mine.cpu(), theirs), f"train_cli resume: {n} Adam moments"
+
+
+def train_cli_route(card: str, root: Path, route: str, extra: list, fused: dict) -> dict:
+    """``train_cli/<route>``: the CLI at the flagship config over the JPEG
+    tree, then a fresh trainer resumed from the checkpoint at CLI_SAVE.
+    Returns the launches per main step."""
+    phase = f"train_cli/{route}"
+    exps = root / "exps"
+    argv = ["--dataroot", str(root / "data"), "--exp_dir", str(exps), "--name", route,
+            "--n_iters", str(CLI_ITERS), "--max_iter", str(CLI_ITERS), *CLI_ARGV, *extra]
+    args = TrainArguments().parse(argv)
+    trainer = CliTrainer()
+    krb.resblock_fwd.launches = krb.resblock_bwd.launches = kmoments.moments.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = trainer.run(args)
+    run_s = time.perf_counter() - t0
+    launched = {**fused_counts(), "moments": kmoments.moments.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1024**3
+    mains = [it for it in trainer.records if it % 3 == 0]
+    per_step = {**FUSED_GAN_PER_STEP, "moments": fused["moments/bf16"]["launches"]}
+    for it in mains:
+        assert trainer.records[it][0] == per_step, \
+            f"{phase}: iteration {it} launched {trainer.records[it][0]}, expected {per_step}"
+    assert sorted(trainer.records) == list(range(CLI_ITERS + 1))
+    losses = _losses(trainer.records, range(CLI_ITERS + 1))
+    _check_finite(phase, *losses.values())
+    ck = Path(args.checkpoint_dir)
+    want = {f"{k}_{i}.ckpt" for k in ("model", "opt") for i in (0, CLI_SAVE, CLI_ITERS + 1)}
+    assert set(os.listdir(ck)) == want, f"{phase}: checkpoints {sorted(os.listdir(ck))}"
+    grids = sorted(os.listdir(args.display_dir))
+    assert grids == ["gen_0.jpg", f"gen_{CLI_SAVE}.jpg"], f"{phase}: grids {grids}"
+    sizes = {f: (ck / f).stat().st_size for f in (f"model_{CLI_SAVE}.ckpt", f"opt_{CLI_SAVE}.ckpt")}
+    busy = _device_busy_ms(trainer.prof)
+    rates = trainer.throughput
+    clean = [rates[i] for i in CLI_CLEAN]
+    del model
+    torch.cuda.empty_cache()
+
+    # a fresh trainer resumed from the checkpoint at CLI_SAVE
+    resume = [str(ck / f"model_{CLI_SAVE}.ckpt"), str(ck / f"opt_{CLI_SAVE}.ckpt")]
+    rargs = TrainArguments().parse([
+        *argv[:5], f"{route}_resumed", "--n_iters", str(CLI_SAVE + 3), "--max_iter",
+        str(CLI_SAVE + 3), *CLI_ARGV, *extra, "--resume", resume[0], "--resume_opt", resume[1],
+        "--last_iter", str(CLI_SAVE)])
+    resumed = CliTrainer()
+    resumed.keep = (CLI_SAVE + 1, CLI_SAVE + 2)
+    loader = resumed.load_dataset(rargs)
+    t0 = time.perf_counter()
+    rmodel = resumed.create_model(rargs)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _check_restored(rmodel, *resume)
+    t0 = time.perf_counter()
+    rmodel.load(*resume)
+    torch.cuda.synchronize()
+    reload_s = time.perf_counter() - t0
+    resumed.train(rargs, rmodel, loader)
+    its = list(range(CLI_SAVE + 1, CLI_SAVE + 4))
+    assert sorted(resumed.records) == its
+    got, want_l = _losses(resumed.records, its), {it: losses[it] for it in its}
+    gaps = {(it, k): abs(got[it][k] - v) / max(abs(v), 1e-2)
+            for it in its for k, v in want_l[it].items()}
+    first = max((g, key) for key, g in gaps.items() if key[0] == its[0])
+    later = max((g, key) for key, g in gaps.items() if key[0] != its[0])
+    # the card's own spread: iterations 10-11 twice from the checkpoint
+    repeats = []
+    for _ in range(2):
+        rmodel.load(*resume)
+        for it in resumed.keep:
+            logs = resumed.step(resumed.batches[it], it,
+                                StepDraws(iteration_generator(rargs.seed, it, STEP, rmodel.device)))
+        repeats.append({k: float(v) for k, v in logs.items() if isinstance(v, torch.Tensor)})
+    spread = max(abs(repeats[0][k] - v) / max(abs(v), 1e-2) for k, v in repeats[1].items())
+    del rmodel, resumed
+    torch.cuda.empty_cache()
+    log(dict(
+        phase=phase, card=card, route=route, argv=argv, run_s=run_s,
+        host_decode="native" if native.available() else "pil",
+        native_build_error=None if native.available() else (native.build_error() or "")[-300:],
+        it_per_s_per_cycle=rates, clean_cycles=list(CLI_CLEAN),
+        trainer_it_per_s=sum(clean) / len(clean),
+        schedule_img_per_s=sum(clean) / len(clean) * 2 * B,
+        fused_step_main_it_per_s=fused["rates"]["main_it_per_s"],
+        fused_step_schedule_img_per_s=fused["rates"]["schedule_img_per_s"],
+        profiled_cycle=dict(its=list(CLI_PROFILED), window_s=trainer.window_s,
+                            device_busy_ms=busy,
+                            device_idle_share=1.0 - busy / (trainer.window_s * 1e3),
+                            note="profiler on: the idle share is an upper bound"),
+        host_syncs_in_steps=len(trainer.syncs), host_sync_kinds=sorted(set(trainer.syncs))[:8],
+        launches=launched, per_main_step=per_step, main_steps=len(mains),
+        peak_memory_allocated_gb=peak_gb, save_s=trainer.saves, checkpoint_bytes=sizes,
+        resume=dict(load_s=load_s, reload_s=reload_s, restored="bit for bit",
+                    spectral_u="none in this config (no --dis_sn)",
+                    first_iteration=dict(it=its[0], worst=first[1][1], rel_gap=first[0],
+                                         tol=RESUME_LOSS_TOL),
+                    later=dict(worst=list(later[1]), rel_gap=later[0], tol=RESUME_DRIFT_TOL),
+                    repeat_spread=dict(its=its[:2], rel=spread)),
+        losses={it: losses[it] for it in (0, 3, CLI_ITERS - 2)},
+    ))
+    assert first[0] <= RESUME_LOSS_TOL, f"{phase}: resumed {first} {got} vs {want_l}"
+    assert later[0] <= RESUME_DRIFT_TOL, f"{phase}: resumed {later} {got} vs {want_l}"
+    return {k: dict(launches=n) for k, n in per_step.items() if k != "moments"} | {
+        "moments/bf16": dict(launches=per_step["moments"])}
+
+
+def loader_rates(root: Path, batches: int = 4) -> dict:
+    """The loader alone, img/s over ``batches`` batches after the first
+    (the trainer's dataset and DataLoader, one producer thread): native
+    decode where it built, PIL's, and the host side of --device_preproc."""
+    routes = {"pil": dict(native=False)}
+    if native.available():
+        routes["native"] = dict(native=True)
+    routes["device_preproc_host"] = dict(native=native.available(), device_preproc=True)
+    out = {}
+    for name, kw in routes.items():
+        args = default_train_args(dataroot=str(root / "data"), num_domains=4, load_size=286,
+                                  crop_size=256, seed=0, device_preproc=kw.get("device_preproc"))
+        ds = PairedDataset(args)
+        ds.transforms.use_native = kw["native"]
+        it = infinite(DataLoader(ds, batch_size=B, num_workers=4, drop_last=True))
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        out[name] = 2 * B * batches / (time.perf_counter() - t0)
+        it.close()
+    return out
+
+
+def device_preprocess_ms() -> dict:
+    """preprocess_pair_batch on a uint8 batch on the card (B images per side
+    at 286 px, cropped to 256), CUDA events, beside its bound: the crops
+    read once as uint8, written once as f32."""
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, 256, (B, 286, 286, 3), dtype=np.uint8)).cuda()
+             for k in ("x1", "x2")}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ms = device_ms(lambda b: preprocess_pair_batch(b, g, 286, 256), [(batch,)], iters=50)
+    b_ms, by = bound(2 * B * 256 * 256 * 3 * (1 + 4), 2 * 2 * B * 256 * 256 * 3)
+    return dict(ms_per_batch=ms, bound_ms=b_ms, bound_by=by)
+
+
+def train_cli(card: str, fused_rates: dict, fused_per_step: dict) -> dict:
+    """``train_cli``: the train CLI on the card, host transforms and
+    --device_preproc, each with a resume; the loader alone; the device
+    preprocess. Returns the launches per main step, by phase."""
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train_cli_", dir=out_dir))
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_jpeg_tree(root / "data")
+        log(dict(phase="train_cli/data", images=len(CLI_DOMAINS) * CLI_PER_DOMAIN,
+                 size=list(CLI_IMAGE), bytes=nbytes, seconds=time.perf_counter() - t0))
+        fused = {**fused_per_step, "rates": fused_rates}
+        per_main_step = {}
+        for route, extra in (("host", []), ("device_preproc", ["--device_preproc"])):
+            per_main_step[f"train_cli/{route}"] = train_cli_route(card, root, route, extra, fused)
+            shutil.rmtree(root / "exps", ignore_errors=True)
+        log(dict(phase="train_cli/feed", card=card, loader_img_per_s=loader_rates(root),
+                 device_preprocess=device_preprocess_ms(),
+                 needed_img_per_s=fused_rates["schedule_img_per_s"],
+                 note="loader: one producer thread, as the JAX package's"))
+        return per_main_step
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     model = model_cls(default_train_args(**{**TRAIN_ARGS, **(flags or {})}))
     _, batch = train_batch(TRAIN_ARGS, seed=31)
     model.optimize_parameters(batch, 0)
@@ -1765,9 +2103,6 @@ def _log_profile(prof, what, seconds, top_n=15) -> None:
 
 def profile(dtype_name: str, int8: bool = False, model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one forward_random (``--profile``)."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     args = default_test_args(compute_dtype=compute_dtype(dtype_name), **(flags or {}), **ARGS)
     model = model_cls(args)
     if int8:
@@ -1838,9 +2173,12 @@ def main(argv) -> int:
     base_launched = base_train(card, {e["name"]: e["ms_per_call"] for e in train_entries})
     per_main_step.update({f"base_train/{k}": v["per_main_step"] for k, v in base_launched.items()})
     log(dict(phase="seconds", upto="base_train", seconds=time.perf_counter() - t0))
-    per_main_step.update(train_variants(card, {e["name"]: e["ms_per_call"]
-                                               for e in train_entries}))
+    variants, fused_rates = train_variants(card, {e["name"]: e["ms_per_call"]
+                                                  for e in train_entries})
+    per_main_step.update(variants)
     log(dict(phase="seconds", upto="train_variants", seconds=time.perf_counter() - t0))
+    per_main_step.update(train_cli(card, fused_rates, variants["train_variants/fused"]))
+    log(dict(phase="seconds", upto="train_cli", seconds=time.perf_counter() - t0))
     # each training phase's launches (moments also ms, bound ms and error)
     # per main step, beside the serving launches in "launches"
     for e in entries:

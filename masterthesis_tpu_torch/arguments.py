@@ -1,8 +1,12 @@
-"""Argument defaults, as plain namespaces for programmatic use.
+"""The argument system: the command-line parsers and their defaults.
 
-The port's own copy of the JAX package's ``default_train_args`` /
-``default_test_args`` and the parsers they read, so that a configuration
-means the same in both packages. The port reads the model's shape (``dim``,
+The port's own copy of the JAX package's parsers: ``TrainArguments`` /
+``TestArguments`` parse a command line (``parse(argv)``), resolve
+``--model`` and ``--dataset`` to the port's classes, make the experiment's
+directories (``checkpoints``, ``logs``, ``images`` under ``exp_dir/name``)
+and write ``args.txt``; ``default_train_args`` / ``default_test_args`` give
+the same defaults as plain namespaces, so that a configuration means the
+same in both packages. The port reads the model's shape (``dim``,
 ``latent_dim``, ``num_domains``, ``input_dim``, ``crop_size``), BaseModel's
 ``concat`` and ``reparam``, ``use_dropout`` (inert at serving, dropout
 masks from the step's draws in training; either way it keeps resblocks off
@@ -20,6 +24,9 @@ one namespace drives either package.
 from __future__ import annotations
 
 import argparse
+import os
+import subprocess
+from datetime import datetime
 
 
 class AttributeDict(dict):
@@ -40,7 +47,9 @@ class AttributeDict(dict):
 
 def _add_base_args(parser: argparse.ArgumentParser):
     parser.add_argument("--dataroot", help="root folder of the dataset")
-    parser.add_argument("--name", type=str, default="experiment")
+    parser.add_argument("--name", type=str,
+                        default=f'{datetime.now().strftime("%Y-%m-%d_%H-%M-%S")}',
+                        help="name of the experiment: where its checkpoints and images go")
     parser.add_argument("--exp_dir", type=str, default="../exps")
     parser.add_argument("--model", type=str, default="BaseModel")
     parser.add_argument("--input_dim", type=int, default=3)
@@ -133,6 +142,99 @@ def _add_test_args(parser: argparse.ArgumentParser):
     parser.add_argument("--int8", action="store_true")
     parser.add_argument("--int8_calib_batches", type=int, default=2)
     parser.add_argument("--sample_size", type=int, nargs=2, default=[540, 960], metavar=("H", "W"))
+
+
+def _resolve_classes(args):
+    from masterthesis_tpu_torch import data as data_mod
+    from masterthesis_tpu_torch import models as models_mod
+    from masterthesis_tpu_torch.utils import module_to_dict
+
+    if isinstance(getattr(args, "dataset", None), str):
+        args.dataset = module_to_dict(data_mod)[args.dataset]
+    if isinstance(args.model, str):
+        args.model = module_to_dict(models_mod)[args.model]
+    return args
+
+
+def _make_exp_dirs(args):
+    args.exp_dir = os.path.join(args.exp_dir, args.name)
+    args.checkpoint_dir = os.path.join(args.exp_dir, "checkpoints")
+    args.logdir = os.path.join(args.exp_dir, "logs")
+    args.display_dir = os.path.join(args.exp_dir, "images")
+    for d in (args.exp_dir, args.checkpoint_dir, args.logdir, args.display_dir):
+        os.makedirs(d, exist_ok=True)
+    return args
+
+
+def _git_revision() -> str:
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"], capture_output=True, text=True, timeout=5,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        ).stdout.strip() or "unknown"
+    except (OSError, subprocess.TimeoutExpired):
+        return "unknown"
+
+
+def _dump_args(args, path):
+    """Print the arguments and append them to ``path``, with the revision."""
+    arguments = dict(args)
+    arguments["framework_revision"] = _git_revision()
+    with open(path, "a") as f:
+        print("\n--- Loaded arguments ---")
+        for name, value in sorted(arguments.items(), key=lambda kv: kv[0]):
+            print("%s: %s" % (str(name), str(value)))
+            f.write("%s: %s\n" % (str(name), str(value)))
+
+
+class Arguments:
+    """The base parser."""
+
+    def __init__(self):
+        self.parser = argparse.ArgumentParser("Arguments for the program")
+        _add_base_args(self.parser)
+
+    def parse(self, argv=None) -> AttributeDict:
+        """The parsed flags as an :class:`AttributeDict` (a flag the parser
+        lacks reads as None, as the models probe optional ones)."""
+        args = AttributeDict(vars(self.parser.parse_args(argv)))
+        args = _resolve_classes(args)
+        args = _make_exp_dirs(args)
+        _dump_args(args, os.path.join(args.exp_dir, "args.txt"))
+        return args
+
+
+class TrainArguments(Arguments):
+    """Training: the base flags and the training flags."""
+
+    def __init__(self):
+        super().__init__()
+        _add_train_args(self.parser)
+
+
+class TestArguments(Arguments):
+    """Sampling: the base flags and the test flags; directories under
+    ``--result_dir``."""
+
+    def __init__(self):
+        super().__init__()
+        _add_test_args(self.parser)
+
+    def parse(self, argv=None) -> AttributeDict:
+        args = AttributeDict(vars(self.parser.parse_args(argv)))
+        os.makedirs(args.result_dir, exist_ok=True)
+        if "image" in args.out_fmt:
+            args.display_dir = os.path.join(args.result_dir, "images")
+        elif "video" in args.out_fmt:
+            args.display_dir = os.path.join(args.result_dir, "videos")
+        os.makedirs(args.display_dir, exist_ok=True)
+        args.mode = "test"
+        args.dis_scale = 3
+        args.dis_norm = None
+        args.dis_sn = False
+        args = _resolve_classes(args)
+        _dump_args(args, os.path.join(args.result_dir, "args.txt"))
+        return args
 
 
 def _defaults_from(parsers) -> AttributeDict:

@@ -8,12 +8,23 @@ params (:meth:`Model.load_params`, ``tools/convert_jax.py``). A training
 model (``args.mode`` "train") also holds a :class:`TrainState` (the global
 step and each net's Adam moments), the lr schedule, and a generator on its
 device from which its training steps draw.
+
+Checkpoints (``save``/``load``, ``checkpoint.py``): ``model_{it}.ckpt`` and
+``opt_{it}.ckpt`` in ``args.checkpoint_dir``, restored per net with the JAX
+package's messages; ``args.resume``/``resume_opt`` load at ``initialize``,
+and ``resume_opt`` with ``last_iter`` sets the step as the JAX package does.
+Logging: ``get_current_lr``, ``save_images`` (``gen_{it}.jpg`` in
+``args.display_dir``) and ``write_loss`` (a tensorboardX writer on
+``args.logdir`` for training, or None where tensorboardX is missing).
 """
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
 
+from masterthesis_tpu_torch import checkpoint as ckpt
 from masterthesis_tpu_torch.arguments import AttributeDict
 from masterthesis_tpu_torch.models.functions import init_net, make_lr_schedule
 from masterthesis_tpu_torch.models.state import AdamState, TrainState
@@ -36,6 +47,13 @@ class Model:
 
     def __init__(self, args, device=None):
         self.args = args
+        if getattr(args, "ckpt_format", None) == "orbax":
+            raise NotImplementedError(ckpt.ORBAX_ERROR)
+        # fail fast on a bad checkpoint path, before the nets are built
+        for attr in ("resume", "resume_opt"):
+            path = getattr(args, attr, None)
+            if path is not None and not os.path.exists(path):
+                raise FileNotFoundError(f"--{attr} checkpoint not found: {path}")
         self.device = resolve_device(device)
         self.nets: dict[str, nn.Module] = AttributeDict()
         self.state: TrainState | None = None
@@ -46,6 +64,14 @@ class Model:
             lr=args.lr or 1e-4, lr_policy=args.lr_policy or "step",
             n_iters=args.n_iters or 1_000_000, n_iter_decay=args.n_iter_decay or 600_000,
         )
+        self.writer = None
+        if self.is_train() and getattr(args, "logdir", None):
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:  # optional, as in the JAX package
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self.writer = SummaryWriter(log_dir=args.logdir)
 
     def is_train(self) -> bool:
         return "train" in (self.args.mode or "train")
@@ -53,7 +79,10 @@ class Model:
     def initialize(self, seed=None) -> None:
         """Seeded init of every net (``args.seed`` unless ``seed`` is given);
         for training also fresh optimizer state at step 0 and the step's
-        generator, on the model's device, seeded likewise."""
+        generator, on the model's device, seeded likewise. Then the
+        checkpoints of ``args.resume`` (and for training ``resume_opt``):
+        with ``resume_opt`` and ``last_iter`` >= 0 the step is ``last_iter +
+        1``, unless the optimizer file holds one."""
         a = self.args
         if seed is None:
             seed = getattr(a, "seed", None) or 0
@@ -67,6 +96,36 @@ class Model:
                 name: AdamState.zeros(net.parameters()) for name, net in self.nets.items()
             })
             self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+            last_iter = int(getattr(a, "last_iter", -1) or -1)
+            if getattr(a, "resume_opt", None) is not None and last_iter >= 0:
+                self.state.step = last_iter + 1
+            self.load(getattr(a, "resume", None), getattr(a, "resume_opt", None))
+        else:
+            self.load(getattr(a, "resume", None))
+
+    def save(self, it: int) -> None:
+        """``model_{it}.ckpt`` (every net's state_dict) and ``opt_{it}.ckpt``
+        (every net's Adam state and the step) in ``args.checkpoint_dir``."""
+        ckdir = self.args.checkpoint_dir
+        ckpt.save_pytree({"params": {n: net.state_dict() for n, net in self.nets.items()}},
+                         os.path.join(ckdir, f"model_{it}.ckpt"))
+        ckpt.save_pytree({"opt_state": {n: s.state_dict() for n, s in self.state.opt_state.items()},
+                          "step": self.state.step},
+                         os.path.join(ckdir, f"opt_{it}.ckpt"))
+
+    def load(self, checkpoint=None, opt_ckpt=None) -> None:
+        """Restore the nets from ``checkpoint`` and the optimizer state and
+        step from ``opt_ckpt`` (either may be None), per net: a net the file
+        lacks keeps its weights, a net the model lacks is skipped, each
+        with the JAX package's message."""
+        if checkpoint is not None:
+            restored = ckpt.load_pytree(checkpoint, self.device)
+            ckpt.restore_matching(self.nets, restored.get("params", restored), "network")
+        if opt_ckpt is not None:
+            restored = ckpt.load_pytree(opt_ckpt, self.device)
+            ckpt.restore_matching(self.state.opt_state, restored.get("opt_state", {}), "optimizer")
+            if "step" in restored:
+                self.state.step = int(restored["step"])
 
     def optimizer_config(self, name: str) -> dict:
         """Adam's settings for net ``name``: the content discriminator's
@@ -78,6 +137,26 @@ class Model:
             weight_decay=1e-4 if a.wd is None else float(a.wd),
             clip_norm=5.0 if name == "content_discriminator" else None,
         )
+
+    def get_current_lr(self) -> dict[str, float]:
+        """Each net's lr at the current step (the content discriminator's is
+        divided by 2.5)."""
+        base = float(self.schedule(self.state.step))
+        return {n: base / 2.5 if n == "content_discriminator" else base for n in self.nets}
+
+    def save_images(self, batch, it: int, generator=None) -> None:
+        """``compute_visuals(batch, generator)`` as ``gen_{it}.jpg`` in
+        ``args.display_dir``."""
+        from masterthesis_tpu_torch.utils.images import save_image
+
+        visuals = self.compute_visuals(batch, generator)
+        save_image(visuals, os.path.join(self.args.display_dir, f"gen_{it}.jpg"))
+
+    def write_loss(self, global_iter: int) -> None:
+        if self.writer is None:
+            return
+        for name, value in self.loss.items():
+            self.writer.add_scalar(name, float(value), global_iter)
 
     def print_losses(self) -> dict[str, float]:
         """The last iteration's losses named in ``print_loss``, as floats."""

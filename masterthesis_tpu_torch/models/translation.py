@@ -33,9 +33,17 @@ norm on the discriminators' convs, ``ops/spectral.py``), ``--ms_dis`` (the
 multi-scale discriminator), ``--vgg_loss`` (the perceptual terms ``g_p`` and
 ``g_p2``, in f32) and ``--remat`` (``torch.utils.checkpoint`` around the
 content encoder and the decoder). Only ``--int8_train`` is not ported.
+WGAN-GP's penalty takes its discriminator forward and the gradient at the
+interpolates without cuDNN on the card: cuDNN's f32 4x4/s2 convs there move
+the penalty by 1.9e-4 from an f64 evaluation (the CPU's f32 by 1.3e-8;
+``tools/wgangp_card_vs_cpu.py``), ATen's own conv by 2e-7. The double
+backward into D's params keeps cuDNN, which is accurate there.
+
+``compute_visuals`` (through ``forward``) gives the trainer's 2x4 image grid.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -114,6 +122,19 @@ class StepDraws:
                 self.given[key] = t
             return t
         return source
+
+
+@contextlib.contextmanager
+def _without_cudnn(on: bool):
+    """cuDNN off inside the block where ``on`` (``torch.backends.cudnn.flags``
+    would also turn TF32 on for every flag it is not given)."""
+    old = torch.backends.cudnn.enabled
+    if on:
+        torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = old
 
 
 def _nchw(img: torch.Tensor) -> torch.Tensor:
@@ -360,11 +381,14 @@ class TranslationModel(Model):
         (1 - eps) fake, interpolated in f32 and cast to the real images'
         dtype; the first scale's patch under ``ms_dis``. The gradient keeps
         its graph, so the penalty's own gradient reaches D's parameters (a
-        double backward through D), from the stored spectral ``u``."""
+        double backward through D), from the stored spectral ``u``. On the
+        card, D's forward and the gradient at x run without cuDNN (see the
+        module docstring)."""
         x = (eps * real.float() + (1.0 - eps) * fake.float()).detach().requires_grad_(True)
-        out = self.nets[d_name](x.to(real.dtype))
-        pred = out[0][0] if isinstance(out, list) else out[0]
-        (g,) = torch.autograd.grad(pred.float().sum(), x, create_graph=True)
+        with _without_cudnn(x.is_cuda):
+            out = self.nets[d_name](x.to(real.dtype))
+            pred = out[0][0] if isinstance(out, list) else out[0]
+            (g,) = torch.autograd.grad(pred.float().sum(), x, create_graph=True)
         norms = torch.sqrt(g.square().sum(dim=(1, 2, 3)) + 1e-12)
         return (norms - 1.0).square().mean()
 
@@ -617,6 +641,59 @@ class TranslationModel(Model):
         if self.device.type != "cuda":
             return 0.0
         return torch.cuda.memory_reserved(self.device) / 1024**3
+
+    def _forward_impl(self, img, c_org, eps, z_sr):
+        """(img_fake, img_random, img_self), NCHW: from NCHW ``img`` = [a; b]
+        (B = 2b images), the translations ba and ab, the random-style ones
+        br and ar (style ``z_sr``, (b, latent)) and the self reconstructions
+        aa and bb, in one 6b decode; ``eps`` (2b, latent) is the style
+        encoder's VAE draw."""
+        b = img.shape[0] // 2
+        z_c = self.encode_content(img)
+        z_s, _, _ = self.encode_style(img, c_org, eps)
+        z_ca, z_cb, z_sa, z_sb = z_c[:b], z_c[b:], z_s[:b], z_s[b:]
+        cls_a, cls_b = c_org[:b], c_org[b:]
+        z_sr = z_sr.to(z_s.dtype)
+        fakes = self.decode(torch.cat([z_cb, z_ca, z_cb, z_ca, z_cb, z_ca]),
+                            torch.cat([z_sa, z_sa, z_sr, z_sb, z_sb, z_sr]),
+                            torch.cat([cls_a, cls_a, cls_a, cls_b, cls_b, cls_b]))
+        img_ba, img_aa, img_br, img_ab, img_bb, img_ar = fakes.chunk(6)
+        return (torch.cat([img_ba, img_ab]), torch.cat([img_br, img_ar]),
+                torch.cat([img_aa, img_bb]))
+
+    def forward(self, img, c_org, generator=None, eps=None, z_sr=None):
+        """:meth:`_forward_impl` on NHWC ``img`` (2b images) and one-hot
+        ``c_org``, without gradients; NHWC out. The draws ``eps`` (2b,
+        latent; only with ``reparam``) and ``z_sr`` (b, latent) are used as
+        given, else drawn from ``generator`` (default: seed 0 on the model's
+        device), eps first."""
+        img, c_org = self._tensor(img), self._tensor(c_org)
+        b = img.shape[0] // 2
+        if generator is None and (z_sr is None or (self.reparam and eps is None)):
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        if not self.reparam:
+            eps = None
+        elif eps is None:
+            eps = self.get_z_random(2 * b, generator)
+        if z_sr is None:
+            z_sr = self.get_z_random(b, generator)
+        eps = None if eps is None else self._tensor(eps)
+        with torch.inference_mode():
+            outs = self._forward_impl(_nchw(img), c_org, eps, self._tensor(z_sr))
+        return tuple(_nhwc(o) for o in outs)
+
+    def compute_visuals(self, batch, generator=None, eps=None, z_sr=None) -> torch.Tensor:
+        """The 2x4 grid (2H, 4W, 3) of the first pair: per row, the real
+        image, its translation, its random-style translation and its self
+        reconstruction (a's row: real a, ab, ar, aa; b's: real b, ba, br,
+        bb). Draws as :meth:`forward`'s."""
+        img = torch.cat([self._tensor(batch["x1"]), self._tensor(batch["x2"])])
+        c_org = torch.cat([self._tensor(batch["y1"]), self._tensor(batch["y2"])])
+        b = len(batch["x1"])
+        img_fake, img_random, img_self = self.forward(img, c_org, generator, eps, z_sr)
+        row1 = torch.cat([img[0:1], img_fake[b:b + 1], img_random[b:b + 1], img_self[0:1]], dim=2)
+        row2 = torch.cat([img[b:b + 1], img_fake[0:1], img_random[0:1], img_self[b:b + 1]], dim=2)
+        return torch.cat([row1, row2], dim=1)[0]
 
     def forward_random(self, img, z_r, c_trg):
         """Translate with a given style code; returns (images, seconds, device_mem_GB)."""

@@ -33,6 +33,14 @@ version, the card gives the CPU's within the bounds above (on the card,
 ``python -m masterthesis_tpu_torch.tools.wgangp_card_vs_cpu`` prints all
 four ways). The penalty's discriminators at 3 layers: at 32 px a sixth
 would instance-norm a 1x1 map to 0, which leaves no gradient to compare.
+
+The route training takes is held by its own test, with cuDNN on: since the
+penalty runs its D forward and the gradient at the interpolates without
+cuDNN on the card (``TranslationModel._gradient_penalty``; the double
+backward into D's params keeps cuDNN), the multi-scale penalty and its
+gradient in D's params are within the bounds above of one f64 evaluation on
+the CPU (measured with that tool: cuDNN in the forward 1.9e-4 and 9.7e-3
+from f64, the CPU's f32 1.3e-8 and 8.4e-7, the route 2.0e-7 and 7.7e-7).
 """
 import numpy as np
 import pytest
@@ -43,6 +51,7 @@ from masterthesis_tpu_torch.models import AdaINModel, BaseModel
 from masterthesis_tpu_torch.models.translation import StepDraws
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
+from masterthesis_tpu_torch.tools import wgangp_card_vs_cpu as gp_tool
 
 torch.set_num_threads(2)
 
@@ -151,3 +160,21 @@ def test_gradient_penalty_double_backward_on_the_card_matches_the_cpu(cuda, flag
     scale = max(float(g.abs().max()) for g in g_cpu.values())
     errs = {k: float((g_card[k] - g).abs().max()) for k, g in g_cpu.items()}
     assert scale > 0 and max(errs.values()) <= 1e-5 * scale, (scale, errs)
+
+
+@pytest.mark.parametrize("flags", [dict(MS, dis_norm="instance"), dict(dis_n_layers=3)])
+def test_gradient_penalty_on_the_training_route_matches_f64(cuda, flags):
+    """The penalty as training computes it on the card, cuDNN enabled,
+    against the same penalty in f64 on the CPU (``tools/wgangp_card_vs_cpu``)."""
+    args = dict(gan_mode="wgangp", lambda_gp=10.0, **flags, **SHAPE)
+    rng = np.random.default_rng(3)
+    real = torch.from_numpy(rng.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32))
+    fake = torch.from_numpy(np.tanh(rng.standard_normal((4, 3, 32, 32))).astype(np.float32))
+    eps = torch.from_numpy(rng.uniform(0, 1, (4, 1, 1, 1)).astype(np.float32))
+    assert torch.backends.cudnn.enabled
+    gp64, g64 = gp_tool.penalty(args, "cpu", real, fake, eps, f64=True)
+    gp, g = gp_tool.penalty(args, "cuda", real, fake, eps)
+    assert torch.backends.cudnn.enabled
+    rel, worst, grad = gp_tool.distances(gp, g, gp64, g64)
+    assert rel <= 1e-5, (gp, gp64)
+    assert grad <= 1e-5, (worst, grad)
