@@ -155,7 +155,33 @@ against its plain PyTorch version.
    checkpoint seconds and sizes; then the loader alone in img/s (native,
    PIL, the host side of ``--device_preproc``) and the device preprocess in
    ms per batch. Cumulative seconds are printed after it.
-11. Last lines: the card, the ``{"kernels": [...]}`` line, then
+11. ``int8_serve_bf16``: int8 serving at compute dtype bf16 (kernels 4-8
+   take and give bf16). First kernels 4-8 in bf16 at the int8 forwards'
+   shapes, as in 3 (kernels 4-7 equal to their plain versions, y and
+   statistics; the head within 2^-7, two bf16 steps, its sum over C in
+   another order), and at the sample CLI's 540 x 960 shapes at one image
+   (``int8_bf16_540x960``: a bottleneck of 135 rows). Then AdaINModel (B = 8
+   and 64), BaseModel A (kernel 4) and B, and AdaINModel with ``--dec_norm
+   instance``, each calibrated and served in turns with the float bf16
+   model and the int8 model at compute dtype f32 of the same weights, the
+   counts checked per forward; outputs bf16, finite, in [-1, 1], above 25
+   dB from the float bf16 forward, within 2^-7 of the plain versions'
+   forward. The bf16 kernel entries' launches are this phase's.
+12. ``sample_cli``: the sample CLI, ``TestArguments().parse(argv)`` and
+   ``Sampler().run(args)`` on the card, from a ``Model.save`` checkpoint of
+   the flagship AdaINModel (full width, seeded), over 8 seeded 540 x 960
+   JPEGs and a 16-frame video (under ``chiprun_out/``, removed after), at
+   ``--batch_size 4 --compute_dtype bfloat16``: all four targets, the same
+   with ``--int8``, ``--gen_grid`` and ``--out_fmt video``. The files the
+   JAX package's sampler writes must exist and decode to 540 x 960 (the
+   grid to 5 x 960 by 2 x 540, the videos to 12 frames each), every
+   translation be finite bf16, the launches per forward be the float or
+   int8 path's, and the first batch equal the bare ``forward_random`` on
+   its inputs and style within 5e-2. Prints translations/s from the CLI
+   beside the bare forward's at the same batch, the loader alone, the JPEG
+   encode alone, the device idle share over a profiled pass over the
+   batches, calibration seconds and peak memory.
+13. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -184,7 +210,12 @@ from torch.profiler import profile as torch_profile
 
 from masterthesis_tpu_torch import checkpoint as ckpt
 from masterthesis_tpu_torch import native
-from masterthesis_tpu_torch.arguments import TrainArguments, default_test_args, default_train_args
+from masterthesis_tpu_torch.arguments import (
+    TestArguments,
+    TrainArguments,
+    default_test_args,
+    default_train_args,
+)
 from masterthesis_tpu_torch.data import DataLoader, PairedDataset, infinite
 from masterthesis_tpu_torch.data.device_preproc import preprocess_pair_batch
 from masterthesis_tpu_torch.models import AdaINModel, BaseModel
@@ -196,7 +227,9 @@ from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
+from masterthesis_tpu_torch.sample import Sampler
 from masterthesis_tpu_torch.train import STEP, Trainer, iteration_generator
+from masterthesis_tpu_torch.utils.images import save_images
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, published
@@ -603,9 +636,9 @@ def _path_pending(kind, i, b, c):
     return _card_pending(b, c, 200 + i, 0.01 if kind == "down" and i == 0 else 0.0)
 
 
-def _zero_pad_case(shape, co, seed):
+def _zero_pad_case(shape, co, seed, dtype=torch.float32):
     """x, a stride-1 zero-padded QuantConv with bias, and a prologue."""
-    x = _randn(shape, torch.float32, seed)
+    x = _randn(shape, dtype, seed)
     pending = _card_pending(shape[0], shape[1], seed + 1, 0.01)
     qc = kq.quant_conv(_card_weight((co, shape[1], 3, 3), seed + 2),
                        _card_weight((co,), seed + 3, 0.1),
@@ -613,7 +646,7 @@ def _zero_pad_case(shape, co, seed):
     return x, qc, pending
 
 
-def _conv3x3_exact_cases(x, qc, shape) -> dict:
+def _conv3x3_exact_cases(x, qc, shape, dtype=torch.float32) -> dict:
     """Kernel 4 with a prologue and statistics at the path's shape, at
     DecoderConcat's unaligned width with zero padding and at the ragged
     shape: operands, sums, y and statistics equal to the plain version's,
@@ -623,8 +656,9 @@ def _conv3x3_exact_cases(x, qc, shape) -> dict:
     ushape, uco = CONV3X3_UNALIGNED
     rshape, rco = INT8_RAGGED
     for name, (t, q, p) in {"prologue_stats": (x, qc, _card_pending(b, c, 250, 0.0)),
-                            f"unaligned_{ushape[1]}_zero_pad": _zero_pad_case(ushape, uco, 260),
-                            f"ragged_{rshape}": _zero_pad_case(rshape, rco, 265)}.items():
+                            f"unaligned_{ushape[1]}_zero_pad": _zero_pad_case(ushape, uco, 260,
+                                                                              dtype),
+                            f"ragged_{rshape}": _zero_pad_case(rshape, rco, 265, dtype)}.items():
         exact = _check_exact(t, q, p)
         got, want = kq.conv3x3(t, q, p, with_stats=True), kq.conv_plain(t, q, p, True)
         again = kq.conv3x3(t, q, p, with_stats=True)
@@ -636,7 +670,7 @@ def _conv3x3_exact_cases(x, qc, shape) -> dict:
     return out
 
 
-def _strided_exact_cases(kind) -> dict:
+def _strided_exact_cases(kind, dtype=torch.float32) -> dict:
     """Kernel 7 at the ragged shapes (with a prologue), kernel 5 at BaseModel
     B's deconvs (without one, as on that path) and at its ragged shape, with
     statistics: operands, sums, y and statistics equal to the plain
@@ -646,7 +680,7 @@ def _strided_exact_cases(kind) -> dict:
     for i, (shape, co) in enumerate(DOWN_RAGGED if down else
                                     [(s, co) for s, co, _ in DECONV_B_SHAPES] + DECONV_RAGGED):
         b, c = shape[:2]
-        x = _randn(shape, torch.float32, 270 + i)
+        x = _randn(shape, dtype, 270 + i)
         pending = _card_pending(b, c, 275 + i, 0.01) if down else None
         amax = kq.prologue_plain(x, pending).abs().amax()
         weight = _card_weight((co, c, 3, 3) if down else (c, co, 3, 3), 280 + i)
@@ -665,17 +699,20 @@ def _strided_exact_cases(kind) -> dict:
     return out
 
 
-def check_int8_conv(kind: str) -> dict:
-    """Kernel 7 ("down"), 4 ("conv3x3") or 5 ("deconv") at the path's shapes,
-    with a second call equal to the first; 7 also at a ragged shape, 5 also
-    at BaseModel B's widths."""
+def check_int8_conv(kind: str, dtype_name: str = "f32") -> dict:
+    """Kernel 7 ("down"), 4 ("conv3x3") or 5 ("deconv") at the path's shapes
+    with activations (x in, y out) in ``dtype_name``, with a second call
+    equal to the first; 7 also at a ragged shape, 5 also at BaseModel B's
+    widths."""
     shapes, wname, replaces, stats = INT8_CONVS[kind]
     wrapper = getattr(kq, wname)
+    dtype = DTYPES[dtype_name]
+    esize = torch.finfo(dtype).bits // 8
     rows = []
     for i, (shape, co, per_forward) in enumerate(shapes):
         b, c, h, w = shape
         numel = math.prod(shape)
-        sets = copies(lambda j: (_randn(shape, torch.float32, 100 + 10 * i + j),), 4 * numel)
+        sets = copies(lambda j: (_randn(shape, dtype, 100 + 10 * i + j),), esize * numel)
         x = sets[0][0]
         pending = _path_pending(kind, i, b, c)
         amax = kq.prologue_plain(x, pending).abs().amax()
@@ -685,22 +722,23 @@ def check_int8_conv(kind: str) -> dict:
               else kq.quant_conv(weight, bias, amax, 2 if kind == "down" else 1, "reflect"))
         exact = _check_exact(x, qc, pending)
         if kind == "conv3x3":
-            exact["cases"] = _conv3x3_exact_cases(x, qc, shape)
+            exact["cases"] = _conv3x3_exact_cases(x, qc, shape, dtype)
         elif i == 0:
-            exact["cases"] = _strided_exact_cases(kind)
+            exact["cases"] = _strided_exact_cases(kind, dtype)
         got = wrapper(x, qc, pending, with_stats=stats)
         again = wrapper(x, qc, pending, with_stats=stats)
         want = kq.conv_plain(x, qc, pending, stats)
         torch.cuda.synchronize()
         got, again, want = (got, again, want) if stats else ((got,), (again,), (want,))
-        err = (got[0] - want[0]).abs().max().item()
+        assert got[0].dtype == dtype, f"{kind} {shape}: y is {got[0].dtype}, not {dtype}"
+        err = (got[0].float() - want[0].float()).abs().max().item()
         assert err == 0.0, f"{kind} {shape}: output differs from the plain version's by {err}"
         assert all(torch.equal(g, r) for g, r in zip(got[1:], want[1:])), f"{kind} {shape}: statistics differ"
         assert all(torch.equal(g, a) for g, a in zip(got, again)), f"{kind} {shape}: two calls differ"
         exact["bit_equal_repeat"] = True
         out_numel = got[0].numel()
         macs = b * c * co * 9 * ((h // 2) * (w // 2) if kind == "down" else h * w)
-        nbytes = (4 * (numel + out_numel) + qc.w.numel() + (8 * b * co if stats else 0)
+        nbytes = (esize * (numel + out_numel) + qc.w.numel() + (8 * b * co if stats else 0)
                   + (8 * b * c if pending else 0))
         b_ms, by = bound(nbytes, 2 * macs, INT8_OPS)
         wb = weight.bfloat16()
@@ -716,9 +754,9 @@ def check_int8_conv(kind: str) -> dict:
             bf16_cudnn_ms=device_ms(cudnn, bf_sets), library_ms=None,
             bound_ms=b_ms, bound_by=by,
         ))
-    name = f"int8_{wname}"
-    return summarize(name, "f32", rows, replaces, "masterthesis_tpu_torch/csrc/int8_conv.cu", None,
-                     name=name)
+    name = f"int8_{wname}" + ("" if dtype_name == "f32" else f"/{dtype_name}")
+    return summarize(name, dtype_name, rows, replaces, "masterthesis_tpu_torch/csrc/int8_conv.cu",
+                     None, name=name)
 
 
 def _flips(out, ref) -> tuple[float, float]:
@@ -726,11 +764,11 @@ def _flips(out, ref) -> tuple[float, float]:
     return diff.max().item(), (diff > 1e-4).float().mean().item()
 
 
-def _resblock_exact(shape, seed) -> dict:
+def _resblock_exact(shape, seed, dtype=torch.float32) -> dict:
     """Kernel 6 at ``shape`` against its plain version, and a second call
     against the first: both equal, or the script fails."""
     b, c = shape[:2]
-    x = _randn(shape, torch.float32, seed)
+    x = _randn(shape, dtype, seed)
     gamma, beta = _card_weight((b, c), seed + 1, 0.3), _card_weight((b, c), seed + 2, 0.3)
     q1 = kq.quant_conv(_card_weight((c, c, 3, 3), seed + 3), None, x.abs().amax(), 1, "reflect")
     q2 = kq.quant_conv(_card_weight((c, c, 3, 3), seed + 4), None, 4.0, 1, None)
@@ -743,14 +781,17 @@ def _resblock_exact(shape, seed) -> dict:
     return dict(shape=list(shape), cp=q1.cp, output_equal=True, bit_equal_repeat=True)
 
 
-def check_int8_resblock() -> dict:
-    """Kernel 6 at the forward's shape, with random (1 + gamma, beta); also
-    at DecoderConcat's 268 channels and at the ragged shape."""
+def check_int8_resblock(dtype_name: str = "f32") -> dict:
+    """Kernel 6 at the forward's shape in ``dtype_name``, with random (1 +
+    gamma, beta); also at DecoderConcat's 268 channels and at the ragged
+    shape."""
+    dtype = DTYPES[dtype_name]
+    esize = torch.finfo(dtype).bits // 8
     rows = []
     for i, (shape, co, per_forward) in enumerate(RES_SHAPES):
         b, c, h, w = shape
         numel = math.prod(shape)
-        sets = copies(lambda j: (_randn(shape, torch.float32, 500 + 10 * i + j),), 4 * numel)
+        sets = copies(lambda j: (_randn(shape, dtype, 500 + 10 * i + j),), esize * numel)
         x = sets[0][0]
         gamma, beta = _card_weight((b, c), 600, 0.3), _card_weight((b, c), 601, 0.3)
         w1, w2 = _card_weight((c, c, 3, 3), 602), _card_weight((c, c, 3, 3), 603)
@@ -766,13 +807,15 @@ def check_int8_resblock() -> dict:
         again = kq.resblock(x, q1, q2, gamma, beta)
         ref = kq.resblock_plain(x, q1, q2, gamma, beta)
         torch.cuda.synchronize()
-        err = (y - ref).abs().max().item()
+        assert y.dtype == dtype, f"resblock {shape}: out is {y.dtype}, not {dtype}"
+        err = (y.float() - ref.float()).abs().max().item()
         assert err == 0.0, f"resblock {shape}: output differs from the plain version's by {err}"
         assert torch.equal(y, again), f"resblock {shape}: two calls differ"
-        cases = [_resblock_exact(CONV3X3_UNALIGNED[0], 640), _resblock_exact(INT8_RAGGED[0], 650)]
+        cases = [_resblock_exact(CONV3X3_UNALIGNED[0], 640, dtype),
+                 _resblock_exact(INT8_RAGGED[0], 650, dtype)]
 
         macs = 2 * b * h * w * c * co * 9
-        nbytes = 8 * numel + q1.w.numel() + q2.w.numel() + 8 * b * c
+        nbytes = 2 * esize * numel + q1.w.numel() + q2.w.numel() + 8 * b * c
         b_ms, by = bound(nbytes, 2 * macs, INT8_OPS)
         w1b, w2b = w1.bfloat16(), w2.bfloat16()
         bf_sets = [(t[0].bfloat16(),) for t in sets]
@@ -787,37 +830,48 @@ def check_int8_resblock() -> dict:
             library_ms=None, bound_ms=b_ms, bound_by=by,
             cuda_launches_per_call=7,
         ))
-    return summarize("int8_resblock", "f32", rows, "masterthesis_tpu/ops/pallas/conv_int8.py:989",
-                     "masterthesis_tpu_torch/csrc/int8_conv.cu", None, name="int8_resblock")
+    name = "int8_resblock" + ("" if dtype_name == "f32" else f"/{dtype_name}")
+    return summarize("int8_resblock", dtype_name, rows,
+                     "masterthesis_tpu/ops/pallas/conv_int8.py:989",
+                     "masterthesis_tpu_torch/csrc/int8_conv.cu", None, name=name)
 
 
-def check_head() -> dict:
-    """Kernel 8 at the forward's shape."""
+def check_head(dtype_name: str = "f32") -> dict:
+    """Kernel 8 at the forward's shape in ``dtype_name``: within 1e-5 of
+    its plain version in f32, within ``khead.BF16_TOL`` (two bf16 steps of
+    an output, from sums in another order) in bf16."""
+    dtype = DTYPES[dtype_name]
+    esize = torch.finfo(dtype).bits // 8
+    tol = HEAD_TOL if dtype_name == "f32" else khead.BF16_TOL
     rows = []
     for i, (shape, co, per_forward) in enumerate(HEAD_SHAPES):
         b, c, h, w = shape
         numel = math.prod(shape)
-        sets = copies(lambda j: (_randn(shape, torch.float32, 700 + 10 * i + j),), 4 * numel)
+        sets = copies(lambda j: (_randn(shape, dtype, 700 + 10 * i + j),), esize * numel)
         pending = _card_pending(b, c, 800 + i, 0.0)
         weight = _card_weight((co, c), 801 + i, 0.1)
         y = khead.head(sets[0][0], pending, weight)
         ref = khead.head_plain(sets[0][0], pending, weight)
         torch.cuda.synchronize()
-        err = (y - ref).abs().max().item()
-        assert err <= HEAD_TOL, f"head {shape}: error {err} > {HEAD_TOL}"
+        assert y.dtype == dtype, f"head {shape}: out is {y.dtype}, not {dtype}"
+        diff = (y.float() - ref.float()).abs()
+        err, share = diff.max().item(), (diff > 0).float().mean().item()
+        assert err <= tol, f"head {shape}: error {err} > {tol}"
         macs = b * h * w * c * co
-        b_ms, by = bound(4 * (numel + b * co * h * w) + 8 * b * c + 4 * co * c, 2 * macs)
+        b_ms, by = bound(esize * (numel + b * co * h * w) + 8 * b * c + 4 * co * c, 2 * macs)
         wb = weight.bfloat16()[:, :, None, None]
         bf_sets = [(t[0].bfloat16(),) for t in sets]
         rows.append(dict(
-            shape=list(shape), co=co, per_forward=per_forward, max_abs_err=err, tol=HEAD_TOL,
-            macs=macs, ms=device_ms(lambda t: khead.head(t, pending, weight), sets),
+            shape=list(shape), co=co, per_forward=per_forward, max_abs_err=err, tol=tol,
+            share_differing=share, macs=macs,
+            ms=device_ms(lambda t: khead.head(t, pending, weight), sets),
             plain_ms=device_ms(lambda t: khead.head_plain(t, pending, weight), sets),
             bf16_cudnn_ms=device_ms(lambda t: torch.tanh(F.conv2d(t, wb)), bf_sets),
             library_ms=None, bound_ms=b_ms, bound_by=by,
         ))
-    return summarize("head", "f32", rows, "masterthesis_tpu/ops/pallas/conv_int8.py:1429",
-                     "masterthesis_tpu_torch/csrc/head.cu", None, name="head")
+    return summarize("head", dtype_name, rows, "masterthesis_tpu/ops/pallas/conv_int8.py:1429",
+                     "masterthesis_tpu_torch/csrc/head.cu", None,
+                     name="head" + ("" if dtype_name == "f32" else f"/{dtype_name}"))
 
 
 # ------------------------------------------------------ training resblock --
@@ -1405,6 +1459,174 @@ def base_serve(card: str) -> dict:
         launched = {k: launched.get(k, 0) + v for k, v in got.items()}
         torch.cuda.empty_cache()
     return launched
+
+
+# bf16 compute under int8 (``int8_serve_bf16``): bench.py's two serving
+# configurations (AdaINModel; BaseModel --concat --reparam), BaseModel A,
+# whose decoder runs kernel 4, and AdaINModel with --dec_norm instance;
+# request batch sizes (B = 8 and 64 for the flagship: at 8 the host's launch
+# overhead bounds the request)
+BF16_INT8_MODELS = {
+    "AdaINModel": (AdaINModel, {}, INT8_PER_FORWARD, (B, 64)),
+    "BaseModel_A": (BaseModel, BASE_CONFIGS["A"], BASE_INT8_PER_FORWARD["A"], (B,)),
+    "BaseModel_B": (BaseModel, BASE_CONFIGS["B"], BASE_INT8_PER_FORWARD["B"], (B,)),
+    # --dec_norm instance: no LayerNorm to defer, so the transposed convs'
+    # instance norms take a moments launch each and the head stays float
+    "AdaINModel_dec_instance": (AdaINModel, dict(dec_norm="instance"), {
+        "int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 0, "int8_deconv": 2, "head": 0,
+        "moments": 3}, (B,)),
+}
+
+
+def _int8_serve_bf16(card, name, model_cls, flags, per_forward, sizes, reps=2) -> dict:
+    """One model's int8 path at compute dtype bf16: calibrated on the seeded
+    batches, its requests timed in turns with the float bf16 model of the
+    same weights and with the int8 path at compute dtype f32 (float,
+    int8 f32, int8 bf16, int8 bf16, int8 f32, float), at each batch size.
+    Every bf16 int8 forward must launch ``per_forward``; its output is
+    bf16, finite, in [-1, 1], above 25 dB from the float bf16 forward, and
+    within ``khead.BF16_TOL`` of the same forward through the plain
+    versions (kernels 4-7 are bit-equal to theirs; the head's sum order
+    differs). Returns the int8 kernels' launches."""
+    phase = f"int8_serve_bf16/{name}"
+    common = dict(**(flags or {}), **ARGS)
+    model_f = model_cls(default_test_args(compute_dtype="bfloat16", **common))
+    model_q = model_cls(default_test_args(compute_dtype="bfloat16", **common))
+    model_q32 = model_cls(default_test_args(compute_dtype="float32", **common))
+    calib = calibration_batches(ARGS)
+    t0 = time.perf_counter()
+    quant = model_q.calibrate_int8(*calib)
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    model_q32.calibrate_int8(*calib)
+    zero_counts()
+    launched = dict.fromkeys(per_forward, 0)
+
+    def checked(fn):
+        before = int8_counts()
+        out = fn()
+        delta = {k: v - before[k] for k, v in int8_counts().items()}
+        assert delta == per_forward, f"{phase}: int8 launches per forward {delta}"
+        for k, v in delta.items():
+            launched[k] += v
+        return out
+
+    for bs in sizes:
+        _, dev = request_inputs(dict(ARGS, batch_size=bs), seed=1)
+        x = (dev["img"], dev["z"], dev["c"])
+        shape = (bs, ARGS["crop_size"], ARGS["crop_size"], 3)
+        requests = {"int8": lambda: checked(lambda: model_q.forward_random(*x)),
+                    "int8_f32": lambda: model_q32.forward_random(*x),
+                    "float": lambda: model_f.forward_random(*x)}
+        for request in requests.values():  # warm-up
+            request()
+        secs, outs = {k: [] for k in requests}, {}
+        torch.cuda.reset_peak_memory_stats()
+        for kind in ("float", "int8_f32", "int8", "int8", "int8_f32", "float"):
+            for _ in range(reps):
+                out, seconds, _ = requests[kind]()
+                secs[kind].append(seconds)
+                outs[kind] = out
+        peak_gb = torch.cuda.max_memory_allocated() / 1024**3
+        for kind, out in outs.items():
+            check_image(out.float(), shape, f"{phase} B={bs} {kind}")
+        assert outs["int8"].dtype == torch.bfloat16, f"{phase}: int8 output {outs['int8'].dtype}"
+
+        def psnr(a, b):
+            mse = (a.float() - b.float()).square().mean().item()
+            return 10 * math.log10(4.0 / max(mse, 1e-12))
+
+        psnr_float = psnr(outs["int8"], outs["float"])
+        assert psnr_float > PSNR_MIN_DB, f"{phase}: int8 bf16 vs float bf16 {psnr_float} dB"
+        extra = {}
+        if bs == B:
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            ref_out, _, _ = checked(lambda: model_q.forward_reference(
+                dev["img"], dev["ref"], dev["c"], generator=gen))
+            check_image(ref_out.float(), shape, f"{phase} forward_reference")
+            with plain_kernels():
+                plain_out, plain_s, _ = model_q.forward_random(*x)
+            err, share = _flips(outs["int8"], plain_out)
+            assert err <= khead.BF16_TOL, f"{phase}: kernels vs plain: max {err}, share {share}"
+            extra = dict(max_abs_err_vs_plain=err, share_differing_vs_plain=share,
+                         tol=khead.BF16_TOL, plain_request_s=plain_s)
+        log(dict(
+            phase=phase, card=card, batch=bs, requests_per_kind=2 * reps,
+            img_per_s=bs * len(secs["int8"]) / sum(secs["int8"]),
+            img_per_s_int8_f32=bs * len(secs["int8_f32"]) / sum(secs["int8_f32"]),
+            img_per_s_float_bf16=bs * len(secs["float"]) / sum(secs["float"]),
+            request_s=secs["int8"], request_s_int8_f32=secs["int8_f32"],
+            request_s_float_bf16=secs["float"], calibrate_s=calibrate_s,
+            amax_leaves={k: len(v) for k, v in quant.items()}, peak_allocated_gb=peak_gb,
+            psnr_vs_float_bf16_db=psnr_float, psnr_vs_int8_f32_db=psnr(outs["int8"],
+                                                                       outs["int8_f32"]),
+            psnr_min_db=PSNR_MIN_DB, per_forward=per_forward, **extra,
+        ))
+    del model_f, model_q, model_q32
+    torch.cuda.empty_cache()
+    return launched
+
+
+def int8_serve_bf16(card: str) -> dict:
+    """``int8_serve_bf16``: each model of BF16_INT8_MODELS; returns the
+    bf16 int8 kernels' launches, by kernel, over all of them."""
+    launched = {}
+    for name, (model_cls, flags, per_forward, sizes) in BF16_INT8_MODELS.items():
+        got = _int8_serve_bf16(card, name, model_cls, flags, per_forward, sizes)
+        launched = {k: launched.get(k, 0) + v for k, v in got.items()}
+    return launched
+
+
+# the sample CLI's shapes at 540 x 960 (the bottleneck 135 x 240: odd rows),
+# one image, bf16: (kind, input shape, output channels, prologue)
+CLI_KERNEL_CASES = [
+    ("down", (1, 64, 540, 960), 128, 0.01), ("down", (1, 128, 270, 480), 256, 0.0),
+    ("resblock", (1, 256, 135, 240), 256, None), ("conv3x3", (1, 256, 135, 240), 256, 0.0),
+    ("deconv", (1, 256, 135, 240), 128, None), ("deconv", (1, 128, 270, 480), 64, 0.0),
+    ("head", (1, 64, 540, 960), 3, 0.0),
+]
+
+
+def check_cli_shapes() -> None:
+    """Kernels 4-8 at the sample CLI's 540 x 960 shapes in bf16 against
+    their plain versions: y and statistics of kernels 4, 5 and 7 and the
+    output of kernel 6 equal, the head within ``khead.BF16_TOL``."""
+    rows = []
+    for i, (kind, shape, co, alpha) in enumerate(CLI_KERNEL_CASES):
+        b, c = shape[:2]
+        x = _randn(shape, torch.bfloat16, 1500 + i)
+        pending = None if alpha is None else _card_pending(b, c, 1510 + i, alpha)
+        if kind == "head":
+            weight = _card_weight((co, c), 1520 + i, 0.1)
+            got, want = khead.head(x, pending, weight), khead.head_plain(x, pending, weight)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= khead.BF16_TOL, f"head {shape}: {err}"
+            rows.append(dict(kind=kind, shape=list(shape), co=co, max_abs_err=err,
+                             tol=khead.BF16_TOL))
+            continue
+        if kind == "resblock":
+            gamma, beta = _card_weight((b, c), 1530, 0.3), _card_weight((b, c), 1531, 0.3)
+            q1 = kq.quant_conv(_card_weight((c, c, 3, 3), 1532), None, x.abs().amax(), 1,
+                               "reflect")
+            q2 = kq.quant_conv(_card_weight((c, c, 3, 3), 1533), None, 4.0, 1, "reflect")
+            got = (kq.resblock(x, q1, q2, gamma, beta),)
+            want = (kq.resblock_plain(x, q1, q2, gamma, beta),)
+        else:
+            amax = kq.prologue_plain(x, pending).abs().amax()
+            weight = _card_weight((c, co, 3, 3) if kind == "deconv" else (co, c, 3, 3), 1540 + i)
+            bias = _card_weight((co,), 1550 + i, 0.1)
+            qc = (kq.quant_deconv(weight, bias, amax) if kind == "deconv" else
+                  kq.quant_conv(weight, bias, amax, 2 if kind == "down" else 1, "reflect"))
+            wrapper = {"down": kq.downconv, "conv3x3": kq.conv3x3, "deconv": kq.deconv}[kind]
+            got = wrapper(x, qc, pending, with_stats=True)
+            want = kq.conv_plain(x, qc, pending, True)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.bfloat16, f"{kind} {shape}: y is {got[0].dtype}"
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), f"{kind} {shape}: differs"
+        rows.append(dict(kind=kind, shape=list(shape), co=co, out=list(got[0].shape),
+                         equal=True, tol=0.0))
+    log(dict(phase="int8_bf16_540x960", cases=rows))
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- training --
@@ -2068,6 +2290,208 @@ def train_cli(card: str, fused_rates: dict, fused_per_step: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the sample CLI (``sample_cli``): the flagship AdaINModel at full width from
+# a Model.save checkpoint, 540 x 960 (EvalTransform's size), batch 4, bf16
+SAMPLE_IMAGES, SAMPLE_BATCH, SAMPLE_FRAMES = 8, 4, 16
+SAMPLE_ARGV = ["--model", "AdaINModel", "--dim", "64", "--latent_dim", "8", "--num_domains", "4",
+               "--batch_size", str(SAMPLE_BATCH), "--sample_size", *map(str, CLI_IMAGE),
+               "--compute_dtype", "bfloat16", "--seed", "0", "--num_workers", "1"]
+SAMPLE_ROUTES = {"bf16": [], "bf16_int8": ["--int8"], "grid": ["--gen_grid"],
+                 "video": ["--out_fmt", "video", "--vid_fname", "clip.avi"]}
+
+
+class CliSampler(Sampler):
+    """The sample CLI's Sampler with its work recorded: the launch counts
+    set to 0 after calibration, and each queued translation (inputs and
+    output, on the card)."""
+
+    def calibrate(self, args, model, dataloader):
+        quant = super().calibrate(args, model, dataloader)
+        zero_counts()
+        return quant
+
+    def _enqueue(self, fn, *args):
+        out = super()._enqueue(fn, *args)
+        self.queued.append((args, out[0]))
+        return out
+
+    def run(self, args):
+        self.queued = []
+        zero_counts()
+        return super().run(args)
+
+
+def write_video(path: Path, frames: int, seed: int = 0) -> None:
+    """``frames`` seeded 540 x 960 frames (smooth patterns), MJPG in an .avi."""
+    import cv2
+
+    h, w = CLI_IMAGE
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
+                         np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (w, h))
+    assert writer.isOpened(), "cv2 has no MJPG video writer"
+    for k in range(frames):
+        img = np.stack([120 + 80 * np.sin(2 * np.pi * (3 * xx + 2 * yy + 0.05 * k + c))
+                        for c in range(3)], axis=-1)
+        img += rng.normal(0, 4, img.shape).astype(np.float32)
+        writer.write(np.clip(img, 0, 255).astype(np.uint8))
+    writer.release()
+
+
+def _decoded_sizes(root: Path) -> dict:
+    """{file under root: (w, h) of an image, (frames, w, h) of a video}."""
+    import cv2
+    from PIL import Image
+
+    out = {}
+    for path in sorted(root.rglob("*")):
+        if path.suffix in (".jpg", ".png"):
+            with Image.open(path) as im:
+                out[str(path.relative_to(root))] = im.size
+        elif path.suffix == ".avi":
+            cap = cv2.VideoCapture(str(path))
+            n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            ok, frame = cap.read()
+            cap.release()
+            out[str(path.relative_to(root))] = (n, *(frame.shape[1::-1] if ok else (0, 0)))
+    return out
+
+
+def _bare_rate(model, batch, style, c_trg, reps=4) -> float:
+    """The bare forward_random at the CLI's shape and batch, img/s."""
+    model.forward_random(batch, style, c_trg)
+    secs = [model.forward_random(batch, style, c_trg)[1] for _ in range(reps)]
+    return len(batch) * reps / sum(secs)
+
+
+def _profiled_pass(sampler, args, model, loader) -> dict:
+    """Device busy over one per-target pass over the batches (one target,
+    the one-deep pipeline as the CLI runs it), and its window."""
+    sampler.sample(args, model, loader, trgs=[0])  # warm
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sampler.sample(args, model, loader, trgs=[0])
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    busy = _device_busy_ms(prof)
+    return dict(device_busy_ms=busy, window_ms=window * 1e3,
+                device_idle_share=1.0 - busy / (window * 1e3))
+
+
+def sample_cli_route(card: str, root: Path, route: str, ckpt_path: str) -> dict:
+    """``sample_cli/<route>``: ``TestArguments().parse`` and ``Sampler().run``
+    on the card; the files checked; the first batch against the bare
+    forward_random; the CLI's rate beside the bare forward's, the loader
+    alone, the JPEG encode alone and the idle share over a profiled pass."""
+    phase = f"sample_cli/{route}"
+    video = route == "video"
+    data = root / ("in.avi" if video else "imgs")
+    out_dir = root / "out" / route
+    argv = ["--dataroot", str(data), "--resume", ckpt_path, "--result_dir", str(out_dir),
+            *SAMPLE_ARGV, *SAMPLE_ROUTES[route]]
+    args = TestArguments().parse(argv)
+    sampler = CliSampler()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = sampler.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1024**3
+    h, w = CLI_IMAGE
+    k = ARGS["num_domains"]
+    batches = (SAMPLE_FRAMES - 1 if video else SAMPLE_IMAGES) // SAMPLE_BATCH
+    forwards = batches * k
+    int8 = route == "bf16_int8"
+    files = _decoded_sizes(Path(args.display_dir))
+    if route == "grid":
+        want = {"grid.png": ((1 + k) * w, batches * h)}
+    elif video:
+        want = {f"clip_{d}.avi": (batches * SAMPLE_BATCH, w, h) for d in CLI_DOMAINS}
+    else:
+        want = {os.path.join(str(t), f"image{t}_{i}_{j}.jpg"): (w, h)
+                for t in range(k) for i in range(batches) for j in range(SAMPLE_BATCH)}
+    assert files == want, f"{phase}: files {sorted(files.items())[:4]}"
+    per_forward = INT8_PER_FORWARD if int8 else None
+    if int8:
+        got = int8_counts()
+        assert got == {n: v * forwards for n, v in per_forward.items()}, f"{phase}: {got}"
+    elif route != "grid":
+        got = dict(zip(("moments", "adain"), counts()))
+        assert got == dict(moments=MOMENTS_PER_FORWARD * forwards,
+                           adain=ADAIN_PER_FORWARD * forwards), f"{phase}: {got}"
+    else:
+        got = dict(zip(("moments", "adain"), counts()))
+    extra = {}
+    if route != "grid":
+        assert len(sampler.queued) == forwards, f"{phase}: {len(sampler.queued)} forwards"
+        for _, out in sampler.queued:
+            assert out.dtype == torch.bfloat16 and torch.isfinite(out).all(), f"{phase}: output"
+        (batch, style, c_trg), first = sampler.queued[0]
+        bare, _, _ = model.forward_random(batch, style, c_trg)
+        first_err = (first.float() - bare.float()).abs().max().item()
+        assert first_err <= MODEL_TOL["bf16"], f"{phase}: first batch vs forward_random {first_err}"
+        extra = dict(first_batch_vs_forward_random=first_err,
+                     cli_translations_per_s=sampler.translated / sampler.loop_seconds,
+                     bare_forward_img_per_s=_bare_rate(model, batch, style, c_trg),
+                     loop_s=sampler.loop_seconds, translated=sampler.translated)
+        if not video:
+            loader = sampler.load_dataset(args)
+            t1 = time.perf_counter()
+            n = sum(len(b) for b in loader)
+            loader_rate = n / (time.perf_counter() - t1)
+            imgs = first.float().cpu().numpy()
+            scratch = root / "encode"
+            t1 = time.perf_counter()
+            save_images(imgs, [str(scratch / f"{j}.jpg") for j in range(len(imgs))])
+            encode_rate = len(imgs) / (time.perf_counter() - t1)
+            shutil.rmtree(scratch)
+            extra.update(loader_img_per_s=loader_rate, jpeg_encode_img_per_s=encode_rate,
+                         profiled_pass=_profiled_pass(sampler, args, model, loader))
+    log(dict(phase=phase, card=card, batch=SAMPLE_BATCH, size=list(CLI_IMAGE), run_s=run_s,
+             forwards=forwards, launches=got, per_forward=per_forward,
+             calibration_s=sampler.calibration_seconds if int8 else None,
+             peak_allocated_gb=peak_gb, files=len(files), **extra))
+    del model, sampler
+    torch.cuda.empty_cache()
+    return got
+
+
+def sample_cli(card: str) -> dict:
+    """``sample_cli``: a seeded flagship AdaINModel saved with
+    ``Model.save``, then the CLI's four routes over 8 seeded 540 x 960
+    JPEGs (and a 16-frame video), under ``chiprun_out/`` and removed after.
+    Returns the int8 route's launches."""
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="sample_cli_", dir=out_dir))
+    try:
+        t0 = time.perf_counter()
+        write_jpeg_tree(root / "tree")
+        (root / "imgs").mkdir()
+        for i, path in enumerate(sorted((root / "tree" / "train").rglob("*.jpg"))[:SAMPLE_IMAGES]):
+            shutil.move(str(path), str(root / "imgs" / f"img{i}.jpg"))
+        shutil.rmtree(root / "tree")
+        write_video(root / "in.avi", SAMPLE_FRAMES)
+        ckdir = root / "ckpt"
+        trainer = AdaINModel(default_train_args(checkpoint_dir=str(ckdir), logdir=None,
+                                                **TRAIN_ARGS))
+        trainer.save(0)
+        del trainer
+        torch.cuda.empty_cache()
+        log(dict(phase="sample_cli/data", images=SAMPLE_IMAGES, frames=SAMPLE_FRAMES,
+                 size=list(CLI_IMAGE), seconds=time.perf_counter() - t0))
+        launched = {}
+        for route in SAMPLE_ROUTES:
+            got = sample_cli_route(card, root, route, str(ckdir / "model_0.ckpt"))
+            if route == "bf16_int8":
+                launched = got
+        return launched
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
     model = model_cls(default_train_args(**{**TRAIN_ARGS, **(flags or {})}))
@@ -2144,6 +2568,10 @@ def main(argv) -> int:
         entries.append(check_adain(dtype_name, dtype))
     int8_entries = [check_int8_conv("down"), check_int8_resblock(), check_int8_conv("conv3x3"),
                     check_int8_conv("deconv"), check_head()]
+    bf16_entries = [check_int8_conv("down", "bf16"), check_int8_resblock("bf16"),
+                    check_int8_conv("conv3x3", "bf16"), check_int8_conv("deconv", "bf16"),
+                    check_head("bf16")]
+    check_cli_shapes()
     int8_breakdown()
     torch.cuda.empty_cache()
     train_entries = [check_resblock("fwd"), check_resblock("bwd")]
@@ -2164,6 +2592,13 @@ def main(argv) -> int:
     for e in int8_entries:
         e["launches"] = (base_launched if e["name"] == "int8_conv3x3" else launched)[e["name"]]
     entries += int8_entries
+    launched = int8_serve_bf16(card)
+    for e in bf16_entries:
+        e["launches"] = launched[e["name"].split("/")[0]]
+    entries += bf16_entries
+    log(dict(phase="seconds", upto="int8_serve_bf16", seconds=time.perf_counter() - t0))
+    sample_cli(card)
+    log(dict(phase="seconds", upto="sample_cli", seconds=time.perf_counter() - t0))
     launched = train(card)
     for e in train_entries:
         e["launches"] = launched[e["name"]]

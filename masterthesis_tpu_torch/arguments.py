@@ -19,7 +19,10 @@ the card; "off"; tests also set "on", which routes CPU tensors through the
 kernels' plain versions, as the JAX package's tests set "interpret"). A
 training flag that selects a branch the port lacks raises
 ``NotImplementedError`` when the model is built; the rest are kept so that
-one namespace drives either package.
+one namespace drives either package. The sample CLI (``sample.py``) reads
+the test flags as the JAX sampler does; there, as in training,
+``--num_devices`` above 1 raises naming ROADMAP A.7 and ``--ckpt_format
+orbax`` raises ``checkpoint.ORBAX_ERROR``.
 """
 from __future__ import annotations
 

@@ -52,6 +52,17 @@
 // bound by bytes; the resblock (kernel 6) as a whole moves about 271 MB over
 // its 7 launches against 77.3 G int8 operations.
 //
+// Activations are f32 or bf16 (the model's compute dtype), a compile-time
+// type of every kernel that reads or writes them (TIn, TOut, T), never a
+// branch at run time: the quantize-and-pad launches read either and apply
+// the prologue in f32, the convs compute y = acc * scale + bias in f32 and
+// round it once to the output type on store (in bf16 the transposed and
+// stride-2 convs store y by threads, not TMA: a store row of 32 bf16 is 64
+// bytes, the f32 layout's swizzle is for 128), and the residual adds
+// x + round(h * a + b) in f32 and rounds the sum, as the JAX package's
+// composed block does in bf16 (x + y.astype(x.dtype)). The statistics come
+// from the integer accumulators, so they are the same in either type.
+//
 // Numerics. The prologue and the quantize are written with __fmul_rn /
 // __fadd_rn (no FMA contraction) and rounded with rintf (half to even), so
 // that fed the same input and affine the int8 operands equal torch's
@@ -68,6 +79,8 @@
 // integers, so the plain version, which repeats the f64 steps with torch ops,
 // gets the same bits: an int8 chain quantizing with these statistics does not
 // flip a value between kernel and plain version, and a run repeats exactly.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -105,11 +118,25 @@ __device__ __forceinline__ uint32_t quantize(float v, float inv, bool affine, fl
   return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
 }
 
+// 4 consecutive values from 4-aligned src as f32 (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ void load4(const float* src, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(src);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* src, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  mt::Vec<__nv_bfloat16>::lo_hi(u.x, v[0], v[1]);
+  mt::Vec<__nv_bfloat16>::lo_hi(u.y, v[2], v[3]);
+}
+
 // kQC channels per block: 128, or 64 where Cp is at most 64 (fewer leave
-// threads idle)
-template <int kQC>
+// threads idle); TIn f32 or bf16
+template <int kQC, typename TIn>
 __global__ void __launch_bounds__(256)
-    quant_pad_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
+    quant_pad_kernel(const TIn* __restrict__ x, int8_t* __restrict__ out,
                      const float* __restrict__ inv_sx, const float* __restrict__ pa,
                      const float* __restrict__ pb, int relu, float alpha, int C, int H, int W,
                      int Cp, int Hp, int Wp, int pt, int pl, int reflect) {
@@ -134,17 +161,13 @@ __global__ void __launch_bounds__(256)
         const int c = c0 + 4 * cq + k;
         if (c >= C) continue;
         const int64_t bc = static_cast<int64_t>(b) * C + c;
-        const float* src = x + (bc * H + y) * W + xs;
+        const TIn* src = x + (bc * H + y) * W + xs;
         float v[4];
         if (W % 4 == 0) {
-          const float4 f = *reinterpret_cast<const float4*>(src);
-          v[0] = f.x;
-          v[1] = f.y;
-          v[2] = f.z;
-          v[3] = f.w;
+          load4(src, v);
         } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) v[e] = xs + e < hi ? src[e] : 0.f;
+          for (int e = 0; e < 4; ++e) v[e] = xs + e < hi ? mt::to_float(src[e]) : 0.f;
         }
         const float sa = pa != nullptr ? pa[bc] : 1.f, sb = pa != nullptr ? pb[bc] : 0.f;
 #pragma unroll
@@ -177,15 +200,16 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// NHWC f32 (B, H, W, C) -> padded NHWC int8, the same arithmetic (kernel 6's
-// second quantize, of h1 as conv1 stores it): one thread per 16 channels of a
-// padded pixel, reading 64 bytes along the channels (and the affine's 128)
-// and writing 16. Block (padded row b x Hp + yp, 256 of the row's Wp x Cp / 16
-// threads).
+// NHWC (B, H, W, C) f32 or bf16 -> padded NHWC int8, the same arithmetic
+// (kernel 6's second quantize, of h1 as conv1 stores it): one thread per 16
+// channels of a padded pixel, reading 64 (f32) or 32 (bf16) bytes along the
+// channels (and the affine's 128) and writing 16. Block (padded row b x Hp +
+// yp, 256 of the row's Wp x Cp / 16 threads).
 constexpr int kQV = 16;
 
+template <typename TIn>
 __global__ void __launch_bounds__(256)
-    quant_pad_nhwc_kernel(const float* __restrict__ h, int8_t* __restrict__ out,
+    quant_pad_nhwc_kernel(const TIn* __restrict__ h, int8_t* __restrict__ out,
                           const float* __restrict__ inv_sx, const float* __restrict__ pa,
                           const float* __restrict__ pb, int relu, float alpha, int C, int H,
                           int W, int Cp, int Hp, int Wp, int pt, int pl, int reflect) {
@@ -205,18 +229,19 @@ __global__ void __launch_bounds__(256)
   uint32_t word[4] = {0u, 0u, 0u, 0u};
   if (ok && c0 < C) {
     const float inv = *inv_sx;
-    const float* src = h + ((static_cast<int64_t>(b) * H + y) * W + x) * C + c0;
+    const TIn* src = h + ((static_cast<int64_t>(b) * H + y) * W + x) * C + c0;
     const int64_t bc = static_cast<int64_t>(b) * C + c0;
     const bool affine = pa != nullptr;
     float v[kQV], sa[kQV], sb[kQV];
     if (C % 4 == 0 && c0 + kQV <= C) {
 #pragma unroll
       for (int e = 0; e < kQV; e += 4) {
-        const float4 f = *reinterpret_cast<const float4*>(src + e);
-        v[e] = f.x;
-        v[e + 1] = f.y;
-        v[e + 2] = f.z;
-        v[e + 3] = f.w;
+        float f[4];
+        load4(src + e, f);
+        v[e] = f[0];
+        v[e + 1] = f[1];
+        v[e + 2] = f[2];
+        v[e + 3] = f[3];
         if (affine) {
           const float4 fa = *reinterpret_cast<const float4*>(pa + bc + e);
           const float4 fb = *reinterpret_cast<const float4*>(pb + bc + e);
@@ -234,7 +259,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
       for (int e = 0; e < kQV; ++e) {
         const bool in = c0 + e < C;
-        v[e] = in ? src[e] : 0.f;
+        v[e] = in ? mt::to_float(src[e]) : 0.f;
         sa[e] = in && affine ? pa[bc + e] : 1.f;
         sb[e] = in && affine ? pb[bc + e] : 0.f;
       }
@@ -467,7 +492,7 @@ __device__ __forceinline__ void stage_acc(int* st, const int (&acc)[kNW / 2], in
 struct WConvArgs {
   const float* scale;
   const float* bias;
-  float* y;
+  void* y;  // TOut
   long long* psum;
   long long* psq;
   int Hp, Wp, Cp, R, tiles, nhwc, ntile0;
@@ -481,7 +506,8 @@ struct WConvArgs {
 // multiple of 256 (a launch of its own): a compile-time width keeps every
 // wgmma out of divergent code, which ptxas would otherwise serialize. map_w's
 // box holds kNW weight rows, so a narrow tail tile loads only its own rows.
-template <int kNW>
+// TOut is y's type, f32 or bf16.
+template <int kNW, typename TOut>
 __global__ void __launch_bounds__(kWThreads, 1)
     conv_s1_wgmma_kernel(const __grid_constant__ CUtensorMap map_in,
                          const __grid_constant__ CUtensorMap map_w, WConvArgs p) {
@@ -562,14 +588,14 @@ __global__ void __launch_bounds__(kWThreads, 1)
     for (int r = gw; r < kWM; r += 8) {
       const int px = pix[r];
       if (px < 0) continue;
-      float* orow = p.y + (static_cast<int64_t>(b) * hw + px) * p.R + n0;
+      TOut* orow = static_cast<TOut*>(p.y) + (static_cast<int64_t>(b) * hw + px) * p.R + n0;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         const int c = lane + 32 * i;
         if (c < ncols) {
           float v = __fmul_rn(__int2float_rn(st[c * kStage + r]), sc[i]);
           if (p.bias != nullptr) v = __fadd_rn(v, bi[i]);
-          orow[c] = v;
+          orow[c] = mt::from_float<TOut>(v);
         }
       }
     }
@@ -578,14 +604,14 @@ __global__ void __launch_bounds__(kWThreads, 1)
       const int n = n0 + c;
       const float sc = p.scale[n];
       const float bi = p.bias != nullptr ? p.bias[n] : 0.f;
-      float* ycol = p.y + (static_cast<int64_t>(b) * p.R + n) * hw;
+      TOut* ycol = static_cast<TOut*>(p.y) + (static_cast<int64_t>(b) * p.R + n) * hw;
 #pragma unroll
       for (int r = lane; r < kWM; r += 32) {
         const int px = pix[r];
         if (px < 0) continue;
         float v = __fmul_rn(__int2float_rn(st[c * kStage + r]), sc);
         if (p.bias != nullptr) v = __fadd_rn(v, bi);
-        ycol[px] = v;
+        ycol[px] = mt::from_float<TOut>(v);
       }
     }
   }
@@ -626,13 +652,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
 struct BConvArgs {
   const float* scale;
   const float* bias;
-  float* y;
+  void* y;  // TOut
   long long* psum;
   long long* psq;
   int Hp, Cp, R, Ho, Wo;
   int tiles, tiles_x, bx, by;  // M tiles per image, and per band of by rows; the box
   int n0;                      // the launch's first output row
-  int tma_y;                   // y by TMA stores (map_y), or by the threads
+  int tma_y;                   // y by TMA stores (map_y, f32 only), or by the threads
 };
 
 // the box conv's N tile, and its ring: kSlab channels (bytes) a slab, 128
@@ -662,7 +688,7 @@ __device__ __forceinline__ int swizzled(int row, int x) {
   return row * 128 + (((x >> 2) ^ (row & 7)) << 4) + (x & 3) * 4;
 }
 
-template <int kNW, bool kSub, int kSlab>
+template <int kNW, bool kSub, int kSlab, typename TOut>
 __global__ void __launch_bounds__(kWThreads, 2)
     conv_box_kernel(const __grid_constant__ CUtensorMap map_in,
                     const __grid_constant__ CUtensorMap map_w,
@@ -808,7 +834,7 @@ __global__ void __launch_bounds__(kWThreads, 2)
   }
   // the chunks of 32 output columns that hold some inside the box
   const int chunks = ((kSub ? 2 * vx : vx) + 31) >> 5;
-  if (p.tma_y) {
+  if (std::is_same<TOut, float>::value && p.tma_y) {
     fence_proxy_async();
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     if (threadIdx.x == 0) {
@@ -834,8 +860,9 @@ __global__ void __launch_bounds__(kWThreads, 2)
     const int oy = kSub ? 2 * (oy0 + ly) + (rr & 1) : oy0 + ly;
     const int x = (kSub ? 2 * ox0 : ox0) + 32 * j + lane;
     if (co < co_n && oy0 + ly < p.Ho && x < plane_w)
-      p.y[((static_cast<int64_t>(b) * co_n + co) * plane_h + oy) * plane_w + x] =
-          *reinterpret_cast<const float*>(sy + j * chunk_rows * 128 + swizzled(rr, lane));
+      static_cast<TOut*>(p.y)[((static_cast<int64_t>(b) * co_n + co) * plane_h + oy) * plane_w +
+                              x] = mt::from_float<TOut>(
+          *reinterpret_cast<const float*>(sy + j * chunk_rows * 128 + swizzled(rr, lane)));
   }
 }
 
@@ -900,16 +927,19 @@ __global__ void stats_kernel(const long long* __restrict__ psum,
   }
 }
 
-// out NCHW = x NCHW + (h * a + b), h NHWC (B, HW, C) as conv2 stores it: a
-// block moves a tile of 32 pixels x 64 channels of h through shared memory,
+// out NCHW = x NCHW + round(h * a + b), h NHWC (B, HW, C) as conv2 stores
+// it, all of type T (f32 or bf16; the affine in f32, rounded to T, then the
+// sum in f32 rounded to T: the JAX package's x + y.astype(x.dtype)): a block
+// moves a tile of 32 pixels x 64 channels of h through shared memory,
 // reading h along its channels and x and out along the pixels. Block (pixel
 // tile, b, channel group), 256 threads.
 constexpr int kRP = 32, kRC = 64;
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-    residual_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ h,
+    residual_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ h,
                          const float* __restrict__ a, const float* __restrict__ b,
-                         float* __restrict__ out, int C, int HW) {
+                         T* __restrict__ out, int C, int HW) {
   __shared__ float tile[kRC][kRP + 1];
   const int p0 = blockIdx.x * kRP, bi = blockIdx.y, c0 = blockIdx.z * kRC;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -921,23 +951,26 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int c = c0 + warp + 8 * k;
-    xv[k] = px_ok && c < C ? x[(static_cast<int64_t>(bi) * C + c) * HW + p0 + lane] : 0.f;
+    xv[k] = px_ok && c < C ? mt::to_float(x[(static_cast<int64_t>(bi) * C + c) * HW + p0 + lane])
+                           : 0.f;
   }
-  const float* hb = h + static_cast<int64_t>(bi) * HW * C;
+  const T* hb = h + static_cast<int64_t>(bi) * HW * C;
   if (C % 4 == 0) {
     for (int i = threadIdx.x; i < kRP * (kRC / 4); i += 256) {
       const int j = i / (kRC / 4), c = c0 + 4 * (i % (kRC / 4));
       if (p0 + j >= HW || c >= C) continue;
-      const float4 v = *reinterpret_cast<const float4*>(hb + static_cast<int64_t>(p0 + j) * C + c);
-      tile[c - c0][j] = v.x;
-      tile[c - c0 + 1][j] = v.y;
-      tile[c - c0 + 2][j] = v.z;
-      tile[c - c0 + 3][j] = v.w;
+      float v[4];
+      load4(hb + static_cast<int64_t>(p0 + j) * C + c, v);
+      tile[c - c0][j] = v[0];
+      tile[c - c0 + 1][j] = v[1];
+      tile[c - c0 + 2][j] = v[2];
+      tile[c - c0 + 3][j] = v[3];
     }
   } else {
     for (int i = threadIdx.x; i < kRP * kRC; i += 256) {
       const int j = i / kRC, c = c0 + i % kRC;
-      if (p0 + j < HW && c < C) tile[c - c0][j] = hb[static_cast<int64_t>(p0 + j) * C + c];
+      if (p0 + j < HW && c < C)
+        tile[c - c0][j] = mt::to_float(hb[static_cast<int64_t>(p0 + j) * C + c]);
     }
   }
   __syncthreads();
@@ -947,8 +980,9 @@ __global__ void __launch_bounds__(256)
     const int c = warp + 8 * k;
     if (c0 + c >= C) break;
     const int64_t bc = static_cast<int64_t>(bi) * C + c0 + c;
-    out[bc * HW + p0 + lane] =
-        __fadd_rn(xv[k], __fadd_rn(__fmul_rn(tile[c][lane], a[bc]), b[bc]));
+    const float y =
+        mt::to_float(mt::from_float<T>(__fadd_rn(__fmul_rn(tile[c][lane], a[bc]), b[bc])));
+    out[bc * HW + p0 + lane] = mt::from_float<T>(__fadd_rn(xv[k], y));
   }
 }
 
@@ -956,7 +990,7 @@ int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-template <int kNW>
+template <int kNW, typename TOut>
 int launch_s1(const CUtensorMap& map_in, const void* w, WConvArgs a, int64_t B, int ntile0,
               int ntiles, cudaStream_t stream) {
   // the weights as (R, 9, Cp) boxes of kNW rows: past R they read zeros
@@ -970,19 +1004,20 @@ int launch_s1(const CUtensorMap& map_in, const void* w, WConvArgs a, int64_t B, 
   if (got != cudaSuccess) return got;
   if (dev >= 64 || !(allowed >> dev & 1)) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        conv_s1_wgmma_kernel<kNW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+        conv_s1_wgmma_kernel<kNW, TOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
     if (attr != cudaSuccess) return attr;
     if (dev < 64) allowed |= 1ULL << dev;
   }
   a.ntile0 = ntile0;
   dim3 grid(static_cast<unsigned>(B * a.tiles), static_cast<unsigned>(ntiles));
-  conv_s1_wgmma_kernel<kNW><<<grid, kWThreads, kWSmem, stream>>>(map_in, map_w, a);
+  conv_s1_wgmma_kernel<kNW, TOut><<<grid, kWThreads, kWSmem, stream>>>(map_in, map_w, a);
   return last_error();
 }
 
 // the stride-1 conv's launches: checks, the input's TMA descriptor, the full
 // N tiles at width 256, then a last, narrower tile if R is not a multiple of
 // 256
+template <typename TOut>
 int conv_s1(const void* xq, const void* w, WConvArgs a, int64_t B, cudaStream_t stream) {
   const uint64_t rows = static_cast<uint64_t>(B) * a.Hp * a.Wp;
   if (a.Hp < 3 || a.Wp < 3 || rows >= (1ULL << 31) || !aligned(xq) || !aligned(w) ||
@@ -993,13 +1028,13 @@ int conv_s1(const void* xq, const void* w, WConvArgs a, int64_t B, cudaStream_t 
   if (!make_map(&map_in, kInt8, xq, a.Cp, rows, kWK, kWM)) return cudaErrorInvalidValue;
   const int full = a.R / kWN, tail = a.R % kWN;
   if (full > 0) {
-    const int err = launch_s1<256>(map_in, w, a, B, 0, full, stream);
+    const int err = launch_s1<256, TOut>(map_in, w, a, B, 0, full, stream);
     if (err != cudaSuccess) return err;
   }
-  if (tail > 128) return launch_s1<256>(map_in, w, a, B, full, 1, stream);
-  if (tail > 64) return launch_s1<128>(map_in, w, a, B, full, 1, stream);
-  if (tail > 32) return launch_s1<64>(map_in, w, a, B, full, 1, stream);
-  if (tail > 0) return launch_s1<32>(map_in, w, a, B, full, 1, stream);
+  if (tail > 128) return launch_s1<256, TOut>(map_in, w, a, B, full, 1, stream);
+  if (tail > 64) return launch_s1<128, TOut>(map_in, w, a, B, full, 1, stream);
+  if (tail > 32) return launch_s1<64, TOut>(map_in, w, a, B, full, 1, stream);
+  if (tail > 0) return launch_s1<32, TOut>(map_in, w, a, B, full, 1, stream);
   return last_error();
 }
 
@@ -1031,7 +1066,7 @@ constexpr CUtensorMapSwizzle slab_swizzle() {
   return kSlab == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
 }
 
-template <int kNW, bool kSub, int kSlab>
+template <int kNW, bool kSub, int kSlab, typename TOut>
 int launch_box(const CUtensorMap& map_in, const void* w, BConvArgs a, int64_t B, int n0,
                int ntiles, cudaStream_t stream) {
   // the weights as (R, taps, Cp) boxes of kNW rows: past R they read zeros
@@ -1051,40 +1086,59 @@ int launch_box(const CUtensorMap& map_in, const void* w, BConvArgs a, int64_t B,
   }
   constexpr int kSmem = BoxRing<kNW, kSlab>::kSmem;
   static uint64_t allowed = 0;
-  const cudaError_t err = allow_smem(conv_box_kernel<kNW, kSub, kSlab>, kSmem, allowed);
+  const cudaError_t err = allow_smem(conv_box_kernel<kNW, kSub, kSlab, TOut>, kSmem, allowed);
   if (err != cudaSuccess) return err;
   a.n0 = n0;
   dim3 grid(static_cast<unsigned>(B * a.tiles), static_cast<unsigned>(ntiles));
-  conv_box_kernel<kNW, kSub, kSlab><<<grid, kWThreads, kSmem, stream>>>(map_in, map_w, map_y, a);
+  conv_box_kernel<kNW, kSub, kSlab, TOut><<<grid, kWThreads, kSmem, stream>>>(map_in, map_w,
+                                                                            map_y, a);
   return last_error();
 }
 
 // the full N tiles at width 128 in one launch, then a last, narrower tile
 // if R is not a multiple of 128, at the narrowest wgmma width that covers it
-template <bool kSub, int kSlab>
+template <bool kSub, int kSlab, typename TOut>
 int conv_box(const CUtensorMap& map_in, const void* w, BConvArgs a, int64_t B,
              cudaStream_t stream) {
   const int full = a.R / kBoxNW, tail = a.R % kBoxNW, n0 = full * kBoxNW;
   if (full > 0) {
-    const int err = launch_box<kBoxNW, kSub, kSlab>(map_in, w, a, B, 0, full, stream);
+    const int err = launch_box<kBoxNW, kSub, kSlab, TOut>(map_in, w, a, B, 0, full, stream);
     if (err != cudaSuccess) return err;
   }
-  if (tail > 64) return launch_box<128, kSub, kSlab>(map_in, w, a, B, n0, 1, stream);
-  if (tail > 32) return launch_box<64, kSub, kSlab>(map_in, w, a, B, n0, 1, stream);
-  if (tail > 0) return launch_box<32, kSub, kSlab>(map_in, w, a, B, n0, 1, stream);
+  if (tail > 64) return launch_box<128, kSub, kSlab, TOut>(map_in, w, a, B, n0, 1, stream);
+  if (tail > 32) return launch_box<64, kSub, kSlab, TOut>(map_in, w, a, B, n0, 1, stream);
+  if (tail > 0) return launch_box<32, kSub, kSlab, TOut>(map_in, w, a, B, n0, 1, stream);
   return last_error();
+}
+
+template <bool kSub, typename TOut>
+int conv_box_slab(bool narrow, const CUtensorMap& map_in, const void* w, BConvArgs a, int64_t B,
+                  cudaStream_t stream) {
+  return narrow ? conv_box<kSub, 64, TOut>(map_in, w, a, B, stream)
+                : conv_box<kSub, 128, TOut>(map_in, w, a, B, stream);
+}
+
+template <typename TIn>
+void quant_pad_launch(int qc, dim3 grid, cudaStream_t stream, const void* x, void* out,
+                      const void* inv_sx, const void* pa, const void* pb, int relu, float alpha,
+                      int C, int H, int W, int Cp, int Hp, int Wp, int pt, int pl, int reflect) {
+  auto kernel = qc == 64 ? quant_pad_kernel<64, TIn> : quant_pad_kernel<128, TIn>;
+  kernel<<<grid, 256, 0, stream>>>(static_cast<const TIn*>(x), static_cast<int8_t*>(out),
+                                   static_cast<const float*>(inv_sx),
+                                   static_cast<const float*>(pa), static_cast<const float*>(pb),
+                                   relu, alpha, C, H, W, Cp, Hp, Wp, pt, pl, reflect);
 }
 
 }  // namespace
 
-// x: (B, C, H, W) f32; out: (B, Hp, Wp, Cp) int8 (Cp a multiple of 32), with
-// pads of at most one row or column at each side and, past them, zero rows
-// and columns to Hp x Wp (at most one more of each); inv_sx: one f32 on the
-// device; pa, pb: (B, C) f32 or null.
+// x: (B, C, H, W) f32, or bf16 with x_bf16; out: (B, Hp, Wp, Cp) int8 (Cp a
+// multiple of 32), with pads of at most one row or column at each side and,
+// past them, zero rows and columns to Hp x Wp (at most one more of each);
+// inv_sx: one f32 on the device; pa, pb: (B, C) f32 or null.
 extern "C" int mt_int8_quant_pad(const void* x, void* out, const void* inv_sx, const void* pa,
                                  const void* pb, int relu, float alpha, int64_t B, int64_t C,
                                  int64_t H, int64_t W, int64_t Cp, int64_t Hp, int64_t Wp,
-                                 int64_t pt, int64_t pl, int reflect, void* stream) {
+                                 int64_t pt, int64_t pl, int reflect, int x_bf16, void* stream) {
   const int64_t pr = Wp - W - pl, pb_ = Hp - H - pt;
   if (Cp % 32 != 0 || Cp / 64 >= 65536 || B * Hp >= (1LL << 31) || pl < 0 || pl > 1 || pr < 0 ||
       pr > 2 || pt < 0 || pt > 1 || pb_ < 0 || pb_ > 2 || !aligned(out) ||
@@ -1094,21 +1148,20 @@ extern "C" int mt_int8_quant_pad(const void* x, void* out, const void* inv_sx, c
   const int qc = Cp <= 64 ? 64 : 128;  // channels per block
   dim3 grid(static_cast<unsigned>(B * Hp), static_cast<unsigned>((Wp + kQSeg - 1) / kQSeg),
             static_cast<unsigned>((Cp + qc - 1) / qc));
-  auto kernel = qc == 64 ? quant_pad_kernel<64> : quant_pad_kernel<128>;
-  kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(out), static_cast<const float*>(inv_sx),
-      static_cast<const float*>(pa), static_cast<const float*>(pb), relu, alpha,
-      static_cast<int>(C), static_cast<int>(H), static_cast<int>(W), static_cast<int>(Cp),
-      static_cast<int>(Hp), static_cast<int>(Wp), static_cast<int>(pt), static_cast<int>(pl),
-      reflect);
+  auto launch = x_bf16 ? quant_pad_launch<__nv_bfloat16> : quant_pad_launch<float>;
+  launch(qc, grid, static_cast<cudaStream_t>(stream), x, out, inv_sx, pa, pb, relu, alpha,
+         static_cast<int>(C), static_cast<int>(H), static_cast<int>(W), static_cast<int>(Cp),
+         static_cast<int>(Hp), static_cast<int>(Wp), static_cast<int>(pt), static_cast<int>(pl),
+         reflect);
   return last_error();
 }
 
-// the same from x NHWC (B, H, W, C) f32 (16-byte aligned)
+// the same from x NHWC (B, H, W, C) f32, or bf16 with x_bf16 (16-byte aligned)
 extern "C" int mt_int8_quant_pad_nhwc(const void* x, void* out, const void* inv_sx, const void* pa,
                                       const void* pb, int relu, float alpha, int64_t B, int64_t C,
                                       int64_t H, int64_t W, int64_t Cp, int64_t Hp, int64_t Wp,
-                                      int64_t pt, int64_t pl, int reflect, void* stream) {
+                                      int64_t pt, int64_t pl, int reflect, int x_bf16,
+                                      void* stream) {
   const int64_t row = Wp * (Cp / kQV);  // threads per padded row
   if (Cp % kQV != 0 || !aligned(x) || !aligned(out) ||
       (pa != nullptr && (!aligned(pa) || !aligned(pb))) || B * Hp >= (1LL << 31) ||
@@ -1116,12 +1169,22 @@ extern "C" int mt_int8_quant_pad_nhwc(const void* x, void* out, const void* inv_
     return cudaErrorInvalidValue;
   if (B * Hp * row > 0) {
     dim3 grid(static_cast<unsigned>(B * Hp), static_cast<unsigned>((row + 255) / 256));
-    quant_pad_nhwc_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(out),
-        static_cast<const float*>(inv_sx), static_cast<const float*>(pa),
-        static_cast<const float*>(pb), relu, alpha, static_cast<int>(C), static_cast<int>(H),
-        static_cast<int>(W), static_cast<int>(Cp), static_cast<int>(Hp), static_cast<int>(Wp),
-        static_cast<int>(pt), static_cast<int>(pl), reflect);
+    auto st = static_cast<cudaStream_t>(stream);
+    const int c = static_cast<int>(C), h = static_cast<int>(H), w = static_cast<int>(W);
+    const int cp = static_cast<int>(Cp), hp = static_cast<int>(Hp), wp = static_cast<int>(Wp);
+    const int t = static_cast<int>(pt), l = static_cast<int>(pl);
+    const float* fa = static_cast<const float*>(pa);
+    const float* fb = static_cast<const float*>(pb);
+    int8_t* q = static_cast<int8_t*>(out);
+    const float* inv = static_cast<const float*>(inv_sx);
+    if (x_bf16)
+      quant_pad_nhwc_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(x), q, inv, fa, fb, relu, alpha, c, h, w, cp, hp, wp,
+          t, l, reflect);
+    else
+      quant_pad_nhwc_kernel<float><<<grid, 256, 0, st>>>(static_cast<const float*>(x), q, inv, fa,
+                                                         fb, relu, alpha, c, h, w, cp, hp, wp, t,
+                                                         l, reflect);
   }
   return last_error();
 }
@@ -1154,7 +1217,7 @@ extern "C" int mt_int8_conv_launches(int64_t stride, int phases, int64_t R, int6
 }
 
 // xq: (B, Hp, Wp, Cp) int8; w: (R, T, Cp) int8; scale, bias: (R,) f32 (bias
-// may be null); y: (B, Co, Ho, Wo) f32, or (B, Ho, Wo, Co) when nhwc (stride
+// may be null); y: (B, Co, Ho, Wo) f32 (bf16 with y_bf16), or (B, Ho, Wo, Co) when nhwc (stride
 // 1 without phases only), or (B, Co, 2Ho, 2Wo) when phases (T = 4 taps of a
 // 2x2 conv, R = 4 Co, row n = co 4 + py 2 + px to output pixel (2 oy + py, 2
 // ox + px)); psum, psq: (B, tiles, R) int64 or null, tiles as
@@ -1163,7 +1226,7 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
                             void* y, void* psum, void* psq, int64_t B, int64_t Hp, int64_t Wp,
                             int64_t Cp, int64_t R, int64_t T, int64_t kw, int64_t stride,
                             int64_t Ho, int64_t Wo, int64_t Co, int64_t tiles, int phases,
-                            int nhwc, void* stream) {
+                            int nhwc, int y_bf16, void* stream) {
   int64_t tile_rows = 0;
   if (Cp % 32 != 0 || B >= 65536 || (R + 31) / 32 >= 65536 || tiles >= (1LL << 31) ||
       tiles != mt_int8_stat_tiles(stride, phases, Ho, Wo, Wp, &tile_rows))
@@ -1171,11 +1234,11 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
   auto st = static_cast<cudaStream_t>(stream);
   if (stride == 1 && !phases) {
     if (T != 9 || kw != 3 || Ho != Hp - 2 || Wo != Wp - 2 || Co != R) return cudaErrorInvalidValue;
-    WConvArgs a{static_cast<const float*>(scale), static_cast<const float*>(bias),
-                static_cast<float*>(y), static_cast<long long*>(psum),
-                static_cast<long long*>(psq), static_cast<int>(Hp), static_cast<int>(Wp),
-                static_cast<int>(Cp), static_cast<int>(R), static_cast<int>(tiles), nhwc, 0};
-    return conv_s1(xq, w, a, B, st);
+    WConvArgs a{static_cast<const float*>(scale), static_cast<const float*>(bias), y,
+                static_cast<long long*>(psum), static_cast<long long*>(psq),
+                static_cast<int>(Hp), static_cast<int>(Wp), static_cast<int>(Cp),
+                static_cast<int>(R), static_cast<int>(tiles), nhwc, 0};
+    return y_bf16 ? conv_s1<__nv_bfloat16>(xq, w, a, B, st) : conv_s1<float>(xq, w, a, B, st);
   }
   const bool sub = phases != 0;
   const bool ok =
@@ -1188,14 +1251,14 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
   if (B == 0 || R == 0 || tiles == 0) return last_error();
   int64_t bx = 0, by = 0;
   box_tile(Ho, Wo, &bx, &by);
-  BConvArgs a{static_cast<const float*>(scale), static_cast<const float*>(bias),
-              static_cast<float*>(y), static_cast<long long*>(psum),
+  BConvArgs a{static_cast<const float*>(scale), static_cast<const float*>(bias), y,
+              static_cast<long long*>(psum),
               static_cast<long long*>(psq), static_cast<int>(Hp), static_cast<int>(Cp),
               static_cast<int>(R), static_cast<int>(Ho), static_cast<int>(Wo),
               static_cast<int>(tiles), static_cast<int>((Wo + bx - 1) / bx),
               static_cast<int>(bx), static_cast<int>(by), 0,
-              // TMA stores need rows of y at a multiple of 16 bytes
-              (sub ? Wo % 2 == 0 : Wo % 4 == 0) && aligned(y)};
+              // TMA stores (f32 y only) need rows of y at a multiple of 16 bytes
+              !y_bf16 && (sub ? Wo % 2 == 0 : Wo % 4 == 0) && aligned(y)};
   // slabs of 64 channels for inputs of at most 64 (the ring's A rows then
   // 64 bytes, with the 64-byte swizzle)
   const bool narrow = Cp <= 64;
@@ -1211,8 +1274,8 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
     if (!make_map_5d(&map_in, kInt8, xq, {c, wp, rows, 1, 1},
                      {c, wp * c, rows * wp * c, rows * wp * c}, {slab, bxu, byu, 1, 1}, swizzle))
       return cudaErrorInvalidValue;
-    return narrow ? conv_box<true, 64>(map_in, w, a, B, st)
-                  : conv_box<true, 128>(map_in, w, a, B, st);
+    return y_bf16 ? conv_box_slab<true, __nv_bfloat16>(narrow, map_in, w, a, B, st)
+                  : conv_box_slab<true, float>(narrow, map_in, w, a, B, st);
   }
   // the input as (Cp, 2, Wp / 2, 2, B Hp / 2): tap (ky, kx) of a box is one
   // box at (c0, kx & 1, ox0 + kx / 2, ky & 1, b Hp / 2 + oy0 + ky / 2), which
@@ -1220,7 +1283,8 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
   if (!make_map_5d(&map_in, kInt8, xq, {c, 2, wp / 2, 2, rows / 2}, {c, 2 * c, wp * c, 2 * wp * c},
                    {slab, 1, bxu, 1, byu}, swizzle))
     return cudaErrorInvalidValue;
-  return narrow ? conv_box<false, 64>(map_in, w, a, B, st) : conv_box<false, 128>(map_in, w, a, B, st);
+  return y_bf16 ? conv_box_slab<false, __nv_bfloat16>(narrow, map_in, w, a, B, st)
+                : conv_box_slab<false, float>(narrow, map_in, w, a, B, st);
 }
 
 // psum, psq: (B, tiles, R) int64; scale, bias: (R,) f32 (bias may be null)
@@ -1248,19 +1312,28 @@ extern "C" int mt_int8_stats(const void* psum, const void* psq, const void* scal
   return last_error();
 }
 
-// x, out: (B, C, HW) f32; h: (B, HW, C) f32, 16-byte aligned; a, b: (B, C) f32
+// x, out: (B, C, HW) f32, or bf16 with bf16; h: (B, HW, C) of the same type,
+// 16-byte aligned; a, b: (B, C) f32
 extern "C" int mt_int8_residual_nhwc(const void* x, const void* h, const void* a, const void* b,
-                                     void* out, int64_t B, int64_t C, int64_t HW, void* stream) {
+                                     void* out, int64_t B, int64_t C, int64_t HW, int bf16,
+                                     void* stream) {
   if (!aligned(h) || B >= 65536 || (C + kRC - 1) / kRC >= 65536 ||
       (HW + kRP - 1) / kRP >= (1LL << 31))
     return cudaErrorInvalidValue;
   if (B > 0 && C > 0 && HW > 0) {
     dim3 grid(static_cast<unsigned>((HW + kRP - 1) / kRP), static_cast<unsigned>(B),
               static_cast<unsigned>((C + kRC - 1) / kRC));
-    residual_nhwc_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(h), static_cast<const float*>(a),
-        static_cast<const float*>(b), static_cast<float*>(out), static_cast<int>(C),
-        static_cast<int>(HW));
+    auto st = static_cast<cudaStream_t>(stream);
+    const float* fa = static_cast<const float*>(a);
+    const float* fb = static_cast<const float*>(b);
+    if (bf16)
+      residual_nhwc_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(h), fa, fb,
+          static_cast<__nv_bfloat16*>(out), static_cast<int>(C), static_cast<int>(HW));
+    else
+      residual_nhwc_kernel<float><<<grid, 256, 0, st>>>(
+          static_cast<const float*>(x), static_cast<const float*>(h), fa, fb,
+          static_cast<float*>(out), static_cast<int>(C), static_cast<int>(HW));
   }
   return last_error();
 }

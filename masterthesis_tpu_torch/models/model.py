@@ -13,6 +13,10 @@ Checkpoints (``save``/``load``, ``checkpoint.py``): ``model_{it}.ckpt`` and
 ``opt_{it}.ckpt`` in ``args.checkpoint_dir``, restored per net with the JAX
 package's messages; ``args.resume``/``resume_opt`` load at ``initialize``,
 and ``resume_opt`` with ``last_iter`` sets the step as the JAX package does.
+``load`` also takes a ``model_{it}.ckpt`` that the JAX package wrote (Flax
+msgpack), net by net through ``tools/convert_jax.net_from_jax``, with the
+spectral ``u`` vectors of its ``extra`` tree; a JAX ``opt_{it}.ckpt``
+(optax state) raises.
 Logging: ``get_current_lr``, ``save_images`` (``gen_{it}.jpg`` in
 ``args.display_dir``) and ``write_loss`` (a tensorboardX writer on
 ``args.logdir`` for training, or None where tensorboardX is missing).
@@ -28,6 +32,11 @@ from masterthesis_tpu_torch import checkpoint as ckpt
 from masterthesis_tpu_torch.arguments import AttributeDict
 from masterthesis_tpu_torch.models.functions import init_net, make_lr_schedule
 from masterthesis_tpu_torch.models.state import AdamState, TrainState
+
+
+JAX_OPT_ERROR = ("{path}: an optimizer checkpoint the JAX package wrote (optax state) does not "
+                 "load into masterthesis_tpu_torch yet (ROADMAP A.4); resume its model_*.ckpt "
+                 "with --resume alone")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -117,15 +126,45 @@ class Model:
         """Restore the nets from ``checkpoint`` and the optimizer state and
         step from ``opt_ckpt`` (either may be None), per net: a net the file
         lacks keeps its weights, a net the model lacks is skipped, each
-        with the JAX package's message."""
+        with the JAX package's message. A ``checkpoint`` the JAX package
+        wrote loads too (:meth:`_load_jax`); its ``opt_ckpt`` raises."""
+        if opt_ckpt is not None and ckpt.is_flax_file(opt_ckpt):
+            raise NotImplementedError(JAX_OPT_ERROR.format(path=opt_ckpt))
         if checkpoint is not None:
             restored = ckpt.load_pytree(checkpoint, self.device)
-            ckpt.restore_matching(self.nets, restored.get("params", restored), "network")
+            if ckpt.is_flax_file(checkpoint):
+                self._load_jax(restored)
+            else:
+                ckpt.restore_matching(self.nets, restored.get("params", restored), "network")
         if opt_ckpt is not None:
             restored = ckpt.load_pytree(opt_ckpt, self.device)
             ckpt.restore_matching(self.state.opt_state, restored.get("opt_state", {}), "optimizer")
             if "step" in restored:
                 self.state.step = int(restored["step"])
+
+    def _load_jax(self, restored: dict) -> None:
+        """A JAX ``model_{it}.ckpt`` tree (``{"params": {net: tree}, "extra":
+        {net: spectral collection}}``), net by net, with the messages of the
+        JAX package's ``Model.load``: each net the model has is converted and
+        loaded, each other is skipped; a net without a spectral collection
+        in the file keeps its ``u`` buffers."""
+        # imported here: tools.convert_jax imports the models package
+        from masterthesis_tpu_torch.tools.convert_jax import net_from_jax
+
+        params = restored.get("params", restored)
+        extra = restored.get("extra") or {}
+        for name, tree in params.items():
+            if name not in self.nets:
+                print(f"Checkpoint for {name} network is not found.")
+                continue
+            print(f"Loading checkpoint for : {name}")
+            net, coll = self.nets[name], extra.get(name) or None
+            # net_from_jax raises on any parameter it leaves unset; without a
+            # spectral collection the state_dict lacks only the u buffers
+            net.load_state_dict(net_from_jax(name, net, tree, coll), strict=coll is not None)
+        for name, coll in extra.items():
+            if name in self.nets and coll:
+                print(f"Loading checkpoint for : {name}")
 
     def optimizer_config(self, name: str) -> dict:
         """Adam's settings for net ``name``: the content discriminator's

@@ -201,9 +201,9 @@ class TranslationModel(Model):
         styles ``zs``, one each per batch: the draws are the caller's),
         records each conv's max |input|, merges the batches by max and
         installs the result (:meth:`load_int8`). Returns the amax tree.
+        The pass runs in the compute dtype, as the JAX package's does; at
+        bf16 the int8 convs then take and give bf16 activations.
         """
-        if self.compute_dtype != torch.float32:
-            raise NotImplementedError("int8 serving runs at compute dtype float32 only")
         self.disable_int8()
         convs = [m for name in INT8_NETS for m in int8_convs(self.nets[name]).values()]
         cols = {name: None for name in INT8_NETS}

@@ -7,6 +7,15 @@ raises. One pass: the deferred per-(sample, channel) LayerNorm affine, relu,
 the 1x1 conv C -> Co, bias and tanh. The TPU kernel's lane-packed layout is
 not ported: the port's upsample writes NCHW, which the kernel reads as it is.
 ``head.launches`` counts the kernel's launches.
+
+x and the output are f32 or bf16. In bf16 both versions round where the
+JAX package's CPU route does (``blocks.py`` ``_packed_head`` off the TPU:
+``apply_pending`` to bf16, a bf16 1x1 conv, a bf16 bias add, tanh): the
+affine and relu to bf16, the weights and bias to bf16, the f32 sum over the
+channels to bf16, the bias add to bf16, tanh to bf16. The kernel sums the
+channels in another order than the plain version's conv, so in bf16 an
+output can differ by a bf16 rounding step of the pre-tanh value (see
+:data:`BF16_TOL`).
 """
 from __future__ import annotations
 
@@ -22,23 +31,43 @@ from masterthesis_tpu_torch.ops.kernels import build
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 MAX_OUT = 8  # output channels a thread keeps in registers (csrc/head.cu kMaxOut)
 ACTS = (None, "tanh")
+# kernel against plain version in bf16: two bf16 rounding steps of an output
+# in [-1, 1] (2^-8 each in [0.5, 1)), from sums over C in another order
+BF16_TOL = 2.0**-7
+
+
+def _operands(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]):
+    """The f32 weight and bias, rounded to bf16 values when x is bf16."""
+    w = weight.float()
+    b = None if bias is None else bias.float()
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+        b = None if b is None else b.to(torch.bfloat16).float()
+    return w.contiguous(), b
 
 
 def head_plain(x: torch.Tensor, pending: dict, weight: torch.Tensor,
                bias: Optional[torch.Tensor] = None, act: Optional[str] = "tanh"):
-    """x (B, C, H, W) f32; pending {"scale", "shift" (B, C), "relu", "alpha"};
-    weight (Co, C) f32; bias (Co,) or None -> (B, Co, H, W) f32."""
+    """x (B, C, H, W) f32 or bf16; pending {"scale", "shift" (B, C), "relu",
+    "alpha"}; weight (Co, C); bias (Co,) or None -> (B, Co, H, W) in x's dtype."""
+    w, b = _operands(x, weight, bias)
     y = x.float() * pending["scale"][:, :, None, None] + pending["shift"][:, :, None, None]
     if pending.get("relu"):
         y = torch.maximum(y, float(pending.get("alpha", 0.0)) * y)
-    y = F.conv2d(y, weight.float()[:, :, None, None], None if bias is None else bias.float())
+    if x.dtype == torch.float32:
+        y = F.conv2d(y, w[:, :, None, None], b)
+        return torch.tanh(y) if act == "tanh" else y
+    y = F.conv2d(y.to(x.dtype).float(), w[:, :, None, None]).to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)[:, None, None]
     return torch.tanh(y) if act == "tanh" else y
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("head")
-    lib.mt_head.argtypes = [_P, _P, _P, _I32, _F32, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P]
+    lib.mt_head.argtypes = [_P, _P, _P, _I32, _F32, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32,
+                            _P]
     lib.mt_head.restype = ctypes.c_int
     return lib
 
@@ -58,8 +87,11 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
     co = weight.shape[0]
     if co > MAX_OUT:
         raise ValueError(f"head: {co} output channels, the kernel keeps at most {MAX_OUT}")
-    checks = [("x", x, (b, c, h, w)), ("scale", pending["scale"], (b, c)),
-              ("shift", pending["shift"], (b, c)), ("weight", weight, (co, c))]
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"head: x must be contiguous f32 or bf16, got {x.dtype}")
+    weight, bias = _operands(x, weight, bias)
+    checks = [("scale", pending["scale"], (b, c)), ("shift", pending["shift"], (b, c)),
+              ("weight", weight, (co, c))]
     if bias is not None:
         checks.append(("bias", bias, (co,)))
     for name, t, shape in checks:
@@ -69,14 +101,15 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if b >= 2**16 or h * w >= 2**31:
         raise ValueError(f"head: {tuple(x.shape)} exceeds the grid")
-    out = torch.empty((b, co, h, w), device=x.device, dtype=torch.float32)
+    out = torch.empty((b, co, h, w), device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.mt_head(
             x.data_ptr(), pending["scale"].data_ptr(), pending["shift"].data_ptr(),
             int(bool(pending.get("relu"))), float(pending.get("alpha", 0.0)),
             weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, c, h * w, co, int(act == "tanh"), build.stream_of(x),
+            b, c, h * w, co, int(act == "tanh"), int(x.dtype == torch.bfloat16),
+            build.stream_of(x),
         )
     build.check(lib, err, "head")
     head.launches += 1

@@ -33,6 +33,13 @@ library owns the tiling: :func:`conv_tiling` asks it for the tile count
 that sizes the partials, :func:`conv_launches` for its split of the N tiles
 into launches.
 
+Activations are f32 or bf16, the model's compute dtype: each wrapper takes
+x in either and gives y in x's dtype, as the JAX package's CPU route does
+(``out_dtype = x.dtype``): the prologue and the quantize run in f32, y =
+acc * scale + bias in f32 is rounded once to bf16, and the statistics are
+the same exact integer sums in either dtype. The resblock's residual adds
+x + round(h * a + b) and rounds the sum (``x + y.astype(x.dtype)``).
+
 On a CPU tensor each wrapper runs its plain version, which does the same
 arithmetic with torch ops: the integer conv runs in float64, which is exact
 (|acc| <= 9 * Cp * 127^2, far below 2^53; f32 would not be, past 2^24). On a CUDA
@@ -54,6 +61,7 @@ from masterthesis_tpu_torch.ops.kernels import build
 INT8_MAX = 127.0
 K_ALIGN = 32  # channel padding of the int8 operands: one k32 step of the wgmma
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+ACT_DTYPES = (torch.float32, torch.bfloat16)  # the activations the kernels take and give
 
 
 # --------------------------------------------------------------- quantize --
@@ -278,13 +286,15 @@ def stats_plain(acc: torch.Tensor, qc: QuantConv) -> tuple[torch.Tensor, torch.T
     return s.float(), q.float()
 
 
-def conv_padded_plain(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False):
-    """Padded int8 -> dequantized NCHW f32 y, and (sum, sumsq) (B, Co) of y."""
+def conv_padded_plain(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
+                      out_dtype: torch.dtype = torch.float32):
+    """Padded int8 -> dequantized NCHW y (f32, rounded once to ``out_dtype``),
+    and (sum, sumsq) (B, Co) f32 of y before that rounding."""
     acc = conv_acc_plain(xq, qc)
     y = acc.float() * qc.scale[:, None, None]
     if qc.bias is not None:
         y = y + qc.bias[:, None, None]
-    y = _interleave(y, qc.phases).contiguous()
+    y = _interleave(y, qc.phases).to(out_dtype).contiguous()
     if not with_stats:
         return y
     return (y, *stats_plain(acc, qc))
@@ -292,7 +302,8 @@ def conv_padded_plain(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False)
 
 def conv_plain(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
                with_stats: bool = False):
-    return conv_padded_plain(quant_pad_plain(x, qc, pending), qc, with_stats)
+    """The quantize-and-pad and the conv; y in x's dtype."""
+    return conv_padded_plain(quant_pad_plain(x, qc, pending), qc, with_stats, x.dtype)
 
 
 def norm_affine_plain(s, sq, n: int, gamma, beta, eps: float = 1e-5):
@@ -308,12 +319,16 @@ def norm_affine_plain(s, sq, n: int, gamma, beta, eps: float = 1e-5):
 
 
 def residual_plain(x, h, a, b):
-    return x + (h * a[:, :, None, None] + b[:, :, None, None])
+    """x + round(h * a + b) in x's dtype: the affine in f32 rounded to x's
+    dtype, then the sum rounded (the JAX package's ``x + y.astype(x.dtype)``)."""
+    y = h.float() * a[:, :, None, None] + b[:, :, None, None]
+    return x + y.to(x.dtype)
 
 
 def resblock_plain(x, q1: QuantConv, q2: QuantConv, gamma, beta, relu_mid: bool = True,
                    eps: float = 1e-5):
-    """x + norm(conv2(relu(norm(conv1(x))))), both norms (1 + gamma, beta)."""
+    """x + norm(conv2(relu(norm(conv1(x))))), both norms (1 + gamma, beta);
+    h1 and h2 in x's dtype, as the JAX package's composed block keeps them."""
     n = x.shape[2] * x.shape[3]
     h1, s1, sq1 = conv_plain(x, q1, None, True)
     a1, b1 = norm_affine_plain(s1, sq1, n, gamma, beta, eps)
@@ -328,13 +343,14 @@ def resblock_plain(x, q1: QuantConv, q2: QuantConv, gamma, beta, relu_mid: bool 
 
 # the C entry points of csrc/int8_conv.cu: name -> (argument types, result type)
 SIGNATURES = {
-    "mt_int8_quant_pad": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _P], _I32),
-    "mt_int8_quant_pad_nhwc": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _P], _I32),
+    "mt_int8_quant_pad": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _I32, _P], _I32),
+    "mt_int8_quant_pad_nhwc": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _I32, _P],
+                               _I32),
     "mt_int8_stat_tiles": ([_I64, _I32, _I64, _I64, _I64, _P], _I64),
     "mt_int8_conv_launches": ([_I64, _I32, _I64, _P], _I32),
-    "mt_int8_conv": ([_P] * 7 + [_I64] * 12 + [_I32, _I32, _P], _I32),
+    "mt_int8_conv": ([_P] * 7 + [_I64] * 12 + [_I32, _I32, _I32, _P], _I32),
     "mt_int8_stats": ([_P] * 10 + [_I64] * 5 + [_F32, _F32, _P], _I32),
-    "mt_int8_residual_nhwc": ([_P] * 5 + [_I64] * 3 + [_P], _I32),
+    "mt_int8_residual_nhwc": ([_P] * 5 + [_I64] * 3 + [_I32, _P], _I32),
 }
 
 
@@ -367,10 +383,16 @@ def _check_f32(what: str, t: torch.Tensor, shape, device) -> None:
         )
 
 
+def _check_act(what: str, x: torch.Tensor) -> None:
+    if x.dtype not in ACT_DTYPES or not x.is_contiguous():
+        raise ValueError(f"{what}: needs a contiguous f32 or bf16 tensor, got {x.dtype} "
+                         f"contiguous={x.is_contiguous()}")
+
+
 def _check_input(what: str, x: torch.Tensor, qc: QuantConv) -> None:
     if x.dim() != 4 or x.shape[1] != qc.cin:
         raise ValueError(f"{what}: x must be (B, {qc.cin}, H, W), got {tuple(x.shape)}")
-    _check_f32(what, x, x.shape, x.device)
+    _check_act(what, x)
     for name, t in (("weights", qc.w), ("scale", qc.scale), ("bias", qc.bias),
                     ("inv_sx", qc.inv_sx)):
         if t is not None and t.device != x.device:
@@ -384,7 +406,9 @@ def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = Non
                    nhwc: bool = False) -> torch.Tensor:
     """The quantize-and-pad launch: :func:`quant_pad_plain` on the card, of
     NCHW ``x``, or with ``nhwc`` of (B, H, W, C) ``x`` (what
-    :func:`quant_pad_plain` gives for ``x.permute(0, 3, 1, 2)``)."""
+    :func:`quant_pad_plain` gives for ``x.permute(0, 3, 1, 2)``); ``x`` f32
+    or bf16."""
+    _check_act("int8 quantize-and-pad", x)
     if nhwc:
         b, h, w, c = x.shape
     else:
@@ -404,7 +428,8 @@ def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = Non
     with torch.cuda.device(x.device):
         err = launch(
             x.data_ptr(), out.data_ptr(), qc.inv_sx.data_ptr(), _ptr(pa), _ptr(pb), relu, alpha,
-            b, c, h, w, qc.cp, hp, wp, t, l, int(qc.reflect), build.stream_of(x),
+            b, c, h, w, qc.cp, hp, wp, t, l, int(qc.reflect), int(x.dtype == torch.bfloat16),
+            build.stream_of(x),
         )
     build.check(lib, err, "int8 quantize-and-pad")
     return out
@@ -440,11 +465,15 @@ def conv_launches(qc: QuantConv) -> tuple[int, ...]:
 
 
 def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
-                     gamma=None, beta=None, eps: float = 1e-5, nhwc: bool = False):
-    """The implicit-GEMM launch (and the stats launch): y, and with stats
-    (sum, sumsq), or with ``gamma``/``beta`` the norm affine (a, b) of
-    :func:`norm_affine_plain` computed from them in the stats launch. With
-    ``nhwc`` (stride-1 convs only) y is (B, H, W, Co)."""
+                     gamma=None, beta=None, eps: float = 1e-5, nhwc: bool = False,
+                     out_dtype: torch.dtype = torch.float32):
+    """The implicit-GEMM launch (and the stats launch): y in ``out_dtype``
+    (f32 or bf16), and with stats (sum, sumsq), or with ``gamma``/``beta``
+    the norm affine (a, b) of :func:`norm_affine_plain` computed from them
+    in the stats launch. With ``nhwc`` (stride-1 convs only) y is (B, H, W,
+    Co)."""
+    if out_dtype not in ACT_DTYPES:
+        raise ValueError(f"int8 conv: y is f32 or bf16, not {out_dtype}")
     b, hp, wp, cp = xq.shape
     if xq.dtype != torch.int8 or not xq.is_contiguous() or cp != qc.cp:
         raise ValueError(f"int8 conv: padded input must be contiguous int8 (B, Hp, Wp, {qc.cp})")
@@ -454,7 +483,7 @@ def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
     f = 2 if qc.phases == 4 else 1
     r = qc.w.shape[0]
     shape = (b, ho, wo, qc.cout) if nhwc else (b, qc.cout, f * ho, f * wo)
-    y = torch.empty(shape, device=xq.device, dtype=torch.float32)
+    y = torch.empty(shape, device=xq.device, dtype=out_dtype)
     tiles, tile_rows = conv_tiling(qc, hp, wp)
     if b * tiles >= 2**31 or ho * wp >= 2**31 or 4 * ho * wo >= 2**31:
         raise ValueError("int8 conv: output exceeds the grid")
@@ -475,7 +504,8 @@ def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
         err = lib.mt_int8_conv(
             xq.data_ptr(), qc.w.data_ptr(), qc.scale.data_ptr(), _ptr(qc.bias), y.data_ptr(),
             _ptr(psum), _ptr(psq), b, hp, wp, cp, r, qc.kh * qc.kw, qc.kw, qc.stride, ho, wo,
-            qc.cout, tiles, int(qc.phases == 4), int(nhwc), stream,
+            qc.cout, tiles, int(qc.phases == 4), int(nhwc), int(out_dtype == torch.bfloat16),
+            stream,
         )
         build.check(lib, err, "int8 conv")
         if not with_stats:
@@ -506,12 +536,13 @@ def _conv(what: str, x: torch.Tensor, qc: QuantConv, pending, with_stats: bool):
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on CPU or CUDA tensors, not {x.device}")
     _check_input(what, x, qc)
-    return conv_padded_cuda(quant_pad_cuda(x, qc, pending), qc, with_stats), True
+    return conv_padded_cuda(quant_pad_cuda(x, qc, pending), qc, with_stats,
+                            out_dtype=x.dtype), True
 
 
 def conv3x3(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
             with_stats: bool = False):
-    """3x3/s1/p1 int8 conv of NCHW f32 ``x`` -> y (B, Co, H, W) f32, and with
+    """3x3/s1/p1 int8 conv of NCHW f32 or bf16 ``x`` -> y (B, Co, H, W) in x's dtype, and with
     ``with_stats`` its per-(sample, channel) (sum, sumsq). ``pending`` as in
     :func:`downconv`. The channel padding to a multiple of 32 is the
     template's own, so any C and Co run on the kernel."""
@@ -525,7 +556,7 @@ def conv3x3(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
 
 def downconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
              with_stats: bool = False):
-    """3x3/s2/p1 int8 conv of NCHW f32 ``x`` -> y (B, Co, H/2, W/2) f32, and
+    """3x3/s2/p1 int8 conv of NCHW f32 or bf16 ``x`` -> y (B, Co, H/2, W/2) in x's dtype, and
     with ``with_stats`` its per-(sample, channel) (sum, sumsq). ``pending``
     is the deferred norm {"scale", "shift" (B, C), "relu", "alpha"} applied
     before quantizing."""
@@ -539,8 +570,8 @@ def downconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
 
 def deconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
            with_stats: bool = False):
-    """ConvTranspose(3, 2, 1, 1) in int8: NCHW f32 (B, C, H, W) -> y
-    (B, Co, 2H, 2W) f32, and with ``with_stats`` (sum, sumsq) (B, Co) over
+    """ConvTranspose(3, 2, 1, 1) in int8: NCHW f32 or bf16 (B, C, H, W) -> y
+    (B, Co, 2H, 2W) in x's dtype, and with ``with_stats`` (sum, sumsq) (B, Co) over
     all four phases. ``pending`` as in :func:`downconv`."""
     if qc.phases != 4:
         raise ValueError("deconv takes a QuantConv from quant_deconv")
@@ -552,8 +583,9 @@ def deconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
 
 def resblock(x: torch.Tensor, q1: QuantConv, q2: QuantConv, gamma: torch.Tensor,
              beta: torch.Tensor, relu_mid: bool = True, eps: float = 1e-5) -> torch.Tensor:
-    """The int8 residual block on NCHW f32 x; gamma, beta (B, C) f32 (zeros
-    for the encoder's instance-norm blocks).
+    """The int8 residual block on NCHW f32 or bf16 x (out, h1 and h2 in its
+    dtype); gamma, beta (B, C) f32 (zeros for the encoder's instance-norm
+    blocks).
 
     On the card: seven launches, in order quantize-pad, conv1 (h1 stored
     NHWC, as the GEMM holds it), stats (which also forms conv2's prologue
@@ -572,17 +604,18 @@ def resblock(x: torch.Tensor, q1: QuantConv, q2: QuantConv, gamma: torch.Tensor,
         if qc.stride != 1 or qc.phases != 1 or qc.cout != x.shape[1]:
             raise ValueError("int8 resblock takes two stride-1 C->C QuantConvs")
         _check_input("int8 resblock", x, qc)
-    h1, a1, b1 = conv_padded_cuda(quant_pad_cuda(x, q1), q1, True, gamma, beta, eps, nhwc=True)
+    h1, a1, b1 = conv_padded_cuda(quant_pad_cuda(x, q1), q1, True, gamma, beta, eps, nhwc=True,
+                                  out_dtype=x.dtype)
     mid = {"scale": a1, "shift": b1, "relu": relu_mid, "alpha": 0.0}
     h2, a2, b2 = conv_padded_cuda(quant_pad_cuda(h1, q2, mid, nhwc=True), q2, True, gamma, beta,
-                                  eps, nhwc=True)
+                                  eps, nhwc=True, out_dtype=x.dtype)
     out = torch.empty_like(x)
     b, c, h, w = x.shape
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.mt_int8_residual_nhwc(
             x.data_ptr(), h2.data_ptr(), a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            b, c, h * w, build.stream_of(x),
+            b, c, h * w, int(x.dtype == torch.bfloat16), build.stream_of(x),
         )
     build.check(lib, err, "int8 residual")
     resblock.launches += 1

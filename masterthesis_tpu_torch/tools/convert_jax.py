@@ -17,6 +17,12 @@ so each port parameter finds its leaf by its own path. Per leaf:
   {"conv": {"sn": {"u": (out,)}}}}}`` under ``--dis_sn``), each spectral
   norm's ``u`` buffer as it is.
 
+``net_from_jax(name, net, tree, extra)`` does the same for one net, which
+is how ``Model.load`` restores a ``model_{it}.ckpt`` that the JAX package
+wrote (read by ``checkpoint.load_pytree``, whose leaves are torch tensors),
+net by net: a JAX training checkpoint also holds nets that a serving model
+does not build.
+
 The discriminators of either kind (``Discriminator``,
 ``MultiScaleDiscriminator``) map by their module names like every other net.
 It raises on a leaf it does not consume and on a port parameter it leaves
@@ -45,6 +51,12 @@ from masterthesis_tpu_torch.ops.norms import LayerNorm
 from masterthesis_tpu_torch.ops.spectral import SpectralNorm
 
 
+def _numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().float().numpy() if v.is_floating_point() else v.cpu().numpy()
+    return np.asarray(v)
+
+
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     flat = {}
     for k, v in tree.items():
@@ -52,7 +64,7 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
         if isinstance(v, dict):
             flat.update(_flatten(v, path + "/"))
         else:
-            flat[path] = np.asarray(v)
+            flat[path] = _numpy(v)
     return flat
 
 
@@ -124,13 +136,19 @@ def params_from_jax(tree: dict, model, extra: dict | None = None) -> dict[str, d
         raise KeyError(f"JAX nets {sorted(tree)} != port nets {sorted(model.nets)}")
     if extra is not None and not set(extra) <= set(model.nets):
         raise KeyError(f"JAX extra for {sorted(set(extra) - set(model.nets))}, not port nets")
-    out = {}
-    for net_name, net in model.nets.items():
-        leaves = _flatten(tree[net_name])
-        if extra is not None:
-            leaves.update(_flatten(extra.get(net_name) or {}))
-        out[net_name] = _state_dict(net_name, net, leaves, extra is not None)
-    return out
+    return {name: net_from_jax(name, net, tree[name], None if extra is None else
+                               extra.get(name) or {})
+            for name, net in model.nets.items()}
+
+
+def net_from_jax(name: str, net: nn.Module, tree: dict,
+                 extra: dict | None = None) -> dict[str, torch.Tensor]:
+    """The state_dict of one net from its JAX param subtree ``tree`` (and,
+    with ``extra``, its spectral collection: each ``u`` too)."""
+    leaves = _flatten(tree)
+    if extra is not None:
+        leaves.update(_flatten(extra))
+    return _state_dict(name, net, leaves, extra is not None)
 
 
 def perceptual_from_jax(perceptual_params: dict, model) -> dict[str, torch.Tensor]:

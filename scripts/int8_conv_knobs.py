@@ -68,9 +68,10 @@ VARIANTS = {
     "base": [],
     "no_epilogue": [(MAIN_LOOP_END, "\n  if (acc[0] == 123456789) p.psum[0] = 1;  // keeps the "
                      "main loop\n  return;" + MAIN_LOOP_END, 2)],
-    "no_store": [("        ycol[px] = v;", "        (void)ycol;"),
-                 ("          orow[c] = v;", "          (void)orow;"),
-                 ("  if (p.tma_y) {\n", "  if (p.tma_y) {\n    return;\n"),
+    "no_store": [("        ycol[px] = mt::from_float<TOut>(v);", "        (void)ycol;"),
+                 ("          orow[c] = mt::from_float<TOut>(v);", "          (void)orow;"),
+                 ("  if (std::is_same<TOut, float>::value && p.tma_y) {\n",
+                  "  if (std::is_same<TOut, float>::value && p.tma_y) {\n    return;\n"),
                  ("  for (int row = gw; row < chunks * chunk_rows; row += 8) {",
                   "  for (int row = gw; row < 0; row += 8) {")],
     "loads_once": [(PRODUCER, """    const bool ld = k < kStages;
@@ -168,7 +169,7 @@ def conv_case(lib, b, c, h, w, co, stride, phases, nhwc=False, stats=True):
         err = lib.mt_int8_conv(xq[i].data_ptr(), wt.data_ptr(), scale.data_ptr(), None,
                                ys[i].data_ptr(), ps[i][0].data_ptr() if stats else None,
                                ps[i][1].data_ptr() if stats else None, b, hp, wp, c, r, taps, kw,
-                               stride, ho, wo, co, tiles, int(phases), int(nhwc), stream)
+                               stride, ho, wo, co, tiles, int(phases), int(nhwc), 0, stream)
         assert err == 0, err
     return call, n_sets
 
@@ -189,7 +190,7 @@ def quant_pad_case(lib, b, c, h, w, prologue):
         err = lib.mt_int8_quant_pad(xs[i].data_ptr(), out[i].data_ptr(), inv.data_ptr(),
                                     pa.data_ptr() if prologue else None,
                                     pb.data_ptr() if prologue else None, 1, 0.01, b, c, h, w, cp,
-                                    h + 2, w + 2, 1, 1, 1, stream)
+                                    h + 2, w + 2, 1, 1, 1, 0, stream)
         assert err == 0, err
     return call, n_sets
 

@@ -428,9 +428,18 @@ def test_quant_from_jax_raises_on_a_missing_or_extra_leaf(setup):
 
 
 def test_int8_needs_compute_dtype_float32(setup):
+    """int8 serving once needed compute dtype float32; at bf16 it now
+    calibrates and serves in bf16 (tests/test_torch_int8_bf16.py holds it
+    against the JAX package), and float32 keeps f32 activations."""
     tm = AdaINModel(default_test_args(compute_dtype="bfloat16", **SHAPE), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        tm.calibrate_int8(setup.calib, setup.c_trgs, setup.zs)
+    tree = tm.calibrate_int8(setup.calib, setup.c_trgs, setup.zs)
+    out, _, _ = tm.forward_random(setup.inputs["img"], setup.inputs["z"], setup.inputs["c"])
+    assert set(tree) == {"content_encoder", "decoder"} and tm.quant is not None
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    with torch.inference_mode():
+        y = kq.conv3x3(torch.zeros(1, 8, 4, 4), kq.quant_conv(torch.ones(8, 8, 3, 3), None, 1.0, 1,
+                                                                "reflect"))
+    assert y.dtype == torch.float32
 
 
 @pytest.mark.parametrize("entry", ["forward_random", "forward_reference"])

@@ -23,7 +23,7 @@ _ISOLATED = r"""
 import importlib, pkgutil, sys
 # a None entry makes every import of that name (and its submodules) fail;
 # 'masterthesis_tpu' is matched exactly: 'masterthesis_tpu_torch' shares its prefix
-for name in ("jax", "flax", "masterthesis_tpu"):
+for name in ("jax", "flax", "msgpack", "masterthesis_tpu"):
     sys.modules[name] = None
 import masterthesis_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(masterthesis_tpu_torch.__path__,
@@ -32,7 +32,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = [k for k, v in sys.modules.items() if v is not None and (
-    k.split(".")[0] in ("jax", "jaxlib", "flax", "masterthesis_tpu"))]
+    k.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "masterthesis_tpu"))]
 assert not bad, bad
 print(len(names), "modules")
 """
