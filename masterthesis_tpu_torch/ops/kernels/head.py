@@ -8,6 +8,12 @@ the 1x1 conv C -> Co, bias and tanh. The TPU kernel's lane-packed layout is
 not ported: the port's upsample writes NCHW, which the kernel reads as it is.
 ``head.launches`` counts the kernel's launches.
 
+The kernel's grid and the pixels each thread takes are computed here, by
+:func:`head_tiling`, so that the CPU tests can check that every pixel of
+every plane is covered once: a thread takes one run, a 16-byte vector of
+pixels (one element per load where the planes are not 16-byte aligned), and
+runs come in warp groups of 32.
+
 x and the output are f32 or bf16. In bf16 both versions round where the
 JAX package's CPU route does (``blocks.py`` ``_packed_head`` off the TPU:
 ``apply_pending`` to bf16, a bf16 1x1 conv, a bf16 bias add, tanh): the
@@ -21,7 +27,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,27 +37,46 @@ from masterthesis_tpu_torch.ops.kernels import build
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 MAX_OUT = 8  # output channels a thread keeps in registers (csrc/head.cu kMaxOut)
+THREADS = 256  # threads per block (csrc/head.cu kThreads)
+WARP = 32  # runs per warp group
+VECTOR_BYTES = 16  # a run: one 16-byte vector of pixels
 ACTS = (None, "tanh")
 # kernel against plain version in bf16: two bf16 rounding steps of an output
 # in [-1, 1] (2^-8 each in [0.5, 1)), from sums over C in another order
 BF16_TOL = 2.0**-7
 
 
-def _operands(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]):
-    """The f32 weight and bias, rounded to bf16 values when x is bf16."""
-    w = weight.float()
-    b = None if bias is None else bias.float()
-    if x.dtype == torch.bfloat16:
-        w = w.to(torch.bfloat16).float()
-        b = None if b is None else b.to(torch.bfloat16).float()
-    return w.contiguous(), b
+class HeadTiling(NamedTuple):
+    """How one launch of ``csrc/head.cu`` covers the hw pixels of each of B
+    samples: the grid is (blocks_per_sample, B), one run per thread."""
+
+    elems: int  # pixels per run: one 16-byte vector of x's type
+    vector: bool  # a run's pixels adjacent, one 16-byte copy per plane
+    runs: int  # runs per plane, in whole warp groups
+    blocks_per_sample: int
+
+
+def head_tiling(hw: int, dtype: torch.dtype, aligned: bool = True) -> HeadTiling:
+    """The tiling of a plane of ``hw`` pixels of ``dtype``. A run is one
+    16-byte vector of pixels; runs come in warp groups of 32. When hw is a
+    multiple of the vector and x is 16-byte aligned (``aligned``), every
+    plane's runs are vectors; otherwise the kernel loads and stores one
+    element at a time, lane l of a warp group taking pixels l, l + 32, ...
+    of the group's 32 runs' span."""
+    elems = VECTOR_BYTES // dtype.itemsize
+    runs = WARP * math.ceil(hw / (WARP * elems))
+    return HeadTiling(elems, aligned and hw % elems == 0, runs, math.ceil(runs / THREADS))
 
 
 def head_plain(x: torch.Tensor, pending: dict, weight: torch.Tensor,
                bias: Optional[torch.Tensor] = None, act: Optional[str] = "tanh"):
     """x (B, C, H, W) f32 or bf16; pending {"scale", "shift" (B, C), "relu",
     "alpha"}; weight (Co, C); bias (Co,) or None -> (B, Co, H, W) in x's dtype."""
-    w, b = _operands(x, weight, bias)
+    w = weight.float()
+    b = None if bias is None else bias.float()
+    if x.dtype == torch.bfloat16:  # weights and bias as bf16 values, as the kernel rounds them
+        w = w.to(torch.bfloat16).float()
+        b = None if b is None else b.to(torch.bfloat16).float()
     y = x.float() * pending["scale"][:, :, None, None] + pending["shift"][:, :, None, None]
     if pending.get("relu"):
         y = torch.maximum(y, float(pending.get("alpha", 0.0)) * y)
@@ -67,9 +93,36 @@ def head_plain(x: torch.Tensor, pending: dict, weight: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = build.load("head")
     lib.mt_head.argtypes = [_P, _P, _P, _I32, _F32, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32,
-                            _P]
+                            _I64, _I64, _I32, _P]
     lib.mt_head.restype = ctypes.c_int
     return lib
+
+
+def _checked(x: torch.Tensor, pending: dict, weight: torch.Tensor,
+             bias: Optional[torch.Tensor]):
+    """The f32 weight and bias the kernel takes (it rounds them to bf16
+    values itself for a bf16 x, as it stages them), after every check of
+    what it cannot take; raises ValueError first."""
+    b, c, h, w = x.shape
+    co = weight.shape[0]
+    if co > MAX_OUT:
+        raise ValueError(f"head: {co} output channels, the kernel keeps at most {MAX_OUT}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"head: x must be contiguous f32 or bf16, got {x.dtype}")
+    weight = weight.float().contiguous()
+    bias = None if bias is None else bias.float()
+    checks = [("scale", pending["scale"], (b, c)), ("shift", pending["shift"], (b, c)),
+              ("weight", weight, (co, c))]
+    if bias is not None:
+        checks.append(("bias", bias, (co,)))
+    for name, t, shape in checks:
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != x.device:
+            raise ValueError(f"head: {name} must be contiguous f32 {shape} on {x.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if b >= 2**16 or h * w >= 2**31:
+        raise ValueError(f"head: {tuple(x.shape)} exceeds the grid")
+    return weight, bias
 
 
 def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
@@ -83,24 +136,10 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
         return head_plain(x, pending, weight, bias, act)
     if x.device.type != "cuda":
         raise ValueError(f"head runs on CPU or CUDA tensors, not {x.device}")
+    weight, bias = _checked(x, pending, weight, bias)
     b, c, h, w = x.shape
     co = weight.shape[0]
-    if co > MAX_OUT:
-        raise ValueError(f"head: {co} output channels, the kernel keeps at most {MAX_OUT}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
-        raise ValueError(f"head: x must be contiguous f32 or bf16, got {x.dtype}")
-    weight, bias = _operands(x, weight, bias)
-    checks = [("scale", pending["scale"], (b, c)), ("shift", pending["shift"], (b, c)),
-              ("weight", weight, (co, c))]
-    if bias is not None:
-        checks.append(("bias", bias, (co,)))
-    for name, t, shape in checks:
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != x.device:
-            raise ValueError(f"head: {name} must be contiguous f32 {shape} on {x.device}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if b >= 2**16 or h * w >= 2**31:
-        raise ValueError(f"head: {tuple(x.shape)} exceeds the grid")
+    tiling = head_tiling(h * w, x.dtype, x.data_ptr() % VECTOR_BYTES == 0)
     out = torch.empty((b, co, h, w), device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
@@ -108,8 +147,8 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
             x.data_ptr(), pending["scale"].data_ptr(), pending["shift"].data_ptr(),
             int(bool(pending.get("relu"))), float(pending.get("alpha", 0.0)),
             weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, c, h * w, co, int(act == "tanh"), int(x.dtype == torch.bfloat16),
-            build.stream_of(x),
+            b, c, h * w, co, int(act == "tanh"), int(x.dtype == torch.bfloat16), tiling.runs,
+            tiling.blocks_per_sample, int(tiling.vector), build.stream_of(x),
         )
     build.check(lib, err, "head")
     head.launches += 1

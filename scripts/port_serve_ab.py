@@ -3,14 +3,16 @@
 NVIDIA card.
 
     python3 scripts/port_serve_ab.py PARENT_DIR CHANGE_DIR [--rounds 3]
-        [--paths bf16 f32 int8 base_A_f32 base_B_f32 base_A_int8 base_B_int8 train]
+        [--paths bf16 f32 int8 base_A_f32 base_B_f32 base_A_int8 base_B_int8 train int8_bf16]
 
 Runs ``chip_smoke.py``'s ``serve`` phase (bf16, f32) and its ``int8_serve``
 phase alone (the flagship AdaINModel at B=8, 256px, dim 64), and with
 ``base_A_f32`` / ``base_B_f32`` its ``serve`` phase, with ``base_A_int8`` /
 ``base_B_int8`` its ``int8_serve`` phase, on BaseModel's configs A and B,
-and with ``train`` its ``train`` phase (AdaINModel's main steps; their ms
-stand in for the request ms below), each time in a fresh process
+with ``train`` its ``train`` phase (AdaINModel's main steps; their ms
+stand in for the request ms below), and with ``int8_bf16`` its
+``int8_serve_bf16`` phase on AdaINModel alone (int8 at bf16 compute, B=8
+and 64: paths ``int8_bf16_B8`` and ``int8_bf16_B64``), each time in a fresh process
 from the root of one checkout, in the order parent, change, change, parent
 per round. Prints one JSON line per process and path: the side, img/s, and
 the median and least request ms; then one summary line per path: each
@@ -41,6 +43,8 @@ card = cs.card_line()
 for path in sys.argv[1:]:
     if path == "int8":
         cs.int8_serve(card)
+    elif path == "int8_bf16":
+        cs._int8_serve_bf16(card, "AdaINModel", *cs.BF16_INT8_MODELS["AdaINModel"])
     elif path.endswith("_int8"):
         cfg = path.split("_")[1]
         cs.int8_serve(card, cs.BaseModel, cs.BASE_CONFIGS[cfg], cs.BASE_INT8_PER_FORWARD[cfg],
@@ -67,7 +71,8 @@ def run(side: str, root: str, dtypes) -> list:
             continue
         d = json.loads(line)
         if d.get("phase") not in ("serve", "int8_serve", "base_serve/A", "base_serve/B",
-                                  "base_int8_serve/A", "base_int8_serve/B", "train"):
+                                  "base_int8_serve/A", "base_int8_serve/B", "train",
+                                  "int8_serve_bf16/AdaINModel"):
             continue
         if d["phase"] == "train":
             ms = sorted(1e3 * s for s in d["main_step_s"])
@@ -77,6 +82,8 @@ def run(side: str, root: str, dtypes) -> list:
             path, rate = d.get("dtype", "int8"), dict(img_per_s=d["img_per_s"])
         if d["phase"].startswith("base_"):
             path = f"base_{d['phase'][-1]}_{path}"
+        elif d["phase"].startswith("int8_serve_bf16"):
+            path = f"int8_bf16_B{d['batch']}"
         rows.append(dict(side=side, path=path, **rate,
                          median_ms=statistics.median(ms), min_ms=ms[0], card=d["card"]))
         print(json.dumps(rows[-1]), flush=True)
@@ -109,7 +116,7 @@ def main(argv) -> int:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--paths", nargs="+", default=["bf16", "f32", "int8"],
                    choices=["bf16", "f32", "int8", "base_A_f32", "base_B_f32", "base_A_int8",
-                            "base_B_int8", "train"])
+                            "base_B_int8", "train", "int8_bf16"])
     a = p.parse_args(argv)
     rows = []
     for _ in range(a.rounds):

@@ -210,19 +210,35 @@ def test_nhwc_quant_pad_matches_plain(cuda, c, padding):
     assert torch.equal(got.cpu(), kq.quant_pad_plain(h, qc, p))
 
 
-@pytest.mark.parametrize("shape,co,bias", [((2, 64, 32, 32), 3, False), ((1, 10, 5, 7), 5, True)])
-def test_head_kernel_matches_plain(cuda, shape, co, bias):
+# (shape, co, bias, alpha, act): the kernel's edges are odd B, hw off the
+# 16-byte vector (scalar runs; 37 x 53) or on it with a cut warp group
+# (37 x 56), C off the channel batch, Co 5 (8 sums per pixel), a bias, relu
+# with alpha and no activation
+HEAD_CASES = [((2, 64, 32, 32), 3, False, 0.0, "tanh"), ((1, 10, 5, 7), 5, True, 0.0, "tanh"),
+              ((3, 21, 37, 53), 5, True, 0.2, None), ((3, 20, 37, 56), 5, True, 0.2, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,co,bias,alpha,act", HEAD_CASES)
+def test_head_kernel_matches_plain(cuda, shape, co, bias, alpha, act, dtype):
     b, c, h, w = shape
-    x = _randn(shape, 14)
-    p = _pending(b, c, 15)
+    x = _randn(shape, 14).to(dtype)
+    p = _pending(b, c, 15, alpha=alpha)
     wt = _randn((co, c), 16, 0.2)
     bs = _randn((co,), 17, 0.1) if bias else None
     before = khead.head.launches
-    y = khead.head(x.to(cuda), _to(p, cuda), wt.to(cuda), None if bs is None else bs.to(cuda))
+    y = khead.head(x.to(cuda), _to(p, cuda), wt.to(cuda), None if bs is None else bs.to(cuda),
+                   act)
     torch.cuda.synchronize()
     assert khead.head.launches == before + 1
-    # the 1x1 sum over C in channel order against cuDNN's/the CPU's order
-    torch.testing.assert_close(y.cpu(), khead.head_plain(x, p, wt, bs), rtol=0, atol=1e-5)
+    assert y.dtype == dtype
+    # the 1x1 sum over C in channel order against cuDNN's/the CPU's order; in
+    # bf16 that can move an output by two bf16 steps: 2^-7 in [-1, 1] (tanh),
+    # 2^-6 |y| above it (no activation)
+    tol = (1e-5, 0.0) if dtype == torch.float32 else \
+        (khead.BF16_TOL, 0.0 if act == "tanh" else 2 * khead.BF16_TOL)
+    torch.testing.assert_close(y.cpu().float(), khead.head_plain(x, p, wt, bs, act).float(),
+                               atol=tol[0], rtol=tol[1])
 
 
 SMALL = dict(crop_size=32, dim=8, latent_dim=4, num_domains=4, batch_size=2, seed=0)
