@@ -184,7 +184,33 @@ against its plain PyTorch version.
    beside the bare forward's at the same batch, the loader alone, the JPEG
    encode alone, the device idle share over a profiled pass over the
    batches, calibration seconds and peak memory.
-13. Last lines: the card, the ``{"kernels": [...]}`` line, then
+13. ``model_surface``: the rest of the model surface at 4's shape
+   (256 px, dim 64, latent 8, 4 domains, B=8, seed 0). Kernel 4 in f32 and
+   bf16 at each up conv's shape that ``--up_type nearest`` and
+   ``pixelshuffle`` give it (AdaINModel (8, 256, 128, 128) -> 128, (8, 128,
+   256, 256) -> 64, (8, 256, 64, 64) -> 512, (8, 128, 128, 128) -> 256;
+   BaseModel B (8, 276, 128, 128) -> 138, (8, 146, 256, 256) -> 73, (8, 276,
+   64, 64) -> 552, (8, 146, 128, 128) -> 292; zero padding, no prologue or
+   statistics, as the up blocks call it): operands, int32 sums and y equal
+   to the plain version's, a second call equal to the first, ms per launch
+   beside the bound, the plain version and cuDNN's bf16 conv. Then
+   AdaINModel with each up type (transpose, nearest, pixelshuffle) in float
+   bf16, int8 at compute dtype f32 and int8 at bf16 from the same weights,
+   served in turns with the counts set to 0 before and read after: an int8
+   forward of a nearest or pixelshuffle tail launches 2 down convs, 8
+   resblocks, 2 stride-1 convs (kernel 4), no transposed conv or head, 3
+   moments; outputs finite, in [-1, 1], int8 above 25 dB from the float
+   bf16 output and within 1e-5 (f32) or 2^-7 (bf16) of the plain versions'
+   forward; img/s of each. BaseModel A with ``--enc_norm batch --dec_norm
+   batch`` (batch norm is plain torch, as the JAX package's two means are)
+   small against the CPU and served in bf16; small f32 steps against the
+   CPU (AdaINModel ``--up_type pixelshuffle --dec_norm batch --init_type
+   orthogonal``, BaseModel B ``--up_type nearest``), every draw on the card;
+   the fused main step at 9's config with ``--up_type nearest`` beside the
+   transposed tail (it/s, peak memory). Kernel 4's kernels-line entries gain
+   ``model_surface``: these shapes' rows and its launches on AdaINModel's
+   nearest and pixelshuffle paths. Cumulative seconds are printed after it.
+14. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -232,6 +258,7 @@ from masterthesis_tpu_torch.ops.kernels import moments as kmoments
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
 from masterthesis_tpu_torch.sample import Sampler
 from masterthesis_tpu_torch.train import STEP, Trainer, iteration_generator
+from masterthesis_tpu_torch.utils import devtime
 from masterthesis_tpu_torch.utils.images import save_images
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -2540,6 +2567,240 @@ def sample_cli(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ----------------------------------------------------------- model surface --
+
+# model_surface: the rest of the flag surface at ARGS (256 px, dim 64,
+# latent 8, 4 domains, B=8, seed 0). The nearest and pixelshuffle up blocks'
+# 3x3 convs run kernel 4 under int8 (the JAX Conv2d routes them through
+# int8_conv3x3_ste): (NCHW input, Co) of each, by path and block
+SURFACE_CONV3X3 = [
+    ("AdaINModel nearest up0", (B, 256, 128, 128), 128),
+    ("AdaINModel nearest up1", (B, 128, 256, 256), 64),
+    ("AdaINModel pixelshuffle up0", (B, 256, 64, 64), 512),
+    ("AdaINModel pixelshuffle up1", (B, 128, 128, 128), 256),
+    ("BaseModel B nearest dec2", (B, 276, 128, 128), 138),
+    ("BaseModel B nearest dec3", (B, 146, 256, 256), 73),
+    ("BaseModel B pixelshuffle dec2", (B, 276, 64, 64), 552),
+    ("BaseModel B pixelshuffle dec3", (B, 146, 128, 128), 292),
+]
+# int8 launches per AdaINModel forward with a nearest or pixelshuffle tail,
+# as the JAX package routes them (tests/test_torch_surface_models.py counts
+# its calls): the two up convs on kernel 4, no transposed conv and no head
+# kernel (the 7x7 tanh head is float), moments for the stem's deferred
+# instance norm and each up block's LayerNorm
+SURFACE_INT8_PER_FORWARD = {"int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 2,
+                            "int8_deconv": 0, "head": 0, "moments": 3}
+SURFACE_UP_TYPES = ("transpose", "nearest", "pixelshuffle")
+SURFACE_BATCH_NORM = dict(enc_norm="batch", dec_norm="batch")
+# the small steps against the CPU: AdaINModel's and BaseModel B's
+# resblocks route as with the transposed tail
+SURFACE_SMALL_STEPS = [
+    (AdaINModel, dict(up_type="pixelshuffle", dec_norm="batch", init_type="orthogonal"),
+     FUSED_PER_STEP),
+    (BaseModel, dict(BASE_CONFIGS["B"], up_type="nearest"), SMALL_PER_STEP["B"]),
+]
+
+
+def check_surface_conv3x3(dtype_name: str) -> list:
+    """Kernel 4 at each up conv's shape, zero padding, bias, no prologue or
+    statistics, as the up blocks call it: operands and int32 sums, y, and a
+    second call equal to the plain version's; ms per launch beside the
+    bound and cuDNN's bf16 conv at the same shape."""
+    dtype = DTYPES[dtype_name]
+    esize = torch.finfo(dtype).bits // 8
+    rows = []
+    for i, (where, shape, co) in enumerate(SURFACE_CONV3X3):
+        b, c, h, w = shape
+        numel = math.prod(shape)
+        sets = copies(lambda j: (_randn(shape, dtype, 500 + 10 * i + j),), esize * numel)
+        x = sets[0][0]
+        weight, bias = _card_weight((co, c, 3, 3), 600 + i), _card_weight((co,), 700 + i, 0.1)
+        qc = kq.quant_conv(weight, bias, x.float().abs().amax(), 1, None)
+        exact = _check_exact(x, qc, None)
+        got, again = kq.conv3x3(x, qc), kq.conv3x3(x, qc)
+        want = kq.conv_plain(x, qc, None, False)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype, f"model_surface conv3x3 {shape}: y is {got.dtype}"
+        err = (got.float() - want.float()).abs().max().item()
+        assert err == 0.0, f"model_surface conv3x3 {shape} -> {co}: differs by {err}"
+        assert torch.equal(got, again), f"model_surface conv3x3 {shape}: two calls differ"
+        macs = b * c * co * 9 * h * w
+        nbytes = esize * (numel + got.numel()) + qc.w.numel()
+        b_ms, by = bound(nbytes, 2 * macs, INT8_OPS)
+        wb = weight.bfloat16()
+        ms = device_ms(lambda t: kq.conv3x3(t, qc), sets)
+        rows.append(dict(
+            path=where, shape=list(shape), co=co, cp=qc.cp, rows=qc.w.shape[0], **exact,
+            max_abs_err=err, tol=0.0, bit_equal_repeat=True, macs=macs, ms=ms,
+            plain_ms=device_ms(lambda t: kq.conv_plain(t, qc, None, False), sets, iters=3),
+            bf16_cudnn_ms=device_ms(lambda t: F.conv2d(t, wb, None, 1, 1),
+                                    [(t[0].bfloat16(),) for t in sets]),
+            bound_ms=b_ms, bound_by=by, bound_share=b_ms / ms))
+        del sets, x, got, again, want
+    torch.cuda.empty_cache()
+    log(dict(phase="model_surface/int8_conv3x3", dtype=dtype_name, shapes=rows))
+    return rows
+
+
+def surface_serve(card: str) -> dict:
+    """AdaINModel at ARGS with each up type: the float bf16 model, int8 at
+    compute dtype f32 and int8 at bf16, of the same weights, calibrated on
+    the seeded batches and served in turns (every up type's float, int8 f32
+    and int8 bf16 requests, twice over, in reverse the second time), the
+    launch counts set to 0 just before and read just after. Every int8
+    forward of a nearest or pixelshuffle tail launches
+    SURFACE_INT8_PER_FORWARD (the transposed tail INT8_PER_FORWARD); every
+    output is finite and in [-1, 1], int8 above 25 dB from the float bf16
+    output, and within 1e-5 (f32) or 2^-7 (bf16) of the same forward through
+    the plain versions; then each up type's int8 f32 forward once more
+    under ``devtime.measure``: CUDA-event ms and its kernels' device ms.
+    Returns kernel 4's launches by compute dtype."""
+    phase = "model_surface/serve"
+    calib = calibration_batches(ARGS)
+    _, dev = request_inputs(ARGS, seed=1)
+    x = (dev["img"], dev["z"], dev["c"])
+    shape = (B, ARGS["crop_size"], ARGS["crop_size"], 3)
+    models = {}
+    for up in SURFACE_UP_TYPES:
+        for kind, dtype in (("float_bf16", "bfloat16"), ("int8_f32", "float32"),
+                            ("int8_bf16", "bfloat16")):
+            m = AdaINModel(default_test_args(compute_dtype=dtype, up_type=up, **ARGS))
+            if kind.startswith("int8"):
+                m.calibrate_int8(*calib)
+            models[up, kind] = m
+    for m in models.values():  # warm-up: quantizes the weights, cuDNN picks its algorithms
+        m.forward_random(*x)
+    zero_counts()
+    launched = {k: dict.fromkeys(SURFACE_INT8_PER_FORWARD, 0) for k in ("int8_f32", "int8_bf16")}
+    secs = {key: [] for key in models}
+    outs = {}
+    order = [(up, kind) for up in SURFACE_UP_TYPES for kind in ("float_bf16", "int8_f32",
+                                                                "int8_bf16")]
+    for key in order + order[::-1]:
+        up, kind = key
+        for _ in range(2):
+            before = int8_counts()
+            out, seconds, _ = models[key].forward_random(*x)
+            delta = {k: v - before[k] for k, v in int8_counts().items()}
+            if kind.startswith("int8"):
+                want = INT8_PER_FORWARD if up == "transpose" else SURFACE_INT8_PER_FORWARD
+                assert delta == want, f"{phase} {key}: int8 launches per forward {delta}"
+                if up != "transpose":
+                    for k, v in delta.items():
+                        launched[kind][k] += v
+            secs[key].append(seconds)
+            outs[key] = out
+    summary = {}
+    for up in SURFACE_UP_TYPES:
+        row = {}
+        for kind in ("float_bf16", "int8_f32", "int8_bf16"):
+            out = outs[up, kind]
+            check_image(out.float(), shape, f"{phase} {up} {kind}")
+            row[f"img_per_s_{kind}"] = B * len(secs[up, kind]) / sum(secs[up, kind])
+            row[f"request_s_{kind}"] = secs[up, kind]
+        for kind, tol in (("int8_f32", HEAD_TOL), ("int8_bf16", khead.BF16_TOL)):
+            mse = (outs[up, kind].float() - outs[up, "float_bf16"].float()).square().mean().item()
+            psnr = 10 * math.log10(4.0 / max(mse, 1e-12))
+            assert psnr > PSNR_MIN_DB, f"{phase} {up} {kind}: {psnr} dB from float bf16"
+            with plain_kernels():
+                plain_out, _, _ = models[up, kind].forward_random(*x)
+            err, share = _flips(outs[up, kind], plain_out)
+            assert err <= tol, f"{phase} {up} {kind}: kernels vs plain: max {err}"
+            row[f"psnr_{kind}_vs_float_bf16_db"] = psnr
+            row[f"max_abs_err_{kind}_vs_plain"] = err
+            row[f"tol_{kind}_vs_plain"] = tol
+        summary[up] = row
+    # where the int8 f32 forward's device time goes, by kernel (utils/devtime.py)
+    for up in SURFACE_UP_TYPES:
+        per_call, kernels = devtime.measure({up: lambda: models[up, "int8_f32"].forward_random(*x)})
+        top = sorted(kernels[up].items(), key=lambda kv: -kv[1])[:8]
+        summary[up]["int8_f32_device"] = dict(
+            event_ms=per_call[up], kernel_ms=sum(kernels[up].values()),
+            top=[dict(kernel=k[:90], ms=v) for k, v in top])
+    log(dict(phase=phase, model="AdaINModel", card=card, batch=B, requests_per_kind=4,
+             psnr_min_db=PSNR_MIN_DB, per_forward=dict(
+                 transpose=INT8_PER_FORWARD, nearest=SURFACE_INT8_PER_FORWARD,
+                 pixelshuffle=SURFACE_INT8_PER_FORWARD),
+             launches_nearest_and_pixelshuffle=launched, by_up_type=summary))
+    del models, outs
+    torch.cuda.empty_cache()
+    return {k: v["int8_conv3x3"] for k, v in launched.items()}
+
+
+def surface_batch_norm(card: str) -> None:
+    """BaseModel A with ``--enc_norm batch --dec_norm batch``: its small
+    forward on the card against the CPU in f32 and bf16, then float bf16 at
+    ARGS (finite, in [-1, 1]; no kernel of the flagship's norms: batch norm
+    is two plain reductions, as in the JAX package)."""
+    for dtype_name in DTYPES:
+        check_small_against_cpu(dtype_name, BaseModel, SURFACE_BATCH_NORM)
+    model = BaseModel(default_test_args(compute_dtype="bfloat16", **SURFACE_BATCH_NORM, **ARGS))
+    _, dev = request_inputs(ARGS, seed=1)
+    model.forward_random(dev["img"], dev["z"], dev["c"])
+    secs = []
+    for _ in range(3):
+        out, seconds, _ = model.forward_random(dev["img"], dev["z"], dev["c"])
+        secs.append(seconds)
+    check_image(out.float(), (B, ARGS["crop_size"], ARGS["crop_size"], 3),
+                "model_surface/batch_norm BaseModel A bf16")
+    log(dict(phase="model_surface/batch_norm", model="BaseModel", flags=SURFACE_BATCH_NORM,
+             card=card, dtype="bf16", batch=B, request_s=secs,
+             img_per_s=B * len(secs) / sum(secs)))
+    del model
+    torch.cuda.empty_cache()
+
+
+def surface_train(card: str) -> None:
+    """The fused main step at bench.py's training config with ``--up_type
+    nearest`` beside the transposed tail, from the same seeded weights: a
+    warm-up and two timed main steps each, in turns (transpose, nearest,
+    nearest, transpose), each asserted to launch kernels 9/10 as
+    FUSED_GAN_PER_STEP; losses finite. Prints it/s and peak memory."""
+    phase = "model_surface/train"
+    _, batch = train_batch(TRAIN_ARGS, seed=31)
+    secs, peak, firsts = {}, {}, {}
+    for up in ("transpose", "nearest"):
+        model = AdaINModel(default_train_args(**FUSED_GAN_ARGS, up_type=up))
+        model.generator.manual_seed(1)
+        torch.cuda.reset_peak_memory_stats()
+        with recording_moments(collections.Counter()) as moments_calls:
+            first, _ = _timed_step(model, batch, 0)
+        steps, s = _timed_main_steps(model, batch, (3, 6), FUSED_GAN_PER_STEP,
+                                     sum(moments_calls.values()), f"{phase} {up}")
+        _check_finite(f"{phase} {up}", first, *steps)
+        secs[up], peak[up], firsts[up] = s, torch.cuda.max_memory_allocated() / 1024**3, first
+        del model
+        torch.cuda.empty_cache()
+    log(dict(phase=phase, model="AdaINModel", card=card,
+             config={k: v for k, v in FUSED_GAN_ARGS.items() if k != "seed"},
+             per_main_step=FUSED_GAN_PER_STEP,
+             **{f"main_it_per_s_{up}": len(s) / sum(s) for up, s in secs.items()},
+             **{f"main_step_s_{up}": s for up, s in secs.items()},
+             **{f"peak_memory_allocated_gb_{up}": g for up, g in peak.items()},
+             first_step_losses_nearest=firsts["nearest"]))
+
+
+def model_surface(card: str, t0: float) -> dict:
+    """``model_surface``: kernel 4 at the up convs' shapes in f32 and bf16,
+    AdaINModel served with each up type, BaseModel A with batch norm, the
+    small steps against the CPU, the fused main step with a nearest tail.
+    Returns, by kernel 4's entry name, its rows at the new shapes and its
+    launches on AdaINModel's nearest and pixelshuffle paths."""
+    rows = {"int8_conv3x3": check_surface_conv3x3("f32"),
+            "int8_conv3x3/bf16": check_surface_conv3x3("bf16")}
+    launched = surface_serve(card)
+    surface_batch_norm(card)
+    for model_cls, flags, per_step in SURFACE_SMALL_STEPS:
+        check_small_train_against_cpu(model_cls, flags, per_step, random_draws=True,
+                                      loss_floor=VARIANT_LOSS_FLOOR)
+    surface_train(card)
+    log(dict(phase="seconds", upto="model_surface", seconds=time.perf_counter() - t0))
+    return {"int8_conv3x3": dict(shapes=rows["int8_conv3x3"],
+                                 launches_adain_path=launched["int8_f32"]),
+            "int8_conv3x3/bf16": dict(shapes=rows["int8_conv3x3/bf16"],
+                                      launches_adain_path=launched["int8_bf16"])}
+
+
 def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
     model = model_cls(default_train_args(**{**TRAIN_ARGS, **(flags or {})}))
@@ -2665,6 +2926,8 @@ def main(argv) -> int:
     log(dict(phase="seconds", upto="train_variants", seconds=time.perf_counter() - t0))
     per_main_step.update(train_cli(card, fused_rates, variants["train_variants/fused"]))
     log(dict(phase="seconds", upto="train_cli", seconds=time.perf_counter() - t0))
+    for name, surface in model_surface(card, t0).items():
+        next(e for e in entries if e["name"] == name)["model_surface"] = surface
     # each training phase's launches (moments also ms, bound ms and error)
     # per main step, beside the serving launches in "launches"
     for e in entries:

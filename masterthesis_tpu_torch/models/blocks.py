@@ -100,14 +100,55 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
 
 
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Each pixel repeated ``factor`` x ``factor`` times."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def depth_to_space(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """(N, f*f*C, H, W) -> (N, C, f*H, f*W) in the JAX package's channel
+    order: output channel c at phase (i, j) reads input channel (f*i + j)*C
+    + c (``F.pixel_shuffle`` reads f*f*c + f*i + j), so the conv weights and
+    their per-output-channel int8 scales carry across unpermuted."""
+    n, c4, h, w = x.shape
+    c = c4 // (factor * factor)
+    x = x.view(n, factor, factor, c, h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c, h * factor, w * factor)
+
+
+class BatchNorm2d(nn.Module):
+    """Batch normalization with the batch's statistics in training and in
+    eval alike, and no running statistics (DESIGN.md divergence 6): per
+    channel over (N, H, W), the biased variance as the mean square deviation,
+    eps 1e-5, in f32, cast back to the input dtype; params ``scale`` and
+    ``bias``. Two plain reductions, as the JAX package's two ``jnp.mean``s,
+    which reach no Pallas kernel."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 2, 3), keepdim=True)
+        var = (x32 - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.scale.float()[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+
 def make_norm(name: Optional[str], features: int):
     if name is None:
         return None
+    if name == "batch":
+        return BatchNorm2d(features)
     if name == "instance":
         return InstanceNorm()
     if name == "layer":
         return LayerNorm(features)
-    raise NotImplementedError(f"norm type '{name}' is not ported yet")
+    raise NotImplementedError(f"norm type '{name}' is not supported at the moment")
 
 
 def apply_pending(x: torch.Tensor, pending: dict, dtype: torch.dtype) -> torch.Tensor:
@@ -233,11 +274,6 @@ class ConvTranspose2d(_Int8State):
         self.calibrates = (kernel_size, stride, padding, output_padding) == (3, 2, 1, 1)
         self._init_int8()
 
-    @property
-    def fan_in(self) -> int:
-        # k*k*in, as the JAX kernel (k, k, in, out) counts it
-        return self.weight.shape[0] * self.weight[0, 0].numel()
-
     def _make_quant(self) -> kint8.QuantConv:
         return kint8.quant_deconv(self.weight, self.bias, self.amax_in)
 
@@ -323,29 +359,61 @@ class ConvBlock(nn.Module):
 
 
 class UpsampleBlock(nn.Module):
-    """Transposed-conv upsampling -> norm -> activation. Only the
-    ``transpose`` up type is ported.
+    """Upsampling -> norm -> activation, by ``up_type``:
 
-    int8 serving: with ``defer_norm`` an int8 upsample hands its LayerNorm
-    (+ relu) on as ``(y, pending)``; a 1x1 block without a norm (the tanh
-    head) takes a pending LayerNorm in one :func:`khead.head` launch.
+    - ``transpose``: a transposed conv (``conv``);
+    - ``nearest``: a nearest 2x upsample, then a stride-1 ``ConvBlock``
+      (``conv``, so the weight is ``conv.conv.weight``, the Flax
+      ``conv/conv/kernel``);
+    - ``pixelshuffle``: a stride-1 ``ConvBlock`` to 4 x ``features``
+      channels (DESIGN.md divergence 4), then :func:`depth_to_space`.
+
+    The ConvBlock of the last two has no norm and no activation; with int8
+    serving its 3x3 conv runs :func:`kint8.conv3x3` (kernel 4) without
+    prologue or statistics, as the JAX ``int8_conv3x3_ste`` does, and the
+    block's norm runs after the upsample (a pending affine reaching such a
+    block is applied inline first).
+
+    int8 serving of ``transpose``: with ``defer_norm`` an int8 upsample hands
+    its LayerNorm (+ relu) on as ``(y, pending)``; a 1x1 block without a norm
+    (the tanh head) takes a pending LayerNorm in one :func:`khead.head`
+    launch.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, output_padding: int = 0, use_bias: bool = False,
                  norm: Optional[str] = None, activation: Optional[str] = None,
-                 up_type: str = "transpose", dtype: torch.dtype = torch.float32):
+                 padding_type: Optional[str] = None, up_type: str = "transpose",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if "transpose" not in up_type:
-            raise NotImplementedError(f"up_type '{up_type}' is not ported yet")
-        self.conv = ConvTranspose2d(in_features, features, kernel_size, stride, padding,
-                                    output_padding, use_bias=use_bias, dtype=dtype)
-        self.conv.serving_stats = norm == "layer"
+        self.up_type = up_type
+        self.transpose = "transpose" in up_type
+        if self.transpose:
+            self.conv = ConvTranspose2d(in_features, features, kernel_size, stride, padding,
+                                        output_padding, use_bias=use_bias, dtype=dtype)
+            self.conv.serving_stats = norm == "layer"
+        elif "nearest" in up_type or "pixelshuffle" in up_type:
+            width = features * (4 if "pixelshuffle" in up_type else 1)
+            self.conv = ConvBlock(in_features, width, kernel_size, 1, padding, use_bias=use_bias,
+                                  padding_type=padding_type, dtype=dtype)
+        else:
+            raise NotImplementedError(f"Mode {up_type} is not supported at the moment")
         self.activation, self.dtype = activation, dtype
         self.norm = make_norm(norm, features)
         self.act = get_activation(activation)
 
+    def _finish(self, y):
+        if self.norm is not None:
+            y = self.norm(y)
+        return self.act(y) if self.act is not None else y
+
     def forward(self, x, pending: Optional[dict] = None, defer_norm: bool = False):
+        if not self.transpose:
+            if pending is not None:
+                x = apply_pending(x, pending, self.dtype)
+            if "nearest" in self.up_type:
+                return self._finish(self.conv(upsample_nearest(x)))
+            return self._finish(depth_to_space(self.conv(x)))
         if (pending is not None and self.norm is None and self.conv.kernel_size == 1
                 and self.conv.stride == 1 and self.activation in khead.ACTS):
             w = self.conv.weight[:, :, 0, 0].t().float().contiguous()
@@ -358,11 +426,8 @@ class UpsampleBlock(nn.Module):
                 a, b = self.norm(y, stats=(s1, s2), defer=True)
                 return y, {"scale": a, "shift": b, "relu": self.activation == "relu", "alpha": 0.0}
             y = self.norm(y, stats=(s1, s2))
-        else:
-            y = out
-            if self.norm is not None:
-                y = self.norm(y)
-        return self.act(y) if self.act is not None else y
+            return self.act(y) if self.act is not None else y
+        return self._finish(out)
 
 
 class DownResnetBlock(nn.Module):

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from masterthesis_tpu_torch.models.blocks import Conv2d, ConvTranspose2d
+from masterthesis_tpu_torch.models.blocks import BatchNorm2d, Conv2d, ConvTranspose2d
 from masterthesis_tpu_torch.models.state import AdamState
 from masterthesis_tpu_torch.ops.initializers import conv_kernel, uniform_fan_in
 from masterthesis_tpu_torch.ops.norms import LayerNorm
@@ -35,14 +35,15 @@ def init_net(net: nn.Module, generator: torch.Generator, init_type=None,
     order, and each spectral norm's ``u`` as Flax does: a normalized normal draw."""
     for m in net.modules():
         if isinstance(m, (Conv2d, ConvTranspose2d)):
-            m.weight.copy_(conv_kernel(m.weight.shape, m.fan_in, generator, init_type, init_gain))
+            m.weight.copy_(conv_kernel(m.weight.shape, generator, init_type, init_gain,
+                                       transposed=isinstance(m, ConvTranspose2d)))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
             m.weight.copy_(uniform_fan_in(m.weight.shape, m.in_features, generator))
             if m.bias is not None:
                 m.bias.copy_(uniform_fan_in(m.bias.shape, m.in_features, generator))
-        elif isinstance(m, LayerNorm) and m.scale is not None:
+        elif isinstance(m, (LayerNorm, BatchNorm2d)) and m.scale is not None:
             m.scale.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, SpectralNorm):

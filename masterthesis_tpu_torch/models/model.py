@@ -15,8 +15,9 @@ package's messages; ``args.resume``/``resume_opt`` load at ``initialize``,
 and ``resume_opt`` with ``last_iter`` sets the step as the JAX package does.
 ``load`` also takes a ``model_{it}.ckpt`` that the JAX package wrote (Flax
 msgpack), net by net through ``tools/convert_jax.net_from_jax``, with the
-spectral ``u`` vectors of its ``extra`` tree; a JAX ``opt_{it}.ckpt``
-(optax state) raises.
+spectral ``u`` vectors of its ``extra`` tree, and a JAX ``opt_{it}.ckpt``:
+each net's optax state, whose ``scale_by_adam`` moments are converted leaf
+by leaf as the params are (:func:`adam_from_jax`).
 Logging: ``get_current_lr``, ``save_images`` (``gen_{it}.jpg`` in
 ``args.display_dir``) and ``write_loss`` (a tensorboardX writer on
 ``args.logdir`` for training, or None where tensorboardX is missing).
@@ -32,11 +33,6 @@ from masterthesis_tpu_torch import checkpoint as ckpt
 from masterthesis_tpu_torch.arguments import AttributeDict
 from masterthesis_tpu_torch.models.functions import init_net, make_lr_schedule
 from masterthesis_tpu_torch.models.state import AdamState, TrainState
-
-
-JAX_OPT_ERROR = ("{path}: an optimizer checkpoint the JAX package wrote (optax state) does not "
-                 "load into masterthesis_tpu_torch yet (ROADMAP A.4); resume its model_*.ckpt "
-                 "with --resume alone")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -127,9 +123,8 @@ class Model:
         step from ``opt_ckpt`` (either may be None), per net: a net the file
         lacks keeps its weights, a net the model lacks is skipped, each
         with the JAX package's message. A ``checkpoint`` the JAX package
-        wrote loads too (:meth:`_load_jax`); its ``opt_ckpt`` raises."""
-        if opt_ckpt is not None and ckpt.is_flax_file(opt_ckpt):
-            raise NotImplementedError(JAX_OPT_ERROR.format(path=opt_ckpt))
+        wrote loads too (:meth:`_load_jax`), and so does its ``opt_ckpt``
+        (:func:`adam_from_jax`)."""
         if checkpoint is not None:
             restored = ckpt.load_pytree(checkpoint, self.device)
             if ckpt.is_flax_file(checkpoint):
@@ -138,6 +133,8 @@ class Model:
                 ckpt.restore_matching(self.nets, restored.get("params", restored), "network")
         if opt_ckpt is not None:
             restored = ckpt.load_pytree(opt_ckpt, self.device)
+            if ckpt.is_flax_file(opt_ckpt):
+                restored = self._opt_from_jax(restored)
             ckpt.restore_matching(self.state.opt_state, restored.get("opt_state", {}), "optimizer")
             if "step" in restored:
                 self.state.step = int(restored["step"])
@@ -165,6 +162,15 @@ class Model:
         for name, coll in extra.items():
             if name in self.nets and coll:
                 print(f"Loading checkpoint for : {name}")
+
+    def _opt_from_jax(self, restored: dict) -> dict:
+        """A JAX ``opt_{it}.ckpt`` tree (``{"opt_state": {net: optax chain
+        state}, "step": int}``) in the port's form: each net's Adam state
+        converted (:func:`adam_from_jax`), a net the model lacks passed on
+        as it is (``restore_matching`` then reports it)."""
+        out = {name: adam_from_jax(self.nets[name], name, tree) if name in self.nets else tree
+               for name, tree in restored.get("opt_state", {}).items()}
+        return {"opt_state": out, **({"step": restored["step"]} if "step" in restored else {})}
 
     def optimizer_config(self, name: str) -> dict:
         """Adam's settings for net ``name``: the content discriminator's
@@ -207,3 +213,40 @@ class Model:
             raise KeyError(f"state_dicts for {sorted(state_dicts)}, nets are {sorted(self.nets)}")
         for name, net in self.nets.items():
             net.load_state_dict(state_dicts[name], strict=True)
+
+
+def find_adam(tree) -> dict:
+    """The ``scale_by_adam`` state inside one net's serialized optax chain:
+    the one node whose keys are ``count``, ``mu`` and ``nu``. Its place in
+    the chain's tuple (serialized as ``{"0": ..., "1": ...}``) depends on
+    the flags: ``clip_by_global_norm`` and ``add_decayed_weights`` come
+    before it only when set."""
+    found = []
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return
+        if set(node) == {"count", "mu", "nu"}:
+            found.append(node)
+            return
+        for v in node.values():
+            walk(v)
+
+    walk(tree)
+    if len(found) != 1:
+        raise KeyError(f"an optax state with {len(found)} scale_by_adam states, not one")
+    return found[0]
+
+
+def adam_from_jax(net: nn.Module, name: str, tree: dict) -> dict:
+    """:meth:`AdamState.state_dict` of ``net`` from its JAX optax state:
+    ``mu`` and ``nu`` through the converter of the param each belongs to
+    (conv HWIO -> OIHW, the transposed conv's flip, the Dense transpose),
+    listed in ``net.parameters()`` order, and ``count``."""
+    # imported here: tools.convert_jax imports the models package
+    from masterthesis_tpu_torch.tools.convert_jax import net_from_jax
+
+    adam = find_adam(tree)
+    moments = {k: net_from_jax(f"{name} Adam {k}", net, adam[k]) for k in ("mu", "nu")}
+    keys = [k for k, _ in net.named_parameters()]
+    return {"count": int(adam["count"]), **{k: [m[key] for key in keys] for k, m in moments.items()}}

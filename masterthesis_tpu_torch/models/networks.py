@@ -2,12 +2,13 @@
 
 Ports of ``masterthesis_tpu/models/networks.py``: ``ContentEncoder``,
 ``StyleEncoder``, ``ReparameterizedStyleEncoder``, ``_StyleMLP``,
-``_DecoderTail``, ``AdaINDecoder``, ``Decoder`` and ``DecoderConcat``, and
-for training ``Discriminator``, ``MultiScaleDiscriminator`` and
-``ContentDiscriminator``, with the Flax child names (``stem``, ``down0``,
-``res0``, ``head``, ``linear.fc0``, ``dec1_0``, ``dec2.up0``, ``dec2.head``,
-``dec_share``, ``dec3``, ``dec4``, ``layer0``, ``patch_head``, ``cls_head``,
-``dis_head``). Channel concats follow the JAX
+``_DecoderTail``, ``AdaINDecoder``, ``Decoder`` and ``DecoderConcat``, for
+training ``Discriminator``, ``MultiScaleDiscriminator`` and
+``ContentDiscriminator``, and ``ResnetGenerator``, with the Flax child
+names (``stem``, ``down0``, ``res0``, ``head``, ``linear.fc0``, ``dec1_0``,
+``dec2.up0``, ``dec2.up0.conv.conv`` (a nearest or pixelshuffle up),
+``dec2.head``, ``dec_share``, ``dec3``, ``dec4``, ``layer0``,
+``patch_head``, ``cls_head``, ``dis_head``). Channel concats follow the JAX
 order: [x, c] for the domain map, [h, z] for the style map, and
 DecoderConcat's [content, c, z].
 
@@ -179,15 +180,14 @@ class _StyleMLP(nn.Module):
 
 
 class _DecoderTail(nn.Module):
-    """num_ups transposed-conv upsamples with norm + activation, then a 1x1
-    tanh head (no bias)."""
+    """num_ups upsamples with norm + activation, then the tanh head: with
+    ``transpose`` a 1x1 transposed conv (no bias), with ``nearest`` or
+    ``pixelshuffle`` a 7x7 ``ConvBlock`` (zero padding 3, no bias)."""
 
     def __init__(self, output_dim: int, dim: int, num_ups: int = 2, up_type: str = "transpose",
                  norm: Optional[str] = "layer", activation: Optional[str] = "relu",
                  use_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if "transpose" not in up_type:
-            raise NotImplementedError(f"up_type '{up_type}' is not ported yet")
         d = dim
         for i in range(num_ups):
             setattr(self, f"up{i}", UpsampleBlock(
@@ -195,45 +195,57 @@ class _DecoderTail(nn.Module):
                 up_type=up_type, dtype=dtype,
             ))
             d //= 2
-        self.num_ups, self.norm_type, self.activation = num_ups, norm, activation
-        self.head = UpsampleBlock(d, output_dim, 1, 1, 0, activation="tanh", dtype=dtype)
+        self.num_ups = num_ups
+        # int8 serving: each transposed upsample hands its LayerNorm + relu to
+        # the next kernel's prologue, the last one to the head's (inert on the
+        # float path: only an int8 upsample returns the statistics to defer);
+        # the other up types apply their norms unfused, as in the JAX package
+        self.fusible = "transpose" in up_type and norm == "layer" and activation in ("relu", None)
+        if "transpose" in up_type:
+            self.head = UpsampleBlock(d, output_dim, 1, 1, 0, activation="tanh", dtype=dtype)
+        else:
+            self.head = ConvBlock(d, output_dim, 7, 1, 3, activation="tanh", dtype=dtype)
 
     def forward(self, h):
-        # int8 serving: each upsample hands its LayerNorm + relu to the next
-        # kernel's prologue, the last one to the head's (inert on the float
-        # path: only an int8 upsample returns the statistics to defer)
-        fusible = self.norm_type == "layer" and self.activation in ("relu", None)
         pending = None
         for i in range(self.num_ups):
-            h, pending = split_pending(getattr(self, f"up{i}")(h, pending, defer_norm=fusible))
+            h, pending = split_pending(getattr(self, f"up{i}")(h, pending, defer_norm=self.fusible))
         return self.head(h, pending)
 
 
 class AdaINDecoder(nn.Module):
     """One style code from the style MLP modulates n_blocks AdaIN resblocks,
-    then the upsampling tail. ``dropout`` routes the blocks as in the JAX
+    then the upsampling tail. With a ``res_norm`` other than ``adain`` the
+    blocks are instance-norm ``ResnetBlock``s and there is no style MLP (the
+    style is unused), as in the JAX package; int8 serving runs them through
+    the whole-block kernel 6. ``dropout`` routes the blocks as in the JAX
     package and applies the given masks (see :class:`AdaINResnetBlock`)."""
 
     def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 4,
                  num_domains: int = 2, num_ups: int = 2, latent_dim: int = 8,
-                 up_type: str = "transpose", norm: Optional[str] = "layer",
-                 activation: Optional[str] = "relu", use_bias: bool = True,
-                 dropout: bool = False, dtype: torch.dtype = torch.float32):
+                 up_type: str = "transpose", res_norm: str = "adain",
+                 norm: Optional[str] = "layer", activation: Optional[str] = "relu",
+                 use_bias: bool = True, dropout: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.linear = _StyleMLP(latent_dim + num_domains, dim, dtype=dtype)
+        self.adain = "adain" in res_norm
+        if self.adain:
+            self.linear = _StyleMLP(latent_dim + num_domains, dim, dtype=dtype)
         for i in range(n_blocks):
-            setattr(self, f"dec1_{i}", AdaINResnetBlock(dim, dim, dropout=dropout, dtype=dtype))
+            block = (AdaINResnetBlock(dim, dim, dropout=dropout, dtype=dtype) if self.adain
+                     else ResnetBlock(dim, dropout=dropout, dtype=dtype))
+            setattr(self, f"dec1_{i}", block)
         self.n_blocks = n_blocks
         self.dec2 = _DecoderTail(output_dim, dim, num_ups, up_type, norm, activation,
                                  use_bias, dtype=dtype)
 
     def forward(self, x, z, c, masks: Optional[MaskSource] = None):
-        style = self.linear(z, c)
+        style = self.linear(z, c) if self.adain else None
         h = x
         for i in range(self.n_blocks):
             name = f"dec1_{i}"
             block = getattr(self, name)
-            h = block(h, style, _mask(masks, name, block, h))
+            mask = _mask(masks, name, block, h)
+            h = block(h, style, mask) if self.adain else block(h, mask)
         return self.dec2(h)
 
 
@@ -270,7 +282,8 @@ class Decoder(nn.Module):
 class DecoderConcat(nn.Module):
     """BaseModel's ``--concat`` decoder: a shared resblock, then [h, c, z]
     through n_blocks resblocks, and z concatenated again before each of two
-    transposed-conv upsamples and the 1x1 tanh head (``dec4``, no bias).
+    upsamples and the tanh head (``dec4``, no bias: a 1x1 transposed conv,
+    or with ``nearest``/``pixelshuffle`` a 7x7 ``ConvBlock``).
     With dim 256, latent 8 and 4 domains the widths are 268 (resblocks),
     276 -> 138, 146 -> 73 and 81 -> 3. ``dropout`` goes to the ``dec1_*``
     blocks, not to ``dec_share``, as in the JAX package."""
@@ -291,7 +304,11 @@ class DecoderConcat(nn.Module):
         self.dec2 = UpsampleBlock(nch, nch // 2, 3, 2, 1, 1, **up)
         nch = nch // 2 + latent_dim
         self.dec3 = UpsampleBlock(nch, nch // 2, 3, 2, 1, 1, **up)
-        self.dec4 = UpsampleBlock(nch // 2 + latent_dim, output_dim, 1, 1, 0, activation="tanh",
+        if "transpose" in up_type:
+            self.dec4 = UpsampleBlock(nch // 2 + latent_dim, output_dim, 1, 1, 0,
+                                      activation="tanh", dtype=dtype)
+        else:
+            self.dec4 = ConvBlock(nch // 2 + latent_dim, output_dim, 7, 1, 3, activation="tanh",
                                   dtype=dtype)
 
     def forward(self, x, z, c, masks: Optional[MaskSource] = None):
@@ -402,3 +419,41 @@ class ContentDiscriminator(nn.Module):
         for i in range(self.n_layers):
             h = getattr(self, f"layer{i}")(h)
         return global_avg_pool(self.head(self.layer3(h)))
+
+
+class ResnetGenerator(nn.Module):
+    """A plain residual encoder-decoder: a 7x7 stem, ``num_downs`` stride-2
+    3x3 downs, ``n_blocks`` instance-norm resblocks (``norm`` if given; the
+    original builds none, DESIGN.md divergence 9), ``num_downs`` transposed
+    upsamples (``up{i}``, widest last) and a 7x7 tanh head. No conv has a
+    bias. Neither model builds it."""
+
+    def __init__(self, input_dim: int = 3, output_dim: int = 3, dim: int = 64,
+                 num_downs: int = 2, n_blocks: int = 6, norm: Optional[str] = None,
+                 activation: Optional[str] = None, padding_type: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        common = dict(norm=norm, padding_type=padding_type, dtype=dtype)
+        self.stem = ConvBlock(input_dim, dim, 7, 1, 3, activation=activation, **common)
+        for i in range(num_downs):
+            setattr(self, f"down{i}", ConvBlock(dim * 2 ** i, dim * 2 ** (i + 1), 3, 2, 1,
+                                                activation=activation, **common))
+        d = dim * 2 ** num_downs
+        for i in range(n_blocks):
+            setattr(self, f"res{i}", ResnetBlock(d, norm=norm or "instance", dtype=dtype))
+        for i in reversed(range(num_downs)):
+            setattr(self, f"up{i}", UpsampleBlock(dim * 2 ** (i + 1), dim * 2 ** i, 3, 2, 1, 1,
+                                                  norm=norm, activation=activation,
+                                                  padding_type=padding_type, dtype=dtype))
+        self.head = ConvBlock(dim, output_dim, 7, 1, 3, activation="tanh", **common)
+        self.num_downs, self.n_blocks = num_downs, n_blocks
+
+    def forward(self, x):
+        h = self.stem(x)
+        for i in range(self.num_downs):
+            h = getattr(self, f"down{i}")(h)
+        for i in range(self.n_blocks):
+            h = getattr(self, f"res{i}")(h)
+        for i in reversed(range(self.num_downs)):
+            h = getattr(self, f"up{i}")(h)
+        return self.head(h)

@@ -12,7 +12,11 @@ so each port parameter finds its leaf by its own path. Per leaf:
   transposed conv correlates with the flipped kernel;
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in); ``blocks.Dense`` nests
   its leaves under ``Dense_0``, AdaIN's ``style_proj`` does not;
-- LayerNorm ``scale``/``bias`` (C,) as they are; biases as they are;
+- LayerNorm and BatchNorm ``scale``/``bias`` (C,) as they are; biases as
+  they are;
+- a nearest or pixelshuffle upsample's conv (``up0/conv/conv/kernel``, the
+  ConvBlock inside the UpsampleBlock) and the 7x7 tanh head of those up
+  types (``head/conv/kernel``, ``dec4/conv/kernel``) by the same paths;
 - with ``extra`` (the JAX state's ``extra`` tree, ``{net: {"layer0":
   {"conv": {"sn": {"u": (out,)}}}}}`` under ``--dis_sn``), each spectral
   norm's ``u`` buffer as it is.
@@ -24,7 +28,8 @@ net by net: a JAX training checkpoint also holds nets that a serving model
 does not build.
 
 The discriminators of either kind (``Discriminator``,
-``MultiScaleDiscriminator``) map by their module names like every other net.
+``MultiScaleDiscriminator``) map by their module names like every other
+net, and so does ``ResnetGenerator`` (``net_from_jax``; no model builds it).
 It raises on a leaf it does not consume and on a port parameter it leaves
 unset, so a model whose shape differs from the tree's cannot load silently;
 without ``extra``, the ``u`` buffers are left out of the state_dicts, which
@@ -45,7 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from masterthesis_tpu_torch.models.blocks import Conv2d, ConvTranspose2d, Dense
+from masterthesis_tpu_torch.models.blocks import BatchNorm2d, Conv2d, ConvTranspose2d, Dense
 from masterthesis_tpu_torch.models.quantize import LEAF, int8_convs
 from masterthesis_tpu_torch.ops.norms import LayerNorm
 from masterthesis_tpu_torch.ops.spectral import SpectralNorm
@@ -97,7 +102,7 @@ def _leaf(module: nn.Module, prefix: str, pname: str):
         return base + ("kernel" if pname == "weight" else pname), (
             np.transpose if pname == "weight" else _same
         )
-    if isinstance(module, (LayerNorm, SpectralNorm)):
+    if isinstance(module, (LayerNorm, BatchNorm2d, SpectralNorm)):
         return base + pname, _same
     raise TypeError(f"no JAX mapping for parameter {pname} of {type(module).__name__}")
 

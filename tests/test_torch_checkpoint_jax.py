@@ -194,11 +194,3 @@ def test_a_jax_checkpoint_restores_the_spectral_vectors(jax_checkpoint, capsys):
     u = np.asarray(s.extra["discriminator1"]["layer0"]["conv"]["sn"]["u"])
     np.testing.assert_array_equal(tm.nets.discriminator1.layer0.conv.sn.u.numpy(), u)
 
-
-def test_a_jax_optimizer_checkpoint_raises(jax_checkpoint):
-    s = jax_checkpoint
-    with pytest.raises(NotImplementedError, match="A.4"):
-        AdaINModel(default_train_args(resume=s.model, resume_opt=s.opt, last_iter=5,
-                                      use_dis_content=True, dis_sn=True, dis_content_layers=1,
-                                      dis_content_final_kernel=2, logdir=None, **SHAPE),
-                   device="cpu")

@@ -263,7 +263,7 @@ def jax_step_calls(args_kw, tree, batch, z_sr, z_sr2, model_cls=AdaINModel) -> t
 
 def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINModel,
             gan_step: str = "reference", extras=None, gp_keys=None, aux=None,
-            spectral_out=None):
+            spectral_out=None, opt=None):
     """The JAX main step (``gan_step`` "reference" or "fused"), each phase at
     the port's parameters at the start of that phase (``trees`` from
     :func:`run_port`, and ``extras``, its extra trees, under ``--dis_sn``), so
@@ -271,12 +271,13 @@ def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINMode
     Adam, whose first steps are about lr x sign(gradient). The Adam state is
     the JAX package's own. ``gp_keys``: {"d1" | "d2": key} for WGAN-GP's
     penalty; ``aux``: the perceptual params; ``spectral_out``, a dict, gets
-    each D's stored ``u`` tree. Returns (logs, grads by phase, each phase's
+    each D's stored ``u`` tree; ``opt``: the optax states to start from (a
+    resumed run's), else fresh ones. Returns (logs, grads by phase, each phase's
     updated nets), grads and nets as [{net: tree}]."""
     jm = jax_model(args_kw, model_cls)
     trees = [jax.tree_util.tree_map(jnp.asarray, t) for t in trees]
     extras = [jax.tree_util.tree_map(jnp.asarray, e) for e in (extras or [{}] * len(trees))]
-    opt = {n: jm.tx[n].init(trees[0][n]) for n in trees[0]}
+    opt = dict(opt) if opt is not None else {n: jm.tx[n].init(trees[0][n]) for n in trees[0]}
     img, c_org, d_fakes, g1, g2 = _jax_pieces(jm, batch, z_sr, z_sr2, aux)
     b = len(batch["x1"])
     aux = aux or {}
