@@ -210,7 +210,29 @@ against its plain PyTorch version.
    transposed tail (it/s, peak memory). Kernel 4's kernels-line entries gain
    ``model_surface``: these shapes' rows and its launches on AdaINModel's
    nearest and pixelshuffle paths. Cumulative seconds are printed after it.
-14. Last lines: the card, the ``{"kernels": [...]}`` line, then
+14. ``evaluate``: the evaluate CLI, ``parse_args(argv)`` and
+   ``Evaluator().run(args)`` as its ``main`` does, on the card, from a
+   ``Model.save`` checkpoint of the flagship AdaINModel over a seeded
+   validation tree of 4 domains x 64 JPEGs at 360 x 640 (under
+   ``chiprun_out/``, removed after; load 286, crop 256), batch 8, bf16, 2
+   styles: the 2048-d InceptionV3 FID and LPIPS (seeded random weights: the
+   repository holds no pretrained npz), ``--fid_extractor pixel``, and
+   ``--int8 --fid_extractor pixel`` (int8 at bf16 compute), 64 forwards
+   each. The launches per forward must be exactly the float path's (13
+   moments, 8 AdaIN) or the int8 path's over the whole run, so the metric
+   nets reach no kernel; results finite; each run repeated through the
+   plain versions (which must launch nothing), the FID accumulators within 1e-2 of their largest
+   magnitude and pixel FID and LPIPS diversity within 2e-2 relative (the
+   2048-d repeat skips its host sqrtm). Prints translations scored per
+   second beside the bare ``forward_random`` at B=8, FID's host seconds per
+   domain (the 2048-d run's is its host sqrtm), the device idle share over
+   one profiled domain (pixel run), InceptionV3 img/s and LPIPS pairs/s
+   alone (B=8, f32, 256 x 256); an identity model's pixel FID below
+   1e-3 on the card; a small evaluate (32 px, dim 8, 2 domains x 64 images,
+   f32) on the card within 1e-3 of the CPU with the same weights and style
+   codes. The kernels line's float and int8 bf16 entries gain ``evaluate``:
+   their launches per run. Cumulative seconds are printed after it.
+15. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -247,6 +269,10 @@ from masterthesis_tpu_torch.arguments import (
 )
 from masterthesis_tpu_torch.data import DataLoader, PairedDataset, infinite
 from masterthesis_tpu_torch.data.device_preproc import preprocess_pair_batch
+from masterthesis_tpu_torch.evaluate import Evaluator, parse_args
+from masterthesis_tpu_torch.evaluate import evaluate as evaluate_model
+from masterthesis_tpu_torch.metrics.inception import make_inception_extractor
+from masterthesis_tpu_torch.metrics.lpips import make_lpips_fn
 from masterthesis_tpu_torch.models import AdaINModel, BaseModel
 from masterthesis_tpu_torch.models.translation import StepDraws
 from masterthesis_tpu_torch.ops import norms
@@ -2088,26 +2114,36 @@ def write_jpeg_tree(root: Path, seed: int = 0) -> int:
 
     rng = np.random.default_rng(seed)
     h, w = CLI_IMAGE
-    yy, xx = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
-                         np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
+    yy, xx = _grid(h, w)
     total = 0
     for name in CLI_DOMAINS:
         d = root / "train" / name
         d.mkdir(parents=True)
         for i in range(CLI_PER_DOMAIN):
-            img = np.empty((h, w, 3), np.float32)
-            for c in range(3):
-                acc = rng.uniform(60, 190) + rng.uniform(-60, 60) * yy
-                for _ in range(6):
-                    fy, fx = rng.uniform(1, 24, 2)
-                    acc = acc + rng.uniform(5, 30) * np.sin(
-                        2 * np.pi * (fx * xx + fy * yy) + rng.uniform(0, 2 * np.pi))
-                img[..., c] = acc
+            img = _smooth_pattern(rng, yy, xx)
             img += rng.normal(0, 6, (h, w, 1)).astype(np.float32)
             path = d / f"img{i}.jpg"
             Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path, quality=90)
             total += path.stat().st_size
     return total
+
+
+def _grid(h: int, w: int):
+    return np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
+                       np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
+
+
+def _smooth_pattern(rng, yy, xx) -> np.ndarray:
+    """A gradient and six sinusoids per channel, (h, w, 3) f32 in about [0, 255]."""
+    img = np.empty((*yy.shape, 3), np.float32)
+    for c in range(3):
+        acc = rng.uniform(60, 190) + rng.uniform(-60, 60) * yy
+        for _ in range(6):
+            fy, fx = rng.uniform(1, 24, 2)
+            acc = acc + rng.uniform(5, 30) * np.sin(
+                2 * np.pi * (fx * xx + fy * yy) + rng.uniform(0, 2 * np.pi))
+        img[..., c] = acc
+    return img
 
 
 class CliTrainer(Trainer):
@@ -2801,6 +2837,340 @@ def model_surface(card: str, t0: float) -> dict:
                                       launches_adain_path=launched["int8_bf16"])}
 
 
+# ---------------------------------------------------------------- evaluate --
+
+# evaluate: the evaluate CLI (``parse_args`` and ``Evaluator.run``, as its
+# ``main`` does) over a seeded validation tree of 4 domains x 64 JPEGs at
+# 360 x 640, which the flagship's load 286 / crop 256 resize; batch 8, bf16,
+# 2 styles: per run 4 domains x 8 chunks x 2 styles forwards
+EVAL_PER_DOMAIN, EVAL_IMAGE = 64, (360, 640)
+EVAL_ARGV = ["--model", "AdaINModel", "--dim", "64", "--latent_dim", "8", "--num_domains", "4",
+             "--load_size", "286", "--crop_size", "256", "--compute_dtype", "bfloat16",
+             "--seed", "0", "--eval_batch", str(B), "--num_styles", "2"]
+EVAL_RUNS = {"inception": [], "pixel": ["--fid_extractor", "pixel"],
+             "int8_pixel": ["--int8", "--fid_extractor", "pixel"]}
+EVAL_FORWARDS = len(CLI_DOMAINS) * (EVAL_PER_DOMAIN // B) * 2
+# kernels against plain versions, both in bf16 (the AdaIN kernel's output
+# one bf16 step from the plain version's, the int8 path's 2^-7): the FID
+# accumulators (feature sums and sums of outer products) within EVAL_ACC_TOL
+# of their largest magnitude, pixel FID and LPIPS diversity within
+# EVAL_REL_TOL relative
+EVAL_ACC_TOL, EVAL_REL_TOL = 1e-2, 2e-2
+# the small evaluate on the card against the CPU (f32, TF32 off; the
+# model's outputs within CPU_TOL): pixel FID and LPIPS diversity relative,
+# the feature sums of their largest magnitude
+SMALL_EVAL = dict(crop_size=32, load_size=36, dim=8, latent_dim=4, num_domains=2, seed=0)
+SMALL_EVAL_TOL = 1e-3
+IDENTITY_FID_MAX = 1e-3  # tests/test_evaluate.py's bar
+
+
+def write_val_tree(root: Path, seed: int = 1) -> int:
+    """``root/val/<domain>/img{i}.jpg``: 4 domains x 64 seeded 360 x 640
+    JPEGs, ``write_jpeg_tree``'s pattern drawn at a quarter of the size and
+    resized up, with mild noise and a tint per domain. Returns the bytes."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = EVAL_IMAGE
+    yy, xx = _grid(h // 4, w // 4)
+    total = 0
+    for k, name in enumerate(CLI_DOMAINS):
+        d = root / "val" / name
+        d.mkdir(parents=True)
+        tint = np.asarray([20.0, 0.0, -20.0], np.float32) * (k - 1.5)
+        for i in range(EVAL_PER_DOMAIN):
+            small = Image.fromarray(np.clip(_smooth_pattern(rng, yy, xx) + tint, 0, 255).astype(
+                np.uint8))
+            img = np.asarray(small.resize((w, h), Image.BICUBIC), np.float32)
+            img = img + rng.normal(0, 6, (h, w, 1)).astype(np.float32)
+            path = d / f"img{i}.jpg"
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path, quality=90)
+            total += path.stat().st_size
+    return total
+
+
+class CliEvaluator(Evaluator):
+    """The evaluate CLI's Evaluator with its work recorded: the launch counts
+    set to 0 as a run starts and after its calibration, the model kept; with
+    ``score_fid=False`` (a run that is only compared) FID's host sqrtm is
+    skipped and reads nan."""
+
+    def __init__(self, score_fid: bool = True):
+        super().__init__()
+        self.score_fid = score_fid
+
+    def load_model(self, args):
+        self.model = super().load_model(args)
+        return self.model
+
+    def calibrate(self, args, model):
+        quant = super().calibrate(args, model)
+        zero_counts()
+        return quant
+
+    def score(self, fid, diversity):
+        if self.score_fid:
+            return super().score(fid, diversity)
+        return {"fid": float("nan"), "lpips_diversity": float(np.mean(diversity))}
+
+    def run(self, args):
+        zero_counts()
+        return super().run(args)
+
+
+def _moments_of(fid) -> dict:
+    """A domain's FID accumulators as means: each side's mean feature and
+    mean outer product."""
+    a = fid.accumulators()
+    return {k: a[k] / a["n"] for k in ("train_total", "train_sigma", "test_total", "test_sigma")}
+
+
+def _compare_runs(phase, ev, ev_plain, results, plain, pixel: bool) -> dict:
+    """The kernel run against its plain-kernel repeat, per domain."""
+    out = {}
+    for d in results:
+        got, want = _moments_of(ev.fids[d]), _moments_of(ev_plain.fids[d])
+        acc = max(float(np.abs(got[k] - want[k]).max() / max(np.abs(want[k]).max(), 1e-30))
+                  for k in got)
+        div = abs(results[d]["lpips_diversity"] - plain[d]["lpips_diversity"]) / abs(
+            plain[d]["lpips_diversity"])
+        fid = (abs(results[d]["fid"] - plain[d]["fid"]) / abs(plain[d]["fid"])) if pixel else None
+        assert acc <= EVAL_ACC_TOL, f"{phase} {d}: accumulators {acc} > {EVAL_ACC_TOL}"
+        assert div <= EVAL_REL_TOL, f"{phase} {d}: LPIPS diversity {div} > {EVAL_REL_TOL}"
+        assert fid is None or fid <= EVAL_REL_TOL, f"{phase} {d}: pixel FID {fid}"
+        out[d] = dict(accumulators_rel=acc, lpips_diversity_rel=div, pixel_fid_rel=fid)
+    return out
+
+
+def evaluate_run(card: str, root: Path, run: str, ckpt_path: str) -> dict:
+    """``evaluate/<run>``: the CLI on the card, its launches per forward, its
+    results against the same run through the plain versions, translations
+    scored per second beside the bare forward. Returns the launches, the
+    evaluator and its args."""
+    phase = f"evaluate/{run}"
+    flags = EVAL_RUNS[run]
+    int8 = "--int8" in flags
+
+    def argv(tag):
+        return ["--dataroot", str(root / "data"), "--resume", ckpt_path,
+                "--result_dir", str(root / "out" / tag), *EVAL_ARGV, *flags]
+
+    args = parse_args(argv(run))
+    ev = CliEvaluator()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = ev.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1024**3
+    if int8:
+        got = int8_counts()
+        want = {n: v * EVAL_FORWARDS for n, v in INT8_PER_FORWARD.items()}
+        got["adain"] = kadain.adain.launches
+        want["adain"] = 0
+    else:
+        got = dict(zip(("moments", "adain"), counts()))
+        want = dict(moments=MOMENTS_PER_FORWARD * EVAL_FORWARDS,
+                    adain=ADAIN_PER_FORWARD * EVAL_FORWARDS)
+    assert got == want, f"{phase}: launches {got} != {want}"
+    assert ev.scored == EVAL_FORWARDS * B, f"{phase}: {ev.scored} translations scored"
+    for d, r in results.items():
+        assert np.isfinite(r["fid"]) and np.isfinite(r["lpips_diversity"]), f"{phase} {d}: {r}"
+    launched = int8_counts() if int8 else counts()
+    with plain_kernels():
+        ev_plain = CliEvaluator(score_fid=run != "inception")
+        plain = ev_plain.run(parse_args(argv(f"{run}_plain")))
+    assert (int8_counts() if int8 else counts()) == launched, f"{phase}: the plain run launched"
+    agree = _compare_runs(phase, ev, ev_plain, results, plain, pixel=run != "inception")
+    _, dev = request_inputs(ARGS, seed=1)
+    bare = _bare_rate(ev.model, dev["img"], dev["z"], dev["c"])
+    sqrtm_s = sum(ev.fid_seconds.values())
+    log(dict(phase=phase, card=card, batch=B, forwards=EVAL_FORWARDS, launches=got,
+             per_forward=INT8_PER_FORWARD if int8 else dict(moments=MOMENTS_PER_FORWARD,
+                                                            adain=ADAIN_PER_FORWARD),
+             results=results, plain_results=plain, kernel_vs_plain=agree,
+             tol=dict(accumulators=EVAL_ACC_TOL, relative=EVAL_REL_TOL),
+             scored=ev.scored, loop_s=ev.loop_seconds, fid_compute_s=ev.fid_seconds,
+             scored_translations_per_s=ev.scored / ev.loop_seconds,
+             scored_per_s_without_fid_compute=ev.scored / (ev.loop_seconds - sqrtm_s),
+             bare_forward_img_per_s=bare, run_s=run_s, peak_allocated_gb=peak_gb,
+             calibration_s=ev.calibration_seconds if int8 else None))
+    return got, ev, args
+
+
+def _profiled_domain(ev, args) -> dict:
+    """Device busy over one domain of a run (the one-deep pipeline as the CLI
+    runs it, FID's host compute left out), and its window."""
+    from masterthesis_tpu_torch.data.transforms import TrainTransform
+    from masterthesis_tpu_torch.evaluate import mode_dir
+
+    domains = sorted(os.listdir(mode_dir(args)))
+    transform = TrainTransform(args.load_size, args.crop_size, train=False)
+    lpips_fn, extractor = ev.metric_nets(args)
+    g = ev.generator(args)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev.evaluate_domain(args, ev.model, domains, 0, transform, lpips_fn, extractor, g)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    busy = _device_busy_ms(prof)
+    return dict(device_busy_ms=busy, window_ms=window * 1e3,
+                device_idle_share=1.0 - busy / (window * 1e3))
+
+
+def _conv_macs(model, *inputs) -> int:
+    """Multiply-adds of ``model``'s convs on ``inputs`` (output elements
+    times each one's kernel volume)."""
+    macs = []
+    hooks = [m.register_forward_hook(lambda m, i, o: macs.append(o.numel() * m.weight[0].numel()))
+             for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model(*inputs)
+    for h in hooks:
+        h.remove()
+    return sum(macs)
+
+
+def metric_rates(card: str) -> None:
+    """InceptionV3 (2048-d, the 299 resize) img/s and LPIPS pairs/s alone, B=8
+    f32 at 256 x 256 (CUDA events), each beside its bound: its convs'
+    operations over the f32 peak. FID's host seconds per domain are the
+    ``inception`` run's ``fid_compute_s``."""
+    from masterthesis_tpu_torch.metrics.inception import InceptionV3
+    from masterthesis_tpu_torch.metrics.lpips import LPIPS
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        extract = make_inception_extractor()
+        dist = make_lpips_fn()
+    sets = copies(lambda i: (_randn((B, 256, 256, 3), torch.float32, 70 + i, 0.3, 0.5),),
+                  B * 256 * 256 * 3 * 4)
+    inception_ms = device_ms(extract, sets, iters=10)
+    pairs = [(a, b) for (a,), (b,) in zip(sets, sets[1:] + sets[:1])]
+    lpips_ms = device_ms(dist, pairs, iters=10)
+    inception_bound, _ = bound(0, 2 * _conv_macs(InceptionV3().cuda(), sets[0][0]))
+    lpips_bound, _ = bound(0, 2 * _conv_macs(LPIPS().cuda(), *pairs[0]))
+    del sets, pairs
+    torch.cuda.empty_cache()
+    log(dict(phase="evaluate/metric_nets", card=card, batch=B, size=[256, 256],
+             inception_ms=inception_ms, inception_img_per_s=B / inception_ms * 1e3,
+             inception_bound_ms=inception_bound, lpips_ms=lpips_ms,
+             lpips_pairs_per_s=B / lpips_ms * 1e3, lpips_bound_ms=lpips_bound,
+             bound_by="operations (f32 convs)", host_cpus=os.cpu_count()))
+
+
+class _Codes:
+    """The same seeded style codes on any device, as ``get_z_random``."""
+
+    def __init__(self, n: int, latent: int, device):
+        rng = np.random.default_rng(6)
+        self.codes = iter([torch.from_numpy(rng.standard_normal((B, latent)).astype(
+            np.float32)).to(device) for _ in range(n)])
+
+    def __call__(self, n, generator=None):
+        return next(self.codes)[:n]
+
+
+def small_evaluate_against_cpu(root: Path) -> None:
+    """The evaluate loop at 32 px (dim 8, 2 domains x 64 images, f32, pixel
+    FID) on the card and on the CPU, the same seeded weights and codes."""
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    for d, base in (("cloud", 90), ("fog", 150)):
+        (root / "val" / d).mkdir(parents=True)
+        for i in range(EVAL_PER_DOMAIN):
+            arr = np.clip(rng.normal(base, 40, (40, 40, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(root / "val" / d / f"img{i:02d}.jpg")
+    args = default_test_args(**SMALL_EVAL, dataroot=str(root), mode="val", fid_extractor="pixel")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = AdaINModel(args, device=device)
+        model.get_z_random = _Codes(2 * EVAL_PER_DOMAIN // B * 2, SMALL_EVAL["latent_dim"], device)
+        ev = Evaluator(device=device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            runs[device] = (ev.evaluate(args, model), ev)
+    (got, ev_card), (want, ev_cpu) = runs["cuda"], runs["cpu"]
+    err = {}
+    for d in want:
+        for k in ("fid", "lpips_diversity"):
+            err[f"{d}/{k}"] = abs(got[d][k] - want[d][k]) / abs(want[d][k])
+        a, b = ev_card.fids[d].accumulators(), ev_cpu.fids[d].accumulators()
+        for k in ("train_total", "test_total"):
+            err[f"{d}/{k}"] = float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
+    log(dict(phase="evaluate/card_vs_cpu", results=got, cpu_results=want, rel_err=err,
+             tol=SMALL_EVAL_TOL))
+    assert max(err.values()) <= SMALL_EVAL_TOL, f"evaluate card vs CPU: {err}"
+
+
+class _CardIdentity:
+    """A model whose translation is its input, on the card."""
+
+    device = torch.device("cuda")
+
+    def get_z_random(self, n, generator=None):
+        return torch.zeros((n, 8), device="cuda")
+
+    def forward_random(self, img, z, trg):
+        return img, 0.0, 0.0
+
+
+def identity_fid(root: Path) -> None:
+    """Two domains of the same 64 files and the identity model: the
+    translated side equals the target's reals, so FID must be ~0."""
+    for d in ("cloud", "fog"):
+        (root / "val" / d).mkdir(parents=True)
+        for f in sorted((root.parent / "data" / "val" / "cloud").iterdir()):
+            shutil.copy(f, root / "val" / d / f.name)
+    args = default_test_args(**{**ARGS, "num_domains": 2}, load_size=286, dataroot=str(root),
+                             mode="val", fid_extractor="pixel")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        results = evaluate_model(args, _CardIdentity(), num_styles=1)
+    log(dict(phase="evaluate/identity", results=results, max_fid=IDENTITY_FID_MAX))
+    for d, r in results.items():
+        assert abs(r["fid"]) < IDENTITY_FID_MAX, f"identity FID {d}: {r['fid']}"
+
+
+def evaluate_phase(card: str, t0: float) -> dict:
+    """``evaluate``: a seeded flagship AdaINModel saved with ``Model.save``,
+    the CLI's three runs over the validation tree (under ``chiprun_out/``,
+    removed after), each against its plain-kernel repeat; the metric nets
+    alone; the identity model; a small evaluate against the CPU. Returns,
+    by kernel entry name, its launches per run."""
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="evaluate_", dir=out_dir))
+    try:
+        t1 = time.perf_counter()
+        nbytes = write_val_tree(root / "data")
+        ckdir = root / "ckpt"
+        AdaINModel(default_train_args(checkpoint_dir=str(ckdir), logdir=None,
+                                      **TRAIN_ARGS)).save(0)
+        torch.cuda.empty_cache()
+        log(dict(phase="evaluate/data", images=EVAL_PER_DOMAIN * len(CLI_DOMAINS),
+                 size=list(EVAL_IMAGE), bytes=nbytes, seconds=time.perf_counter() - t1))
+        launched = {}
+        for run in EVAL_RUNS:
+            got, ev, args = evaluate_run(card, root, run, str(ckdir / "model_0.ckpt"))
+            if run == "pixel":
+                log(dict(phase="evaluate/profiled_domain", card=card,
+                         **_profiled_domain(ev, args)))
+            for name, n in got.items():  # every route of this phase runs in bf16
+                launched.setdefault(f"{name}/bf16", {})[run] = n
+            del ev
+            torch.cuda.empty_cache()
+        metric_rates(card)
+        identity_fid(root / "identity")
+        small_evaluate_against_cpu(root / "small")
+        log(dict(phase="seconds", upto="evaluate", seconds=time.perf_counter() - t0))
+        return launched
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
     model = model_cls(default_train_args(**{**TRAIN_ARGS, **(flags or {})}))
@@ -2928,6 +3298,10 @@ def main(argv) -> int:
     log(dict(phase="seconds", upto="train_cli", seconds=time.perf_counter() - t0))
     for name, surface in model_surface(card, t0).items():
         next(e for e in entries if e["name"] == name)["model_surface"] = surface
+    # the evaluate CLI's launches per run (4 domains x 8 chunks x 2 styles forwards)
+    for name, runs in evaluate_phase(card, t0).items():
+        next(e for e in entries if e["name"] == name)["evaluate"] = dict(
+            forwards_per_run=EVAL_FORWARDS, launches=runs)
     # each training phase's launches (moments also ms, bound ms and error)
     # per main step, beside the serving launches in "launches"
     for e in entries:

@@ -55,9 +55,10 @@ def _one_hot(index: int, num_domains: int, batch: int) -> np.ndarray:
     return onehot
 
 
-class _Pending:
-    """A translated batch on its way to the host: on the card, copied into
-    pinned memory behind an event; elsewhere the tensor itself."""
+class Pending:
+    """A tensor (a translated batch; ``evaluate``'s features and distances)
+    on its way to the host as f32: on the card, copied into pinned memory
+    behind an event; elsewhere the tensor itself."""
 
     def __init__(self, images: torch.Tensor):
         images = images.float()
@@ -74,6 +75,21 @@ class _Pending:
         if self.event is not None:
             self.event.synchronize()
         return self.images.numpy()
+
+
+def f32_to_device(a, device: torch.device) -> Optional[torch.Tensor]:
+    """``a`` on ``device`` as f32; a host array through pinned memory, so
+    that the copy does not wait for the work already on the stream (a copy
+    from pageable memory synchronizes)."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+        return a.to(device).float()
+    host = a.float() if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a, np.float32))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 class Sampler:
@@ -163,18 +179,7 @@ class Sampler:
         raise ValueError("provide a style reference image or a latent style code")
 
     def _to_device(self, a) -> Optional[torch.Tensor]:
-        """``a`` on the device as f32; a host array through pinned memory, so
-        that the copy does not wait for the work already on the stream (a
-        copy from pageable memory synchronizes)."""
-        if a is None:
-            return None
-        if isinstance(a, torch.Tensor) and a.device.type != "cpu":
-            return a.to(self.device).float()
-        host = a.float() if isinstance(a, torch.Tensor) else torch.as_tensor(
-            np.asarray(a, np.float32))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+        return f32_to_device(a, self.device)
 
     def _enqueue(self, fn, *args):
         """``fn`` on the device without waiting for it."""
@@ -217,7 +222,7 @@ class Sampler:
                         names = [f"{os.path.splitext(n)[0]}{suffix}{os.path.splitext(n)[1]}"
                                  for n in names]
                     done = pending
-                    pending = (_Pending(imgs), names)
+                    pending = (Pending(imgs), names)
                     if done is not None:
                         save_images(done[0].numpy(), done[1])
                     self.translated += len(names)
@@ -310,7 +315,7 @@ class Sampler:
                     else:
                         imgs, _, _ = self.translate(args, model, batch, trg,
                                                     style_code=style_code, sync=False)
-                    done, pending = pending, _Pending(imgs)
+                    done, pending = pending, Pending(imgs)
                     if done is not None:
                         for frame in done.numpy():
                             writer.write(tensor_to_image(frame[None]), n)
