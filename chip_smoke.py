@@ -7,6 +7,8 @@ against its plain PyTorch version.
                                        # (f32, bf16, int8; BaseModel A int8) and of one
                                        # training main step (AdaINModel, reference and
                                        # fused GAN step; BaseModel A, B)
+    python3 chip_smoke.py --only distributed   # the build and phase 15 alone, no
+                                               # result lines (a quicker check)
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -232,7 +234,32 @@ against its plain PyTorch version.
    f32) on the card within 1e-3 of the CPU with the same weights and style
    codes. The kernels line's float and int8 bf16 entries gain ``evaluate``:
    their launches per run. Cumulative seconds are printed after it.
-15. Last lines: the card, the ``{"kernels": [...]}`` line, then
+15. ``distributed``: (a) one NCCL rank (a process group of one, so every
+   collective runs) trains AdaINModel's fused GAN step at 9's config (bf16,
+   256 px, dim 64, B=8) through the data-parallel path (``replicate``,
+   ``make_mesh(1)``): its first step's losses bit for bit or within three
+   times the gap of two bare runs from the same init and draws (both
+   printed), its kernel 9/10 and moments launches per main step, its it/s
+   beside the bare step's in turns, and the device ms of one main step's
+   all-reduces. (b) Two gloo ranks sharing cuda:0 (``parallel.run_ranks``)
+   run the same step on 4 images a side each against (a)'s bare step on 8
+   (within 2e-2 relative: bf16 rounds at other places at another batch),
+   RaGAN and batch norm at the small depth (dim 32, f32) against one rank
+   (rtol 2e-3, atol 2e-4), and the calibrated f32 int8 forward over the
+   data axis within 1e-5 of one rank serving the same 4 rows (against one
+   rank's B=8 forward it is printed only: the float stem rounds otherwise
+   at another batch). The ranks of (b) and of (c) run at once. (c) A 2 x 2
+   (data, spatial) mesh of four gloo ranks on cuda:0 runs the f32 flagship
+   forward (B=8, 256 px) within 1e-3 of the unsharded forward, each rank
+   launching the moments kernel 21 times (13 norms and the 8 AdaINs'
+   statistics) and kernel 3's stats-given entry 8 times, none of the
+   statistics-computing AdaIN; that entry is held bit for bit against its
+   plain version at the path's shape and at ragged shapes, and timed beside
+   its bound and ``F.batch_norm``'s inference form with the same
+   statistics (its kernels-line entry, ``adain_stats/f32``). Ranks that
+   share a card give no speed number. Cumulative seconds are printed after
+   it.
+16. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -1324,6 +1351,7 @@ PLAIN = [
     (kmoments, "moments", kmoments.moments_plain), (kadain, "adain", kadain.adain_plain),
     (kq, "downconv", kq.conv_plain), (kq, "conv3x3", kq.conv_plain), (kq, "deconv", kq.conv_plain),
     (kq, "resblock", kq.resblock_plain), (khead, "head", khead.head_plain),
+    (kadain, "adain_stats", kadain.adain_stats_plain),
 ]
 
 
@@ -3171,6 +3199,342 @@ def evaluate_phase(card: str, t0: float) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------ distributed --
+
+# the small-depth steps of (b): each flag on SMALL_TRAIN_ARGS (dim 32, f32),
+# one row a side per rank; their logs against one rank at
+# tests/test_sharding.py's bound (f32: only the sums' order differs)
+DIST_SMALL = {"ragan": dict(use_ragan=True), "batch_norm": dict(enc_norm="batch", dec_norm="batch")}
+DIST_LOG_RTOL, DIST_LOG_ATOL = 2e-3, 2e-4
+# the bf16 fused step of two ranks (4 images a side each) against one rank on
+# all 8: convs and kernels 9/10 at another batch round bf16 in other places,
+# and a bf16 rounding step moves through the step (RESBLOCK_TOL's reason)
+DIST_BF16_RTOL = RESBLOCK_TOL
+# int8 over the data axis is held to one rank serving the same 4 rows
+# within 1e-5 (PERF.md section 2's int8 bound); against one rank's B=8
+# forward it is only printed: one rank's own int8 forward parts between B=4
+# and B=8 (19 % of the outputs off by more than 1e-5, at most 0.023, on an
+# NVIDIA H100 80GB HBM3 at 700 W), a last-bit change in a float conv being
+# enough to flip an int8 rounding downstream
+DIST_SPATIAL_TOL = 1e-3  # the 2 x 2 f32 forward against the unsharded one
+DIST_OUT = Path("build") / "distributed"  # the ranks' results (gitignored)
+# kernel 3's stats-given entry at the 2 x 2 forward's AdaIN shape (4 images
+# and 32 of the 64 bottleneck rows a rank; 8 launches a forward), and ragged
+ADAIN_STATS_SHAPES = [((B // 2, 256, 32, 64), 8)]
+ADAIN_STATS_RAGGED = [(3, 5, 7, 9), (2, 3, 1, 1027)]
+LIBRARY_ADAIN_STATS = ("F.batch_norm(x.view(1, B*C, H, W), mean, rstd^-2 - eps, 1 + gamma, "
+                       "beta, training=False, eps=eps)")
+
+
+def _dist_rank_setup(rank: int) -> None:
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _dist_train_rank(rank: int, out: str) -> None:
+    """(b): one of two gloo ranks sharing cuda:0."""
+    from masterthesis_tpu_torch.data.loader import shard_batch
+    from masterthesis_tpu_torch.parallel import mesh as pmesh
+
+    _dist_rank_setup(rank)
+    mesh = pmesh.make_mesh(2)
+    result = {}
+    _, batch = train_batch(FUSED_GAN_ARGS, seed=41)
+    model = pmesh.replicate(AdaINModel(default_train_args(**FUSED_GAN_ARGS)), mesh)
+    zero_counts()
+    krb.resblock_fwd.launches = krb.resblock_bwd.launches = 0
+    logs = model.main_step(shard_batch(batch, mesh), StepDraws(_dist_generator()))
+    result["fused"] = dict(logs=_floats(logs), launches={**fused_counts(),
+                                                         "moments": kmoments.moments.launches})
+    del model
+    for name, flags in DIST_SMALL.items():
+        _, small = train_batch(SMALL_TRAIN_ARGS, seed=43)
+        model = pmesh.replicate(AdaINModel(default_train_args(**SMALL_TRAIN_ARGS, **flags)), mesh)
+        result[name] = _floats(model.main_step(shard_batch(small, mesh),
+                                               StepDraws(_dist_generator())))
+        del model
+    torch.cuda.empty_cache()
+    model = AdaINModel(default_test_args(**ARGS))
+    model.calibrate_int8(*calibration_batches(ARGS))
+    _, dev = request_inputs(ARGS, seed=44)
+    out8 = pmesh.forward_rows(model, mesh, dev["img"], dev["z"], dev["c"])
+    if rank == 0:
+        torch.save(dict(result=result, int8=out8.cpu()), os.path.join(out, "train.pt"))
+
+
+def _dist_spatial_rank(rank: int, out: str) -> None:
+    """(c): one of four gloo ranks on cuda:0, a 2 x 2 (data, spatial) mesh."""
+    from masterthesis_tpu_torch.parallel import mesh as pmesh
+    from masterthesis_tpu_torch.parallel import spatial
+
+    _dist_rank_setup(rank)
+    mesh = pmesh.make_mesh_2d(2, 2)
+    model = AdaINModel(default_test_args(**ARGS))
+    _, dev = request_inputs(ARGS, seed=45)
+    rows = {k: dev[k][mesh.index("data") * B // 2:(mesh.index("data") + 1) * B // 2]
+            for k in ("z", "c")}
+    block = spatial.shard(dev["img"], mesh)
+    spatial.forward_random(model, mesh, block, rows["z"], rows["c"])  # warm-up
+    torch.cuda.synchronize()
+    kmoments.moments.launches = kadain.adain.launches = kadain.adain_stats.launches = 0
+    y = spatial.forward_random(model, mesh, block, rows["z"], rows["c"])
+    torch.cuda.synchronize()
+    launches = dict(moments=kmoments.moments.launches, adain=kadain.adain.launches,
+                    adain_stats=kadain.adain_stats.launches)
+    full = spatial.gather(y, mesh)
+    torch.save(dict(launches=launches, block=list(block.shape),
+                    out=full.cpu() if rank == 0 else None), os.path.join(out, f"spatial{rank}.pt"))
+
+
+def _dist_generator() -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(3)
+
+
+def _rel_gap(got: dict, want: dict) -> tuple[str, float]:
+    gap = {k: abs(got[k] - v) / max(abs(v), 1.0) for k, v in want.items()}
+    worst = max(gap, key=gap.get)
+    return worst, gap[worst]
+
+
+def _log_tol(got: dict, want: dict) -> float:
+    """The worst of |got - want| / (atol + rtol |want|) (<= 1: within
+    tests/test_sharding.py's bound)."""
+    return max(abs(got[k] - v) / (DIST_LOG_ATOL + DIST_LOG_RTOL * abs(v)) for k, v in want.items())
+
+
+def _allreduce_ms(model, group, reps: int = 10) -> float:
+    """Device ms of one main step's collectives: each net's gradient
+    all-reduce in the order the fused step's updates make them (D1, D2, the
+    three generator nets, the content encoder and decoder again) and the
+    logs' one, on zeros of the params' shapes."""
+    from masterthesis_tpu_torch.parallel import mesh as pmesh
+
+    nets = ["discriminator1", "discriminator2", *GEN_NETS_ORDER, "content_encoder", "decoder"]
+    grads = {n: [torch.zeros_like(p) for p in model.nets[n].parameters()] for n in set(nets)}
+    logs = {f"l{i}": torch.zeros((), device="cuda") for i in range(24)}
+
+    def collectives():
+        for n in nets:
+            pmesh.mean_gradients(grads[n], group)
+        pmesh.mean_logs(logs, group)
+
+    return device_ms(collectives, [()], iters=reps)
+
+
+GEN_NETS_ORDER = ("content_encoder", "style_encoder", "decoder")
+
+
+def dist_one_rank(card: str, t0: float) -> dict:
+    """(a): the fused GAN step through the distributed path on one NCCL rank
+    (``make_mesh(1)`` in a process group of one: every collective runs)
+    against the bare step from the same init and draws; then both timed in
+    turns. Returns the bare step's first logs and the launches per main
+    step."""
+    import torch.distributed as dist
+
+    from masterthesis_tpu_torch.parallel import mesh as pmesh
+
+    phase = "distributed/nccl1"
+    _, batch = train_batch(FUSED_GAN_ARGS, seed=41)
+    args = default_train_args(**FUSED_GAN_ARGS)
+    bare = AdaINModel(args)
+    firsts = [_floats(bare.main_step(batch, StepDraws(_dist_generator())))]
+    m = AdaINModel(args)  # a second bare run of the first step: the step's own spread
+    firsts.append(_floats(m.main_step(batch, StepDraws(_dist_generator()))))
+    del m
+    bare_spread = _rel_gap(firsts[1], firsts[0])
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{pmesh.free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        model = pmesh.replicate(AdaINModel(args), pmesh.make_mesh(1))
+        assert model.mesh.group("data") is not None
+        zero_counts()
+        krb.resblock_fwd.launches = krb.resblock_bwd.launches = 0
+        torch.cuda.synchronize()
+        got = _floats(model.main_step(batch, StepDraws(_dist_generator())))
+        torch.cuda.synchronize()
+        launched = {**fused_counts(), "moments": kmoments.moments.launches}
+        assert {k: launched[k] for k in FUSED_GAN_PER_STEP} == FUSED_GAN_PER_STEP, \
+            f"{phase}: kernel 9/10 launches {launched}"
+        assert launched["moments"] > 0, f"{phase}: the moments kernel was not launched"
+        gap = _rel_gap(got, firsts[0])
+        secs = {"bare": [], "dp": []}
+        for it, who in zip(range(3, 27, 3), ("bare", "dp", "dp", "bare") * 2):
+            secs[who].append(_timed_step(model if who == "dp" else bare, batch, it)[1])
+        allreduce_ms = _allreduce_ms(model, model.mesh.group("data"))
+    finally:
+        dist.destroy_process_group()
+    del model, bare
+    torch.cuda.empty_cache()
+    rate = {k: len(v) / sum(v) for k, v in secs.items()}
+    log(dict(phase=phase, card=card, config={k: v for k, v in FUSED_GAN_ARGS.items()},
+             vs_bare=dict(worst=gap[0], rel_gap=gap[1], bound="3 x two bare runs' gap"),
+             two_bare_runs=dict(worst=bare_spread[0], rel_gap=bare_spread[1]),
+             main_it_per_s=rate["dp"], bare_main_it_per_s=rate["bare"], main_step_s=secs,
+             allreduce_ms_per_main_step=allreduce_ms, launches_per_main_step=launched,
+             seconds=time.perf_counter() - t0))
+    # bit for bit where the bare step is; else within three times the gap of
+    # one pair of bare runs (itself a sample of the step's own spread)
+    assert gap[1] <= 3.0 * bare_spread[1], \
+        f"{phase}: one rank vs bare {gap}, two bare runs {bare_spread}"
+    return firsts[0], launched
+
+
+def dist_references() -> dict:
+    """The one-rank counterparts of (b) and (c), on this process's card:
+    the small-depth steps, the int8 forward on all 8 images and on each
+    rank's 4 (what a rank serves), and the unsharded f32 forward."""
+    refs = {"small": {}}
+    for name, flags in DIST_SMALL.items():
+        _, batch = train_batch(SMALL_TRAIN_ARGS, seed=43)
+        m = AdaINModel(default_train_args(**SMALL_TRAIN_ARGS, **flags))
+        refs["small"][name] = _floats(m.main_step(batch, StepDraws(_dist_generator())))
+        del m
+    model = AdaINModel(default_test_args(**ARGS))
+    model.calibrate_int8(*calibration_batches(ARGS))
+    _, dev = request_inputs(ARGS, seed=44)
+    refs["int8"] = model.forward_random(dev["img"], dev["z"], dev["c"])[0].cpu()
+    h = B // 2
+    refs["int8_rows"] = torch.cat([model.forward_random(dev["img"][i:i + h], dev["z"][i:i + h],
+                                                        dev["c"][i:i + h])[0].cpu()
+                                   for i in (0, h)])
+    model.disable_int8()
+    _, dev = request_inputs(ARGS, seed=45)
+    refs["spatial"] = model.forward_random(dev["img"], dev["z"], dev["c"])[0].cpu()
+    del model
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _diff(got, want) -> dict:
+    d = (got.float() - want.float()).abs()
+    return dict(max_abs_err=d.max().item(), share_above_1e_5=(d > 1e-5).float().mean().item())
+
+
+def dist_two_ranks(card: str, bare_first: dict, refs: dict, t0: float) -> None:
+    """(b): two gloo ranks sharing cuda:0, each on half the rows, against
+    one rank on all of them: the bf16 fused step, RaGAN and batch norm at a
+    small depth, and the int8 forward over the data axis (against one rank
+    serving the same rows, and, for the record, on all 8 at once)."""
+    phase = "distributed/gloo2"
+    saved = torch.load(DIST_OUT / "train.pt")
+    res = saved["result"]
+    fused = _rel_gap(res["fused"]["logs"], bare_first)
+    small_tol = {name: _log_tol(res[name], refs["small"][name]) for name in DIST_SMALL}
+    rows, whole = _diff(saved["int8"], refs["int8_rows"]), _diff(saved["int8"], refs["int8"])
+    log(dict(phase=phase, card=card, ranks=2, rows_per_rank=B // 2,
+             fused_vs_one_rank=dict(worst=fused[0], rel_gap=fused[1], tol=DIST_BF16_RTOL),
+             rank0_launches_per_main_step=res["fused"]["launches"],
+             small_depth_vs_one_rank={k: dict(worst_over_bound=v, rtol=DIST_LOG_RTOL,
+                                              atol=DIST_LOG_ATOL) for k, v in small_tol.items()},
+             int8_vs_one_rank_same_rows=dict(rows, tol=1e-5),
+             int8_vs_one_rank_batch_8=whole,
+             note="ranks share one card: no speed is measured", seconds=time.perf_counter() - t0))
+    assert fused[1] <= DIST_BF16_RTOL, f"{phase}: fused step vs one rank {fused}"
+    assert {k: res["fused"]["launches"][k] for k in FUSED_GAN_PER_STEP} == FUSED_GAN_PER_STEP
+    assert all(v <= 1.0 for v in small_tol.values()), f"{phase}: small steps {small_tol}"
+    assert rows["max_abs_err"] <= 1e-5, f"{phase}: int8 vs one rank on the same rows {rows}"
+    check_image(saved["int8"], (B, 256, 256, 3), f"{phase} int8")
+
+
+def dist_spatial(card: str, ref: torch.Tensor, t0: float) -> dict:
+    """(c): the f32 flagship forward on a 2 x 2 (data, spatial) mesh of four
+    gloo ranks on cuda:0 against the unsharded forward ``ref``; returns the
+    kernels-line entry of kernel 3's stats-given entry."""
+    phase = "distributed/spatial_2x2"
+    ranks = [torch.load(DIST_OUT / f"spatial{r}.pt") for r in range(4)]
+    out = ranks[0]["out"]
+    check_image(out, (B, 256, 256, 3), phase)
+    err = (out - ref).abs().max().item()
+    launches = [r["launches"] for r in ranks]
+    log(dict(phase=phase, card=card, mesh=[2, 2], block=ranks[0]["block"],
+             max_abs_err=err, tol=DIST_SPATIAL_TOL, launches_per_rank=launches,
+             note="ranks share one card: no speed is measured", seconds=time.perf_counter() - t0))
+    assert err <= DIST_SPATIAL_TOL, f"{phase}: sharded vs unsharded {err}"
+    # each norm's statistics are one moments launch (AdaIN's too), and each
+    # AdaIN applies through the stats-given entry
+    for r in launches:
+        assert r == dict(moments=MOMENTS_PER_FORWARD + ADAIN_PER_FORWARD, adain=0,
+                         adain_stats=ADAIN_PER_FORWARD), f"{phase}: launches per rank {r}"
+    entry = check_adain_stats()
+    entry["launches"] = sum(r["adain_stats"] for r in launches)
+    entry["launches_per_rank"] = [r["adain_stats"] for r in launches]
+    return entry
+
+
+def library_adain_stats(x, mean, var, weight, bias):
+    return F.batch_norm(x, mean, var, weight, bias, training=False, eps=norms.EPS)
+
+
+def check_adain_stats() -> dict:
+    """Kernel 3's stats-given entry against its plain version, bit for bit,
+    at the 2 x 2 forward's shape and at ragged ones, beside its bound and
+    the library yardstick (batch norm's inference form with the same
+    statistics, one call)."""
+    rows, ragged, errs = [], [], {}
+    for shape in [s for s, _ in ADAIN_STATS_SHAPES] + ADAIN_STATS_RAGGED:
+        x = _randn(shape, torch.float32, 5, 2.0, 0.5)
+        bc = shape[:2]
+        mean, gamma, beta = (_randn(bc, torch.float32, s, 0.3) for s in (6, 7, 8))
+        rstd = _randn(bc, torch.float32, 9).abs() + 0.1
+        out = kadain.adain_stats(x, mean, rstd, gamma, beta)
+        want = kadain.adain_stats_plain(x, mean, rstd, gamma, beta)
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        assert torch.equal(out, want), f"adain_stats {shape}: not the plain version's bits ({err})"
+        ragged.append(dict(shape=list(shape), max_abs_err=err))
+        errs[shape] = err
+    for shape, per_forward in ADAIN_STATS_SHAPES:
+        numel = math.prod(shape)
+        bc = shape[:2]
+        nbytes = numel * 4
+        sets = copies(lambda i: (
+            _randn(shape, torch.float32, 5 * i, 2.0, 0.5), _randn(bc, torch.float32, 5 * i + 1),
+            _randn(bc, torch.float32, 5 * i + 2).abs() + 0.1,
+            _randn(bc, torch.float32, 5 * i + 3, 0.3), _randn(bc, torch.float32, 5 * i + 4, 0.3),
+        ), nbytes)
+        lib_sets = [(x.view(1, -1, *shape[2:]), m.flatten(), (r.square().reciprocal() - norms.EPS)
+                     .flatten(), (1.0 + g).flatten(), bt.flatten()) for x, m, r, g, bt in sets]
+        lib = library_adain_stats(*lib_sets[0]).view(shape)
+        want = kadain.adain_stats_plain(*sets[0])
+        b_ms, by = bound(2 * nbytes + 4 * bc[0] * bc[1] * 4, 2 * numel)
+        rows.append(dict(
+            shape=list(shape), per_forward=per_forward, max_abs_err=errs[shape], tol=0.0,
+            ms=device_ms(kadain.adain_stats, sets), plain_ms=device_ms(kadain.adain_stats_plain, sets),
+            library_ms=device_ms(library_adain_stats, lib_sets),
+            library_max_abs_err=(lib - want).abs().max().item(), bound_ms=b_ms, bound_by=by))
+    log(dict(phase="adain_stats_exact", cases=ragged, tol="bit for bit"))
+    return summarize("adain_stats", "f32", rows, "masterthesis_tpu/ops/pallas/adain.py:80",
+                     "masterthesis_tpu_torch/csrc/adain.cu", LIBRARY_ADAIN_STATS,
+                     per="rank of the 2 x 2 spatial forward at B=8, 256px, dim 64")
+
+
+def distributed(card: str, t0: float) -> tuple[dict, dict]:
+    """The ``distributed`` phase: (a); then the ranks of (b) and of (c) at
+    once (two process groups sharing the card, which times nothing), each
+    held against its one-rank counterpart. Returns the kernel 3 stats-given
+    entry and the launches per main step of (a)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from masterthesis_tpu_torch.parallel import mesh as pmesh
+
+    bare_first, launched = dist_one_rank(card, t0)
+    refs = dist_references()
+    DIST_OUT.mkdir(parents=True, exist_ok=True)
+    t_ranks = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(pmesh.run_ranks, fn, n, (str(DIST_OUT),), "gloo", 300)
+                for fn, n in ((_dist_train_rank, 2), (_dist_spatial_rank, 4))]
+        for job in jobs:
+            job.result()
+    log(dict(phase="distributed/ranks", groups=[2, 4], seconds=time.perf_counter() - t_ranks))
+    dist_two_ranks(card, bare_first, refs, t0)
+    entry = dist_spatial(card, refs["spatial"], t0)
+    shutil.rmtree(DIST_OUT, ignore_errors=True)
+    return entry, launched
+
+
 def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
     model = model_cls(default_train_args(**{**TRAIN_ARGS, **(flags or {})}))
@@ -3243,6 +3607,10 @@ def main(argv) -> int:
                 fn = line.split("Function properties for", 1)[1].strip()
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 log(f"  {name}: {fn} | {line.strip()}")
+    if argv[:2] == ["--only", "distributed"]:
+        distributed(card, t0)
+        log(dict(phase="seconds", upto="distributed", seconds=time.perf_counter() - t0))
+        return 0
 
     entries = []
     for dtype_name, dtype in DTYPES.items():
@@ -3302,6 +3670,12 @@ def main(argv) -> int:
     for name, runs in evaluate_phase(card, t0).items():
         next(e for e in entries if e["name"] == name)["evaluate"] = dict(
             forwards_per_run=EVAL_FORWARDS, launches=runs)
+    adain_stats_entry, launched = distributed(card, t0)
+    entries.append(adain_stats_entry)
+    per_main_step["distributed/nccl1"] = {
+        **{k: dict(launches=launched[k]) for k in FUSED_GAN_PER_STEP},
+        "moments/bf16": dict(launches=launched["moments"])}
+    log(dict(phase="seconds", upto="distributed", seconds=time.perf_counter() - t0))
     # each training phase's launches (moments also ms, bound ms and error)
     # per main step, beside the serving launches in "launches"
     for e in entries:

@@ -20,9 +20,10 @@ kernels' plain versions, as the JAX package's tests set "interpret"). A
 training flag that selects a branch the port lacks raises
 ``NotImplementedError`` when the model is built; the rest are kept so that
 one namespace drives either package. The sample CLI (``sample.py``) reads
-the test flags as the JAX sampler does; there, as in training,
-``--num_devices`` above 1 raises naming ROADMAP A.7 and ``--ckpt_format
-orbax`` raises ``checkpoint.ORBAX_ERROR``.
+the test flags as the JAX sampler does (and, as it, not
+``--num_devices``); there, as in training, ``--ckpt_format orbax`` raises
+``checkpoint.ORBAX_ERROR``. ``--num_devices`` is the data-parallel
+trainer's world size (``train.py``).
 """
 from __future__ import annotations
 

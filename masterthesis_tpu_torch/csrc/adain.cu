@@ -111,7 +111,83 @@ int launch(const void* x, const void* gamma, const void* beta, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// AdaIN with given statistics: out = x * scale + shift, scale = (1 + gamma) * rstd,
+// shift = beta - mean * scale, per (sample, channel) plane. The spatially
+// sharded forward (parallel/spatial.py) takes its statistics from the moments
+// kernel's local sums all-reduced over the ranks that share an image; this is
+// the apply, the third pass above without the first two. It replaces no TPU
+// kernel of its own: it is the write of _pallas_adain_fwd (adain.py:50-64) with
+// the statistics of the whole image, which no rank holds.
+//
+// Bound: bytes, one read of x and one write of out. Each product and sum is
+// rounded on its own (__fmul_rn, __fadd_rn: no contraction into an fma), in
+// the order of the plain version's tensor ops, so the two agree bit for bit.
+//
+// Design: a plane's scale and shift are computed once per block; the blocks of
+// a plane stride over its 16-byte vectors, so a short plane (a shard holds a
+// few rows) still fills the card through the (planes, chunks) grid.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    adain_stats_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                       const float* __restrict__ rstd, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, T* __restrict__ out, int64_t hw) {
+  using V = mt::Vec<T>;
+  const int64_t plane = blockIdx.x;
+  const float scale = __fmul_rn(__fadd_rn(1.f, gamma[plane]), rstd[plane]);
+  const float shift = __fsub_rn(beta[plane], __fmul_rn(mean[plane], scale));
+  const T* src = x + plane * hw;
+  T* dst = out + plane * hw;
+  const bool vec = mt::aligned16(src) && mt::aligned16(dst);
+  const int64_t nvec = vec ? hw / V::kElems : 0;
+  const int64_t tail = nvec * V::kElems;
+  const int64_t step = static_cast<int64_t>(gridDim.y) * kThreads;
+  const int64_t first = static_cast<int64_t>(blockIdx.y) * kThreads + threadIdx.x;
+  const uint4* src_v = reinterpret_cast<const uint4*>(src);
+  uint4* dst_v = reinterpret_cast<uint4*>(dst);
+  for (int64_t i = first; i < nvec; i += step) {
+    float f[V::kElems];
+    V::unpack(__ldg(src_v + i), f);
+#pragma unroll
+    for (int e = 0; e < V::kElems; ++e) f[e] = __fadd_rn(__fmul_rn(f[e], scale), shift);
+    dst_v[i] = V::pack(f);
+  }
+  for (int64_t i = tail + first; i < hw; i += step) {
+    dst[i] = mt::from_float<T>(__fadd_rn(__fmul_rn(mt::to_float(src[i]), scale), shift));
+  }
+}
+
+template <typename T>
+int launch_stats(const void* x, const void* mean, const void* rstd, const void* gamma,
+                 const void* beta, void* out, int64_t planes, int64_t hw, void* stream) {
+  if (planes > 0 && hw > 0) {
+    // enough blocks per plane for each thread to take about four vectors
+    const int64_t per_block = static_cast<int64_t>(kThreads) * mt::Vec<T>::kElems * 4;
+    const int64_t chunks = (hw + per_block - 1) / per_block;
+    const dim3 grid(static_cast<unsigned>(planes),
+                    static_cast<unsigned>(chunks < 65535 ? chunks : 65535));
+    adain_stats_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const float*>(mean),
+        static_cast<const float*>(rstd), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<T*>(out), hw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// x, out: (planes, hw) contiguous in one dtype; mean, rstd, gamma, beta:
+// (planes,) f32. Returns the CUDA error of the launch (0 on success).
+extern "C" int mt_adain_stats_f32(const void* x, const void* mean, const void* rstd,
+                                  const void* gamma, const void* beta, void* out,
+                                  int64_t planes, int64_t hw, void* stream) {
+  return launch_stats<float>(x, mean, rstd, gamma, beta, out, planes, hw, stream);
+}
+
+extern "C" int mt_adain_stats_bf16(const void* x, const void* mean, const void* rstd,
+                                   const void* gamma, const void* beta, void* out,
+                                   int64_t planes, int64_t hw, void* stream) {
+  return launch_stats<__nv_bfloat16>(x, mean, rstd, gamma, beta, out, planes, hw, stream);
+}
 
 // x, out: (planes, hw) contiguous in one dtype; gamma, beta: (planes,) f32.
 // Returns the CUDA error of the launch (0 on success).

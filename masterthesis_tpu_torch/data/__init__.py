@@ -8,4 +8,10 @@ from masterthesis_tpu_torch.data.datasets import (  # noqa: F401
     SingleDataset,
     VideoDataset,
 )
-from masterthesis_tpu_torch.data.loader import DataLoader, collate, infinite, to_device  # noqa: F401
+from masterthesis_tpu_torch.data.loader import (  # noqa: F401
+    DataLoader,
+    collate,
+    infinite,
+    shard_batch,
+    to_device,
+)

@@ -6,10 +6,11 @@ package's and not ``torch.utils.data.DataLoader``: its worker processes
 would each copy the dataset's numpy generator, and the batches would no
 longer be the JAX package's (one generator, drawn in order). As there, one
 producer thread decodes ahead of the consumer whatever ``num_workers`` says
-(0: no thread). ``shard_batch`` becomes :func:`to_device`, a host-to-device
-copy onto the model's device; ``shard_index``/``num_shards`` stride the
-index space per process as in the JAX package, for a later multi-process
-trainer.
+(0: no thread). The JAX package's ``shard_batch`` places a batch on its
+mesh; here :func:`to_device` copies a rank's batch onto its device and
+:func:`shard_batch` takes a rank's rows of a global batch.
+``shard_index``/``num_shards`` stride the index space per process as in the
+JAX package: the data-parallel trainer's loaders.
 
 ``DataLoader.fast_forward(n)`` makes the next pass start ``n`` batches
 later, across epochs, drawing what those batches would have drawn (the
@@ -161,3 +162,26 @@ def to_device(batch, device) -> Any:
     if isinstance(batch, str):
         return batch
     return torch.as_tensor(np.asarray(batch)).to(device, non_blocking=True)
+
+
+def shard_batch(batch, mesh) -> Any:
+    """This rank's rows of a global batch (arrays or tensors split on dim 0
+    over ``mesh``'s "data" axis, which must divide them; strings and
+    scalars pass): the twin of the JAX package's ``shard_batch``, which
+    places the batch on the mesh sharded on the same axis."""
+    n = mesh.axis_size("data")
+    if n == 1:
+        return batch
+    i = mesh.index("data")
+
+    def rows(x):
+        if isinstance(x, dict):
+            return {k: rows(v) for k, v in x.items()}
+        if isinstance(x, str) or getattr(x, "ndim", 0) == 0:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split over {n} ranks")
+        b = x.shape[0] // n
+        return x[i * b:(i + 1) * b]
+
+    return rows(batch)

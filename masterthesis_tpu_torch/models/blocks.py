@@ -52,6 +52,7 @@ from masterthesis_tpu_torch.ops.kernels import int8_conv as kint8
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
 from masterthesis_tpu_torch.ops.norms import AdaptiveInstanceNorm, InstanceNorm, LayerNorm
 from masterthesis_tpu_torch.ops.spectral import SpectralNorm
+from masterthesis_tpu_torch.parallel import mesh as pmesh
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -122,18 +123,31 @@ class BatchNorm2d(nn.Module):
     channel over (N, H, W), the biased variance as the mean square deviation,
     eps 1e-5, in f32, cast back to the input dtype; params ``scale`` and
     ``bias``. Two plain reductions, as the JAX package's two ``jnp.mean``s,
-    which reach no Pallas kernel."""
+    which reach no Pallas kernel.
+
+    ``group`` (data parallelism, set by ``Model.set_mesh``): the batch is
+    split over the group's ranks, and both reductions are sums all-reduced
+    over it (with their gradient), so the statistics are the global batch's,
+    as under the JAX package's mesh. Every rank of the group runs each
+    forward."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
+        self.group = None
 
     def forward(self, x):
         x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3), keepdim=True)
-        var = (x32 - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+        if self.group is None:
+            mean = x32.mean(dim=(0, 2, 3), keepdim=True)
+            var = (x32 - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+        else:
+            n = x32.numel() // x32.shape[1] * pmesh.group_size(self.group)
+            mean = pmesh.all_reduce_sum(x32.sum(dim=(0, 2, 3), keepdim=True), self.group) / n
+            var = pmesh.all_reduce_sum((x32 - mean).square().sum(dim=(0, 2, 3), keepdim=True),
+                                       self.group) / n
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         y = y * self.scale.float()[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)

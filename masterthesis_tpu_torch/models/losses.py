@@ -72,10 +72,13 @@ def hinge_g_loss(pred_fake: torch.Tensor) -> torch.Tensor:
     return -pred_fake.float().mean()
 
 
-def ragan_loss(pred_real, pred_fake, real_is_target: bool, mode: str) -> torch.Tensor:
-    """Relativistic average GAN loss; ``real_is_target`` is the D direction."""
+def ragan_loss(pred_real, pred_fake, real_is_target: bool, mode: str,
+               batch_mean=torch.mean) -> torch.Tensor:
+    """Relativistic average GAN loss; ``real_is_target`` is the D direction.
+    ``batch_mean`` takes the mean over the batch (data parallel: over the
+    global batch, ``TranslationModel._batch_mean``)."""
     r, f = pred_real.float(), pred_fake.float()
-    rel_r, rel_f = r - f.mean(), f - r.mean()
+    rel_r, rel_f = r - batch_mean(f), f - batch_mean(r)
     if real_is_target:
         return (gan_loss(rel_r, True, mode) + gan_loss(rel_f, False, mode)) / 2
     return (gan_loss(rel_r, False, mode) + gan_loss(rel_f, True, mode)) / 2

@@ -31,6 +31,7 @@ from torch import nn
 
 from masterthesis_tpu_torch import checkpoint as ckpt
 from masterthesis_tpu_torch.arguments import AttributeDict
+from masterthesis_tpu_torch.models.blocks import BatchNorm2d
 from masterthesis_tpu_torch.models.functions import init_net, make_lr_schedule
 from masterthesis_tpu_torch.models.state import AdamState, TrainState
 
@@ -64,6 +65,7 @@ class Model:
         self.state: TrainState | None = None
         self.generator: torch.Generator | None = None
         self.loss: dict = {}  # the last iteration's logs
+        self.mesh = None  # the data-parallel mesh (set_mesh), or None: one device
         self.print_loss: list[str] = []  # the names print_losses reports
         self.schedule = make_lr_schedule(
             lr=args.lr or 1e-4, lr_policy=args.lr_policy or "step",
@@ -108,9 +110,34 @@ class Model:
         else:
             self.load(getattr(a, "resume", None))
 
+    def set_mesh(self, mesh) -> None:
+        """Train data parallel over ``mesh``'s "data" axis
+        (``parallel.replicate`` calls it once the ranks hold the same
+        weights): the steps average each net's gradients over the axis and
+        log the global losses, and every batch norm takes the global
+        batch's statistics. ``None`` goes back to one device."""
+        self.mesh = mesh
+        if not self.writes and self.writer is not None:
+            self.writer.close()
+            self.writer = None
+        group = None if mesh is None else mesh.group("data")
+        for net in self.nets.values():
+            for m in net.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.group = group
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes checkpoints, image grids and the loss
+        log: on one device, or as rank 0 of its mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def save(self, it: int) -> None:
         """``model_{it}.ckpt`` (every net's state_dict) and ``opt_{it}.ckpt``
-        (every net's Adam state and the step) in ``args.checkpoint_dir``."""
+        (every net's Adam state and the step) in ``args.checkpoint_dir``;
+        data parallel, by rank 0 alone."""
+        if not self.writes:
+            return
         ckdir = self.args.checkpoint_dir
         ckpt.save_pytree({"params": {n: net.state_dict() for n, net in self.nets.items()}},
                          os.path.join(ckdir, f"model_{it}.ckpt"))
@@ -191,11 +218,13 @@ class Model:
 
     def save_images(self, batch, it: int, generator=None) -> None:
         """``compute_visuals(batch, generator)`` as ``gen_{it}.jpg`` in
-        ``args.display_dir``."""
+        ``args.display_dir``; data parallel, every rank computes it (a batch
+        norm's statistics are a collective) and rank 0 writes it."""
         from masterthesis_tpu_torch.utils.images import save_image
 
         visuals = self.compute_visuals(batch, generator)
-        save_image(visuals, os.path.join(self.args.display_dir, f"gen_{it}.jpg"))
+        if self.writes:
+            save_image(visuals, os.path.join(self.args.display_dir, f"gen_{it}.jpg"))
 
     def write_loss(self, global_iter: int) -> None:
         if self.writer is None:

@@ -40,6 +40,21 @@ the penalty by 1.9e-4 from an f64 evaluation (the CPU's f32 by 1.3e-8;
 backward into D's params keeps cuDNN, which is accurate there.
 
 ``compute_visuals`` (through ``forward``) gives the trainer's 2x4 image grid.
+
+Data parallelism (``parallel.replicate`` hands the model a mesh): each rank
+runs the step on its rows of the global batch, and every loss is written so
+that the MEAN over the data ranks of a rank's loss is the one-device loss
+on the global batch. Terms that average over the batch need nothing (the
+ranks hold equal shares); the KL term, a sum over the batch, is taken times
+the number of ranks; the terms that couple the batch (RaGAN's means, batch
+norm's statistics) see the global batch through an all-reduce that autograd
+goes through. The gradient of the global loss is then the mean of the
+ranks' gradients: ``_update`` all-reduces them, once per net, before the
+optimizer step (so the content step's clip sees the global gradient), and
+the logged losses are the mean of the ranks'. The draws are the one-device
+step's (``StepDraws.shard``). The nets are not wrapped in
+``DistributedDataParallel``: the phases take their gradients with
+``torch.autograd.grad``, which fills no ``.grad`` for its hooks.
 """
 from __future__ import annotations
 
@@ -58,6 +73,7 @@ from masterthesis_tpu_torch.models.model import Model
 from masterthesis_tpu_torch.models.quantize import LEAF, extract_amax, int8_convs, merge_amax
 from masterthesis_tpu_torch.ops import spectral
 from masterthesis_tpu_torch.ops.kernels.resblock_train import fused_train_trace
+from masterthesis_tpu_torch.parallel import mesh as pmesh
 
 INT8_NETS = ("content_encoder", "decoder")
 GEN_NETS = ("content_encoder", "style_encoder", "decoder")
@@ -91,13 +107,43 @@ class StepDraws:
     def __init__(self, generator: Optional[torch.Generator] = None, **given):
         self.generator = generator
         self.given = dict(given)
+        self.rows = None  # (rank, ranks, rows) after shard()
+
+    def shard(self, rank: int, ranks: int, rows: int) -> "StepDraws":
+        """Data parallelism: from here on every draw is made (or given) at
+        the global batch, and this rank keeps its rows. A draw's leading
+        dimension is k chunks of the batch (k x ``rows`` locally, k x
+        ``ranks`` x ``rows`` globally: [a; b] for the codes, four or six
+        chunks for a decode); the rank views the global draw as (k,
+        ``ranks``, ``rows``, ...) and takes index ``rank`` of the second
+        axis, so that the ranks together use the one-device step's draws.
+        Returns self."""
+        self.rows = (rank, ranks, rows) if ranks > 1 else None
+        return self
+
+    def _global_shape(self, name: str, shape) -> tuple:
+        shape = tuple(shape)
+        if self.rows is None:
+            return shape
+        _, ranks, rows = self.rows
+        if shape[0] % rows:
+            raise ValueError(f"draw {name!r}: {shape[0]} rows are no whole chunks of {rows}")
+        return (shape[0] * ranks, *shape[1:])
+
+    def _local(self, t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
+        if t is None or self.rows is None:
+            return t
+        rank, ranks, rows = self.rows
+        k = shape[0] // rows
+        return t.reshape(k, ranks, rows, *t.shape[1:])[:, rank].reshape(tuple(shape))
 
     def _draw(self, name: str, shape, sample) -> Optional[torch.Tensor]:
         t = self.given.get(name)
         if t is None and self.generator is not None:
-            t = sample(tuple(shape), generator=self.generator, device=self.generator.device)
+            t = sample(self._global_shape(name, shape), generator=self.generator,
+                       device=self.generator.device)
             self.given[name] = t
-        return t
+        return self._local(t, shape)
 
     def normal(self, name: str, shape, required: bool = False) -> Optional[torch.Tensor]:
         t = self._draw(name, shape, torch.randn)
@@ -118,9 +164,10 @@ class StepDraws:
             t = self.given.get(key)
             if t is None and self.generator is not None:
                 g = self.generator
-                t = torch.rand(tuple(shape), generator=g, device=g.device) < 1.0 - DROPOUT_RATE
+                t = torch.rand(self._global_shape(key, shape), generator=g,
+                               device=g.device) < 1.0 - DROPOUT_RATE
                 self.given[key] = t
-            return t
+            return self._local(t, shape)
         return source
 
 
@@ -347,18 +394,39 @@ class TranslationModel(Model):
     def _decode(self, z_c, z, c, draws: StepDraws, name: str):
         return self._remat(self.decode, z_c, z, c, draws.masks(name))
 
+    # data parallelism (see the module docstring)
+    def _data_group(self):
+        return None if self.mesh is None else self.mesh.group("data")
+
+    def _ranks(self) -> int:
+        return 1 if self.mesh is None else self.mesh.axis_size("data")
+
+    def _batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the global batch (its own mean on one device)."""
+        group = self._data_group()
+        if group is None:
+            return t.mean()
+        return pmesh.all_reduce_sum(t.sum(), group) / (t.numel() * self._ranks())
+
+    def _step_draws(self, draws: Optional[StepDraws], b: int) -> StepDraws:
+        draws = draws or StepDraws(self.generator)
+        if self._ranks() > 1:
+            draws.shard(self.mesh.index("data"), self._ranks(), b)
+        return draws
+
     def _update(self, names, loss, lr: float, grad_outputs=None) -> None:
         """Gradients of ``loss`` (a tensor, or tensors with their
         ``grad_outputs``) over the nets ``names``, all taken before any
-        update, then one optimizer step per net."""
+        update, then per net their mean over the data ranks and one
+        optimizer step."""
         params = {n: list(self.nets[n].parameters()) for n in names}
         grads = torch.autograd.grad(loss, [p for n in names for p in params[n]],
                                     grad_outputs=grad_outputs, allow_unused=True)
         i = 0
         for n in names:
             k = len(params[n])
-            apply_updates(params[n], grads[i:i + k], self.state.opt_state[n], lr,
-                          **self.optimizer_config(n))
+            g = pmesh.mean_gradients(grads[i:i + k], self._data_group())
+            apply_updates(params[n], g, self.state.opt_state[n], lr, **self.optimizer_config(n))
             i += k
 
     def _make_d_fakes(self, img, c_org, b, z_sr, draws):
@@ -411,7 +479,7 @@ class TranslationModel(Model):
         else:
             pred_fake, pred_real = out[0][:b_f], out[0][b_f:]
             if a.use_ragan:
-                adv = L.ragan_loss(pred_real, pred_fake, True, mode)
+                adv = L.ragan_loss(pred_real, pred_fake, True, mode, self._batch_mean)
             elif "hinge" in mode:
                 adv = L.hinge_d_loss(pred_real, pred_fake)
             else:
@@ -455,7 +523,7 @@ class TranslationModel(Model):
         pred_fake, cls = self.nets[d_fake](fake)
         if a.use_ragan:
             pred_real, _ = self.nets[d_real or d_fake](img)
-            adv = L.ragan_loss(pred_real, pred_fake, False, mode)
+            adv = L.ragan_loss(pred_real, pred_fake, False, mode, self._batch_mean)
         elif "hinge" in mode:
             adv = L.hinge_g_loss(pred_fake)
         else:
@@ -491,7 +559,8 @@ class TranslationModel(Model):
             l1_self_rec=L.l1_loss(img, img_self) * a.lambda_rec,
             l1_cc_rec=L.l1_loss(img, img_recon) * a.lambda_rec,
             kl_zc=L.l2_regularize(z_c) * 0.01,
-            kl_zs=(L.kl_divergence(mu, logvar) if self.reparam else L.l2_regularize(z_s)) * 0.01,
+            kl_zs=(L.kl_divergence(mu, logvar) * self._ranks() if self.reparam
+                   else L.l2_regularize(z_s)) * 0.01,
         )
         total = logs["l1_self_rec"] + logs["l1_cc_rec"] + logs["kl_zc"] + logs["kl_zs"]
         if a.use_dis_content:
@@ -592,12 +661,13 @@ class TranslationModel(Model):
         or "fused"); returns the logged losses (0-dim tensors on the
         device) and ``lr``."""
         img, c_org, b = self._batch(batch)
-        draws = draws or StepDraws(self.generator)
+        draws = self._step_draws(draws, b)
         lr = self.schedule(self.state.step)
         logs = {}
         step = self._fused_step if self.args.gan_step == "fused" else self._reference_step
         with fused_train_trace(self.args.fused_resblock or "off"):
             step(img, c_org, b, draws, lr, logs)
+        logs = pmesh.mean_logs(logs, self._data_group())
         logs["lr"] = lr
         self.state.step += 1
         return logs
@@ -606,15 +676,15 @@ class TranslationModel(Model):
         """The content discriminator alone, at lr / 2.5 with its gradients
         clipped, on the content codes of the batch (no gradient into the
         encoder, composed resblocks)."""
-        img, c_org, _ = self._batch(batch)
-        draws = draws or StepDraws(self.generator)
+        img, c_org, b = self._batch(batch)
+        draws = self._step_draws(draws, b)
         lr = float(torch.tensor(self.schedule(self.state.step)) / 2.5)
         with torch.no_grad():
             z_c = self._content(img, draws, "c.noise")
         loss = L.bce_logits_loss(self.nets.content_discriminator(z_c), c_org)
         self._update(("content_discriminator",), loss, lr)
         self.state.step += 1
-        return {"d_content_cls": loss.detach()}
+        return pmesh.mean_logs({"d_content_cls": loss.detach()}, self._data_group())
 
     def optimize_parameters(self, batch, global_iter: int, draws: Optional[StepDraws] = None):
         """One iteration: the content step where ``use_dis_content`` and

@@ -4,6 +4,12 @@
 CUDA tensor it launches ``csrc/adain.cu`` (which replaces
 ``masterthesis_tpu/ops/pallas/adain.py`` ``_pallas_adain_fwd``) or raises.
 ``adain.launches`` counts the kernel's launches.
+
+``adain_stats`` is the same norm with its (B, C) mean and rstd given (the
+spatially sharded forward's, from the statistics of the whole image): on a
+CPU tensor :func:`adain_stats_plain`, on a CUDA tensor the file's second
+entry, ``mt_adain_stats_*``, or it raises; ``adain_stats.launches`` counts
+its launches.
 """
 from __future__ import annotations
 
@@ -33,13 +39,51 @@ def adain_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: f
     return (x32 * scale + shift).to(x.dtype)
 
 
+def adain_stats_plain(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                      gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """x * scale + shift in x's dtype, scale = (1 + gamma) * rstd and shift =
+    beta - mean * scale; every operand but x (B, C) f32. The kernel rounds
+    each product and sum on its own, in this order."""
+    scale = (1.0 + gamma.float()) * rstd.float()
+    shift = beta.float() - mean.float() * scale
+    return (x.float() * scale[:, :, None, None] + shift[:, :, None, None]).to(x.dtype)
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("adain")
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"mt_adain_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"mt_adain_stats_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I64, _P]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_x(what: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {x.device}")
+    if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(
+            f"{what} takes a contiguous 4-D f32 or bf16 x, got {tuple(x.shape)} {x.dtype} "
+            f"contiguous={x.is_contiguous()}"
+        )
+    if x.shape[0] * x.shape[1] >= 2**31:
+        raise ValueError(f"{what}: {x.shape[0] * x.shape[1]} planes exceed the grid")
+
+
+def _check_planes(what: str, x: torch.Tensor, **operands) -> None:
+    b, c = x.shape[:2]
+    for name, t in operands.items():
+        if (
+            t.shape != (b, c) or t.dtype != torch.float32
+            or not t.is_contiguous() or t.device != x.device
+        ):
+            raise ValueError(
+                f"{what}: {name} must be contiguous f32 ({b}, {c}) on {x.device}, got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}"
+            )
 
 
 def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):
@@ -47,29 +91,13 @@ def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float =
     dtype. Its gradient is ``ops/norms.py``'s."""
     if x.device.type == "cpu":
         return adain_plain(x, gamma, beta, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"adain runs on CPU or CUDA tensors, not {x.device}")
-    if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
-        raise ValueError(
-            f"adain takes a contiguous 4-D f32 or bf16 x, got {tuple(x.shape)} {x.dtype} "
-            f"contiguous={x.is_contiguous()}"
-        )
+    _check_x("adain", x)
+    _check_planes("adain", x, gamma=gamma, beta=beta)
     b, c, h, w = x.shape
-    for name, t in (("gamma", gamma), ("beta", beta)):
-        if (
-            t.shape != (b, c) or t.dtype != torch.float32
-            or not t.is_contiguous() or t.device != x.device
-        ):
-            raise ValueError(
-                f"adain: {name} must be contiguous f32 ({b}, {c}) on {x.device}, got "
-                f"{tuple(t.shape)} {t.dtype} on {t.device}"
-            )
     if h * w * x.element_size() > MAX_PLANE_BYTES:
         raise ValueError(
             f"adain: a {h}x{w} {x.dtype} plane does not fit in one block's shared memory"
         )
-    if b * c >= 2**31:
-        raise ValueError(f"adain: {b * c} planes exceed the grid")
     out = torch.empty_like(x)
     lib = _library()
     fn = getattr(lib, f"mt_adain_{_DTYPES[x.dtype]}")
@@ -84,3 +112,28 @@ def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float =
 
 
 adain.launches = 0
+
+
+def adain_stats(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, gamma: torch.Tensor,
+                beta: torch.Tensor) -> torch.Tensor:
+    """x (B, C, H, W) f32 or bf16, mean, rstd, gamma, beta f32 (B, C) -> x's
+    shape and dtype (no gradient: the sharded forward serves)."""
+    if x.device.type == "cpu":
+        return adain_stats_plain(x, mean, rstd, gamma, beta)
+    _check_x("adain_stats", x)
+    _check_planes("adain_stats", x, mean=mean, rstd=rstd, gamma=gamma, beta=beta)
+    b, c, h, w = x.shape
+    out = torch.empty_like(x)
+    lib = _library()
+    fn = getattr(lib, f"mt_adain_stats_{_DTYPES[x.dtype]}")
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            out.data_ptr(), b * c, h * w, build.stream_of(x),
+        )
+    build.check(lib, err, "adain_stats")
+    adain_stats.launches += 1
+    return out
+
+
+adain_stats.launches = 0

@@ -15,7 +15,7 @@ sizes.
 files that the JAX package writes (``Model.load``). The sampler runs on one
 device: ``Sampler(device=None)`` is the card, and without one that is an
 error (``device="cpu"`` runs the kernels' plain versions, as the tests do);
-``--num_devices`` above 1 raises (ROADMAP A.7). The style codes, the VAE
+it does not read ``--num_devices``, as the JAX sampler does not. The style codes, the VAE
 draws of reference styles and the calibration's targets and styles come
 from ``torch.Generator``s seeded from ``--seed``; they are not the JAX
 package's ``jax.random`` draws.
@@ -110,10 +110,6 @@ class Sampler:
 
     # setup
     def load_model(self, args):
-        if (getattr(args, "num_devices", None) or 1) > 1:
-            raise NotImplementedError(
-                f"--num_devices {args.num_devices}: masterthesis_tpu_torch samples on one "
-                "device; data parallelism across devices is ROADMAP A.7")
         with TimerBlock("Building model") as block:
             model = args.model(args, device=self.device)
             block.log("Restoring parameters")

@@ -6,14 +6,30 @@ and display cadence and its final save.
 
     python -m masterthesis_tpu_torch.train --dataroot DIR --model AdaINModel ...
 
-The trainer runs on one device: ``Trainer(device=None)`` is the card, and
-without one that is an error (``device="cpu"`` runs the kernels' plain
-versions, as the tests do); ``--num_devices`` above 1 raises (ROADMAP A.7).
+``Trainer(device=None)`` is the card, and without one that is an error
+(``device="cpu"`` runs the kernels' plain versions, as the tests do).
+
+Data parallel: one rank per card, started by a launcher,
+
+    torchrun --nproc_per_node N -m masterthesis_tpu_torch.train ... --num_devices N
+
+Each rank joins the process group the launcher describes (``backend``:
+NCCL on the cards, gloo on the CPU), uses ``cuda:LOCAL_RANK``, and trains
+the model replicated over the 1-D data mesh (``parallel.replicate``): its
+gradients are averaged and its losses are the global batch's.
+``--num_devices`` must equal the world size, and ``--batch_size`` stays the
+global batch: each rank loads ``batch_size / N`` rows, striding the dataset
+(``shard_index`` its rank, ``num_shards`` N), as the JAX package's
+processes do. Rank 0 alone writes checkpoints, the loss log and image
+grids; every rank reads ``--resume``.
+
 Each iteration copies the host batch onto the device, and its random draws
 come from generators seeded from (``--seed``, the iteration, a stream), in
 place of the JAX package's ``fold_in(base_rng, global_iter)``: the step's
-:class:`StepDraws`, the device preprocess of ``--device_preproc`` and the
-image grid each have their own. A run resumed with ``--resume``,
+:class:`StepDraws` (the same on every rank: the model keeps each rank's
+rows of the global draws), the device preprocess of ``--device_preproc``
+(a stream per rank: each rank's images are its own) and the image grid
+each have their own. A run resumed with ``--resume``,
 ``--resume_opt`` and ``--last_iter`` continues the data stream where the
 saved run was (``DataLoader.fast_forward``), so it repeats the iterations
 of the unbroken run.
@@ -30,46 +46,74 @@ from masterthesis_tpu_torch.data.device_preproc import preprocess_pair_batch
 from masterthesis_tpu_torch.data.loader import DataLoader, infinite, to_device
 from masterthesis_tpu_torch.models.model import resolve_device
 from masterthesis_tpu_torch.models.translation import StepDraws
+from masterthesis_tpu_torch.parallel import mesh as pmesh
 from masterthesis_tpu_torch.utils.profiling import StepTimer, TimerBlock
 
 # the streams of an iteration's generators
 STEP, PREPROC, VISUALS = 0, 1, 2
 
 
-def iteration_generator(seed: int, it: int, stream: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from (``seed``, ``it``, ``stream``)."""
-    state = np.random.SeedSequence([int(seed), int(it), int(stream)]).generate_state(1, np.uint64)
+def iteration_generator(seed: int, it: int, stream: int, device, rank: int = 0) -> torch.Generator:
+    """A generator on ``device`` seeded from (``seed``, ``it``, ``stream``),
+    and ``rank`` where it is not 0 (a stream of a data-parallel rank's own)."""
+    entropy = [int(seed), int(it), int(stream)] + ([int(rank)] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
 class Trainer:
-    """The host-side training loop around the model's steps."""
+    """The host-side training loop around the model's steps. ``backend``:
+    the process group's, where a launcher started several ranks (see the
+    module docstring)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, backend: str = "nccl"):
+        self.backend = backend
+        if device is None and pmesh.init_distributed(backend):
+            device = torch.device("cuda", pmesh.local_rank())
+            torch.cuda.set_device(device)
         self.device = resolve_device(device)
+        self.mesh = None  # the data mesh, made by create_model
         self.throughput: list[float] = []  # it/s at each of StepTimer's sync points
 
+    def _mesh(self, args) -> pmesh.Mesh:
+        if self.mesh is None:
+            pmesh.init_distributed(self.backend)  # a no-op once joined, or without a launcher
+            self.mesh = pmesh.make_mesh(getattr(args, "num_devices", None))
+        return self.mesh
+
+    def local_batch(self, args) -> int:
+        """The rows each rank loads: ``--batch_size`` (the global batch)
+        over the ranks of the data mesh."""
+        n = self._mesh(args).axis_size("data")
+        if args.batch_size % n:
+            raise ValueError(f"--batch_size {args.batch_size} does not split over {n} ranks")
+        return args.batch_size // n
+
     def load_dataset(self, args) -> DataLoader:
+        mesh = self._mesh(args)
         with TimerBlock("Building data pipeline") as block:
             block.log(f"Dataset: {args.dataset.__name__} at {args.dataroot}")
             dataset = args.dataset(args)
-            block.log(f"Prefetching loader: batch={args.batch_size}")
+            block.log(f"Prefetching loader: batch={args.batch_size}, "
+                      f"rank shard {mesh.index('data') + 1}/{mesh.axis_size('data')}")
             return DataLoader(
                 dataset,
-                batch_size=args.batch_size,
+                batch_size=self.local_batch(args),
                 shuffle=getattr(args, "shuffle", False),
                 num_workers=args.num_workers,
                 drop_last=True,
+                shard_index=mesh.index("data"),
+                num_shards=mesh.axis_size("data"),
             )
 
     def create_model(self, args):
-        if (getattr(args, "num_devices", None) or 1) > 1:
-            raise NotImplementedError(
-                f"--num_devices {args.num_devices}: masterthesis_tpu_torch trains on one device; "
-                "data parallelism across devices is ROADMAP A.7")
+        mesh = self._mesh(args)
         with TimerBlock("Creating model") as block:
             model = args.model(args, device=self.device)
             block.log(f"Initialized on {self.device}")
+            if mesh.group("data") is not None:
+                pmesh.replicate(model, mesh)
+                block.log(f"Replicated over {mesh}")
         return model
 
     def train(self, args, model, dataloader):
@@ -80,6 +124,8 @@ class Trainer:
             if global_iter:
                 dataloader.fast_forward(global_iter)
             seed = getattr(args, "seed", 0) or 0
+            rank = self._mesh(args).index("data")
+            log = block.log if model.writes else (lambda *a, **k: None)
             timer = StepTimer(sync_every=max(1, args.print_freq), device=self.device)
             device_preproc = getattr(args, "device_preproc", False)
             imgs_per_item = None
@@ -93,7 +139,7 @@ class Trainer:
                 batch = to_device(batch, self.device)
                 if device_preproc:
                     batch = preprocess_pair_batch(
-                        batch, iteration_generator(seed, global_iter, PREPROC, self.device),
+                        batch, iteration_generator(seed, global_iter, PREPROC, self.device, rank),
                         args.load_size, args.crop_size, train=True,
                         no_flip=getattr(args, "no_flip", False),
                     )
@@ -102,26 +148,28 @@ class Trainer:
                 rate = timer.lap()
                 if rate is not None:
                     self.throughput.append(rate)
-                    block.log(f"throughput: {rate:.2f} it/s "
-                              f"({rate * imgs_per_item * args.batch_size:.1f} img/s)")
+                    log(f"throughput: {rate:.2f} it/s "
+                        f"({rate * imgs_per_item * args.batch_size:.1f} img/s)")
+                # every rank calls the writers (a batch norm's statistics in
+                # the image grid's forward are a collective); rank 0 writes
                 if global_iter % args.print_freq == 0:
-                    block.log("\n")
-                    block.log(f"iter {global_iter} | lr {model.get_current_lr()}")
+                    log("\n")
+                    log(f"iter {global_iter} | lr {model.get_current_lr()}")
                     model.write_loss(global_iter)
-                    block.log(model.print_losses())
+                    log(model.print_losses())
                 if global_iter % args.save_freq == 0:
-                    block.log(f"checkpoint -> {args.checkpoint_dir}")
+                    log(f"checkpoint -> {args.checkpoint_dir}")
                     model.save(global_iter)
                 if global_iter % args.display_freq == 0 and global_iter % args.d_iter == 0:
-                    block.log("image grid -> display dir")
+                    log("image grid -> display dir")
                     model.save_images(
                         batch, global_iter, iteration_generator(seed, global_iter, VISUALS,
                                                                 self.device))
                 global_iter += 1
                 if global_iter > iterations:
-                    block.log(f"final checkpoint -> {args.checkpoint_dir}")
+                    log(f"final checkpoint -> {args.checkpoint_dir}")
                     model.save(global_iter)
-                    block.log("training complete")
+                    log("training complete")
                     return model
 
     def run(self, args):

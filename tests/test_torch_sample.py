@@ -233,13 +233,20 @@ def test_gen_style_needs_a_target(tmp_path, jax_ckpt):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (("--num_devices", "2"), "A.7"),
-    (("--ckpt_format", "orbax"), "orbax"),
+    # the id it had beside --num_devices, which the sampler no longer reads
+    pytest.param(("--ckpt_format", "orbax"), "orbax", id="flags1-orbax"),
 ])
 def test_unported_flags_fail_with_a_message(tmp_path, jax_ckpt, flags, error):
     args = arguments.TestArguments().parse(_argv(tmp_path, jax_ckpt, *flags))
     with pytest.raises(NotImplementedError, match=error):
         Sampler(device="cpu").run(args)
+
+
+def test_num_devices_is_not_read_as_in_the_jax_sampler(tmp_path, jax_ckpt):
+    """The JAX sampler samples on one device whatever ``--num_devices`` says."""
+    args = arguments.TestArguments().parse(_argv(tmp_path, jax_ckpt, "--num_devices", "2"))
+    model = Sampler(device="cpu").load_model(args)
+    assert model.mesh is None
 
 
 def test_the_sampler_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

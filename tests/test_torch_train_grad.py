@@ -54,13 +54,10 @@ def test_g1_gradient_without_the_cycle_term_matches_jax_per_tensor(fused):
         t, g_logs = jm._g1_loss({**jparams, **gp}, {}, jimg, jc, b, None, {}, train=False)
         return t - g_logs["l1_cc_rec"]
 
-    if fused == "on":
-        jrb.set_fused_resblock("interpret")
-    try:
-        with jrb.fused_train_trace() if fused == "on" else contextlib.nullcontext():
-            jgrads = jax.jit(jax.grad(loss))({n: jparams[n] for n in S.GEN_NETS})
-    finally:
-        jrb.set_fused_resblock("auto")
+    on = fused == "on"
+    with S.interpreted_kernels() if on else contextlib.nullcontext(), \
+            jrb.fused_train_trace() if on else contextlib.nullcontext():
+        jgrads = jax.jit(jax.grad(loss))({n: jparams[n] for n in S.GEN_NETS})
     for net in S.GEN_NETS:
         want = S.to_port(model, net, jax.tree_util.tree_map(np.asarray, jgrads[net]), tree)
         got = {k: next(grads) for k, _ in model.nets[net].named_parameters()}

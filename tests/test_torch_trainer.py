@@ -220,8 +220,9 @@ def test_trainer_needs_a_card_or_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer()
     assert Trainer(device="cpu").device.type == "cpu"
+    # one process is a world of one: --num_devices 2 names both numbers
     args = default_train_args(**TINY, model=models.AdaINModel, num_devices=2)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(ValueError, match="--num_devices 2 must equal the world size 1"):
         Trainer(device="cpu").create_model(args)
     with pytest.raises(NotImplementedError, match="A.8"):
         Trainer(device="cpu").create_model(default_train_args(**TINY, model=models.AdaINModel,

@@ -16,10 +16,12 @@ at (1, the gradient of ``_g_adv_loss`` against the updated D1 at the
 fakes), then G2. Under ``--dis_sn`` the D updates store the ``u`` that
 ``_d_loss(update_u=True)`` returns; WGAN-GP's penalty runs where a D's key
 is given (``gp_keys``). With ``fused`` it runs inside
-``set_fused_resblock("interpret")`` and ``fused_train_trace()``, restored in
-``finally``. The weights are the port's seeded init (biases
-redrawn small), carried into the JAX tree by the inverse of
-``params_from_jax`` (which the round trip checks), so that no Flax init runs.
+:func:`interpreted_kernels` (``set_fused_resblock("interpret")``, each kernel
+call through its jitted kernel, so that a piece lowers each shape's
+interpret-mode body once) and ``fused_train_trace()``. The weights are the
+port's seeded init (biases redrawn small), carried into the JAX tree by the
+inverse of ``params_from_jax`` (which the round trip checks), so that no
+Flax init runs.
 :func:`jax_kernel_calls` counts the JAX package's kernel 9/10 calls while it
 traces, one per launch of the step it traces; :func:`jax_step_calls` counts
 them over a trace of the fused step alone, which runs nothing, and
@@ -190,28 +192,56 @@ def run_port(model, batch, z_sr, z_sr2, extras=None, **given):
     return logs, phases, trees + [jax_tree(model)]
 
 
+# the JAX package's kernels 9 and 10 as it defines them, and each under
+# jax.jit (their Python-valued arguments static): a jitted piece that calls
+# one kernel at one shape many times then lowers its interpret-mode body
+# once, where each call site would lower it anew
+_KERNELS = {"fwd": jrb.pallas_resblock_fwd, "bwd": jrb.pallas_resblock_bwd}
+_JITTED = {
+    "fwd": jax.jit(_KERNELS["fwd"], static_argnums=(4, 5, 6), static_argnames="interpret"),
+    "bwd": jax.jit(_KERNELS["bwd"], static_argnums=(9, 10, 11), static_argnames="interpret"),
+}
+_COUNTERS: list = []  # the counts of the active jax_kernel_calls blocks
+
+
+def _routed(kind):
+    def call(*args, **kwargs):
+        for calls in _COUNTERS:
+            calls[kind] += 1
+        return _JITTED[kind](*args, **kwargs)
+    return call
+
+
+@contextlib.contextmanager
+def interpreted_kernels():
+    """The JAX package's kernels 9 and 10 in interpret mode inside the block
+    (``set_fused_resblock("interpret")``, back to "auto" after), each call
+    through its jitted kernel and counted by :func:`jax_kernel_calls`."""
+    saved = {k: getattr(jrb, f"pallas_resblock_{k}") for k in _KERNELS}
+    jrb.set_fused_resblock("interpret")
+    for k in _KERNELS:
+        setattr(jrb, f"pallas_resblock_{k}", _routed(k))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(jrb, f"pallas_resblock_{k}", fn)
+        jrb.set_fused_resblock("auto")
+
+
 @contextlib.contextmanager
 def jax_kernel_calls():
     """Count the JAX package's kernel 9 and 10 calls (``pallas_resblock_fwd``,
-    ``pallas_resblock_bwd``) inside the block: yields the counts, {"fwd": n,
-    "bwd": n}. Counted while jitted code traces, so each piece that the block
-    traces once counts its launches once."""
+    ``pallas_resblock_bwd``) that code inside :func:`interpreted_kernels`
+    makes inside the block: yields the counts, {"fwd": n, "bwd": n}. Counted
+    while jitted code traces, so each piece that the block traces once
+    counts its launches once."""
     calls = {"fwd": 0, "bwd": 0}
-    real = {k: getattr(jrb, f"pallas_resblock_{k}") for k in calls}
-
-    def counting(kind):
-        def wrapper(*a, **kw):
-            calls[kind] += 1
-            return real[kind](*a, **kw)
-        return wrapper
-
-    for k in calls:
-        setattr(jrb, f"pallas_resblock_{k}", counting(k))
+    _COUNTERS.append(calls)
     try:
         yield calls
     finally:
-        for k, fn in real.items():
-            setattr(jrb, f"pallas_resblock_{k}", fn)
+        _COUNTERS.remove(calls)
 
 
 def jax_model(args_kw, model_cls=AdaINModel):
@@ -249,15 +279,11 @@ def jax_step_calls(args_kw, tree, batch, z_sr, z_sr2, model_cls=AdaINModel) -> t
     jm = jax_model(args_kw, model_cls)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     _, _, d_fakes, g1, g2 = _jax_pieces(jm, batch, z_sr, z_sr2)
-    jrb.set_fused_resblock("interpret")
-    try:
-        with jax_kernel_calls() as calls, jrb.fused_train_trace():
-            jax.make_jaxpr(d_fakes)(params)
-            for loss, nets in ((g1, GEN_NETS), (g2, ("content_encoder", "decoder"))):
-                jax.make_jaxpr(jax.value_and_grad(loss, has_aux=True))(
-                    {n: params[n] for n in nets}, params)
-    finally:
-        jrb.set_fused_resblock("auto")
+    with interpreted_kernels(), jax_kernel_calls() as calls, jrb.fused_train_trace():
+        jax.make_jaxpr(d_fakes)(params)
+        for loss, nets in ((g1, GEN_NETS), (g2, ("content_encoder", "decoder"))):
+            jax.make_jaxpr(jax.value_and_grad(loss, has_aux=True))(
+                {n: params[n] for n in nets}, params)
     return calls["fwd"], calls["bwd"]
 
 
@@ -321,33 +347,29 @@ def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINMode
         return (aux_total + advcls, dict(g_logs, g_adv=adv, g_cls=cls,
                                          total_g=aux_total + advcls)), g
 
-    if fused:
-        jrb.set_fused_resblock("interpret")
-    try:
-        # each piece jitted inside the context: the routing is read at trace time
-        with jrb.fused_train_trace() if fused else contextlib.nullcontext():
-            if gan_step == "fused":
-                fake, (z_ca, z_cb) = jax.jit(lambda p: jax.tree.map(
-                    jax.lax.stop_gradient,
-                    jm._g1_forward(p, {}, img, c_org, b, None, aux, train=False)[1:3]))(trees[0])
-                update_d(0, "discriminator1", fake, "d1")
-                rand = jax.jit(lambda p: jm.decode(
-                    p, jnp.concatenate([z_cb, z_ca]), jnp.concatenate([z_sr, z_sr]), c_org,
-                    train=False))(trees[1])
-                update_d(1, "discriminator2", rand, "d2")
-                g1_grad = jax.jit(g1_fused)
-            else:
-                fake, rand = jax.jit(d_fakes)(trees[0])
-                update_d(0, "discriminator1", fake, "d1")
-                update_d(1, "discriminator2", rand, "d2")
-                g1_grad = jax.jit(jax.value_and_grad(g1, has_aux=True))
-            g2_grad = jax.jit(jax.value_and_grad(g2, has_aux=True))
-            for i, grad, nets in ((2, g1_grad, GEN_NETS), (3, g2_grad, ("content_encoder", "decoder"))):
-                (_, g_logs), g = grad({n: trees[i][n] for n in nets}, trees[i], extras[i])
-                logs.update(g_logs)
-                update(trees[i], nets, g)
-    finally:
-        jrb.set_fused_resblock("auto")
+    # each piece jitted inside the context: the routing is read at trace time
+    with interpreted_kernels() if fused else contextlib.nullcontext(), \
+            jrb.fused_train_trace() if fused else contextlib.nullcontext():
+        if gan_step == "fused":
+            fake, (z_ca, z_cb) = jax.jit(lambda p: jax.tree.map(
+                jax.lax.stop_gradient,
+                jm._g1_forward(p, {}, img, c_org, b, None, aux, train=False)[1:3]))(trees[0])
+            update_d(0, "discriminator1", fake, "d1")
+            rand = jax.jit(lambda p: jm.decode(
+                p, jnp.concatenate([z_cb, z_ca]), jnp.concatenate([z_sr, z_sr]), c_org,
+                train=False))(trees[1])
+            update_d(1, "discriminator2", rand, "d2")
+            g1_grad = jax.jit(g1_fused)
+        else:
+            fake, rand = jax.jit(d_fakes)(trees[0])
+            update_d(0, "discriminator1", fake, "d1")
+            update_d(1, "discriminator2", rand, "d2")
+            g1_grad = jax.jit(jax.value_and_grad(g1, has_aux=True))
+        g2_grad = jax.jit(jax.value_and_grad(g2, has_aux=True))
+        for i, grad, nets in ((2, g1_grad, GEN_NETS), (3, g2_grad, ("content_encoder", "decoder"))):
+            (_, g_logs), g = grad({n: trees[i][n] for n in nets}, trees[i], extras[i])
+            logs.update(g_logs)
+            update(trees[i], nets, g)
     logs["lr"] = lr
     to_np = lambda t: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), t)  # noqa: E731
     return to_np(logs), [to_np(p) for p in phases], [to_np(u) for u in updated]
@@ -363,12 +385,8 @@ def jax_body_calls(args_kw, model, batch, gan_step: str, model_cls=AdaINModel) -
                               jax.tree_util.tree_map(jnp.asarray, jax_extra(model)))
     body = jm._main_step_fused_body if gan_step == "fused" else jm._main_step_body
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jrb.set_fused_resblock("interpret")
-    try:
-        with jax_kernel_calls() as calls, jrb.fused_train_trace():
-            jax.make_jaxpr(body)(state, jbatch, jax.random.PRNGKey(0), {})
-    finally:
-        jrb.set_fused_resblock("auto")
+    with interpreted_kernels(), jax_kernel_calls() as calls, jrb.fused_train_trace():
+        jax.make_jaxpr(body)(state, jbatch, jax.random.PRNGKey(0), {})
     return calls["fwd"], calls["bwd"]
 
 
