@@ -8,7 +8,8 @@ against its plain PyTorch version.
                                        # training main step (AdaINModel, reference and
                                        # fused GAN step; BaseModel A, B)
     python3 chip_smoke.py --only distributed   # the build and phase 15 alone, no
-                                               # result lines (a quicker check)
+                                               # result lines (a quicker check);
+                                               # --only int8_train,export: 16 and 17
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -237,9 +238,11 @@ against its plain PyTorch version.
 15. ``distributed``: (a) one NCCL rank (a process group of one, so every
    collective runs) trains AdaINModel's fused GAN step at 9's config (bf16,
    256 px, dim 64, B=8) through the data-parallel path (``replicate``,
-   ``make_mesh(1)``): its first step's losses bit for bit or within three
-   times the gap of two bare runs from the same init and draws (both
-   printed), its kernel 9/10 and moments launches per main step, its it/s
+   ``make_mesh(1)``): its first step's losses bit for bit equal to a bare
+   run's from the same init and draws, both with deterministic algorithms
+   (the default ones part two bare runs by about 1e-5 relative;
+   ``scripts/dist_one_rank_spread.py``), its kernel 9/10 and moments
+   launches per main step, its it/s
    beside the bare step's in turns, and the device ms of one main step's
    all-reduces. (b) Two gloo ranks sharing cuda:0 (``parallel.run_ranks``)
    run the same step on 4 images a side each against (a)'s bare step on 8
@@ -259,7 +262,38 @@ against its plain PyTorch version.
    statistics (its kernels-line entry, ``adain_stats/f32``). Ranks that
    share a card give no speed number. Cumulative seconds are printed after
    it.
-16. Last lines: the card, the ``{"kernels": [...]}`` line, then
+16. ``int8_train``: ``--int8_train`` (QAT) at 9's config (AdaINModel, bf16,
+   256 px, dim 64, B=8 a side, ``--fused_resblock auto``). First each
+   straight-through conv at the step's shapes (kernel 4 at (16 | 32, 256,
+   64, 64) -> 256, kernel 7 at (16, 64, 256, 256) -> 128 and (16, 128,
+   128, 128) -> 256, kernel 5 at (32, 256, 64, 64) -> 128 and (32, 128,
+   128, 128) -> 64, bf16): one launch, the int8 operands and int32 sums
+   equal to the plain version's, y bit for bit, the backward within 2^-7
+   of autograd of the float conv; a small f32 QAT step of each GAN step on
+   the card against the CPU (losses within 1e-3). Then
+   ``calibrate_quant_train`` and the first fused QAT step beside the plain
+   bf16 fused step from the same weights (tests/test_qat.py's bar), main
+   steps timed in turns (plain, QAT, QAT, plain), each QAT step launching
+   kernels 4 / 7 / 5 56 / 6 / 8 times and kernels 9/10 never (the
+   reference step 64 / 8 / 8), as the JAX package's traced QAT step calls
+   them (tests/test_torch_qat.py), and kernels 1 and 3 as often as the
+   plain step with kernels 9/10 off does; a profile of one step of each; the
+   reference QAT step, the fused step at each single scope, one step with
+   every weight quantize timed. Prints it/s of both, peak memory and the
+   weight-quantize ms per step. The kernels line's bf16 int8 conv entries
+   gain ``int8_train``: their launches per QAT main step, as counted.
+17. ``export``: the flagship's f32 ``forward_random`` and its int8 (bf16
+   compute) ``forward_random`` and ``forward_reference`` as serving
+   bundles (``tools.export_serving``), replayed in a fresh process that
+   imports torch and ``ops/kernels/library.py`` only: each equal to its
+   eager forward bit for bit (both with cuDNN's deterministic algorithms
+   and TF32 off) and launching the same kernels (13 / 8; 1 / 2 / 8 / 2 /
+   1); replay and eager img/s in turns; the dispatcher's µs per call (the
+   moments and stride-2 int8 conv ops against their CUDA implementations)
+   and the share of an eager int8 request it would take (the eager path
+   skips it). The kernels line's
+   entries of kernels 1 and 3-8 gain ``export``: the replays' launches.
+18. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -302,14 +336,16 @@ from masterthesis_tpu_torch.metrics.inception import make_inception_extractor
 from masterthesis_tpu_torch.metrics.lpips import make_lpips_fn
 from masterthesis_tpu_torch.models import AdaINModel, BaseModel
 from masterthesis_tpu_torch.models.translation import StepDraws
-from masterthesis_tpu_torch.ops import norms
+from masterthesis_tpu_torch.ops import norms, qat
 from masterthesis_tpu_torch.ops.kernels import adain as kadain
 from masterthesis_tpu_torch.ops.kernels import build
 from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
+from masterthesis_tpu_torch.ops.kernels import library
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
 from masterthesis_tpu_torch.sample import Sampler
+from masterthesis_tpu_torch.tools.export_serving import export_bundle, load_bundle
 from masterthesis_tpu_torch.train import STEP, Trainer, iteration_generator
 from masterthesis_tpu_torch.utils import devtime
 from masterthesis_tpu_torch.utils.images import save_images
@@ -3325,12 +3361,32 @@ def _allreduce_ms(model, group, reps: int = 10) -> float:
 GEN_NETS_ORDER = ("content_encoder", "style_encoder", "decoder")
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic ones
+    (warnings only where an op has none) inside the block; with them two
+    runs of the fused step from the same state give the same bits
+    (``scripts/dist_one_rank_spread.py --deterministic``)."""
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
 def dist_one_rank(card: str, t0: float) -> dict:
     """(a): the fused GAN step through the distributed path on one NCCL rank
     (``make_mesh(1)`` in a process group of one: every collective runs)
-    against the bare step from the same init and draws; then both timed in
-    turns. Returns the bare step's first logs and the launches per main
-    step."""
+    against the bare step from the same init and draws, both first steps
+    with deterministic algorithms and required equal bit for bit; then
+    both timed in turns with the default algorithms. Returns the bare
+    step's first logs and the launches per main step."""
     import torch.distributed as dist
 
     from masterthesis_tpu_torch.parallel import mesh as pmesh
@@ -3339,11 +3395,8 @@ def dist_one_rank(card: str, t0: float) -> dict:
     _, batch = train_batch(FUSED_GAN_ARGS, seed=41)
     args = default_train_args(**FUSED_GAN_ARGS)
     bare = AdaINModel(args)
-    firsts = [_floats(bare.main_step(batch, StepDraws(_dist_generator())))]
-    m = AdaINModel(args)  # a second bare run of the first step: the step's own spread
-    firsts.append(_floats(m.main_step(batch, StepDraws(_dist_generator()))))
-    del m
-    bare_spread = _rel_gap(firsts[1], firsts[0])
+    with deterministic_algorithms():
+        bare_first = _floats(bare.main_step(batch, StepDraws(_dist_generator())))
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{pmesh.free_port()}",
                             world_size=1, rank=0, device_id=torch.device("cuda", 0))
     try:
@@ -3352,13 +3405,14 @@ def dist_one_rank(card: str, t0: float) -> dict:
         zero_counts()
         krb.resblock_fwd.launches = krb.resblock_bwd.launches = 0
         torch.cuda.synchronize()
-        got = _floats(model.main_step(batch, StepDraws(_dist_generator())))
+        with deterministic_algorithms():
+            got = _floats(model.main_step(batch, StepDraws(_dist_generator())))
         torch.cuda.synchronize()
         launched = {**fused_counts(), "moments": kmoments.moments.launches}
         assert {k: launched[k] for k in FUSED_GAN_PER_STEP} == FUSED_GAN_PER_STEP, \
             f"{phase}: kernel 9/10 launches {launched}"
         assert launched["moments"] > 0, f"{phase}: the moments kernel was not launched"
-        gap = _rel_gap(got, firsts[0])
+        gap = _rel_gap(got, bare_first)
         secs = {"bare": [], "dp": []}
         for it, who in zip(range(3, 27, 3), ("bare", "dp", "dp", "bare") * 2):
             secs[who].append(_timed_step(model if who == "dp" else bare, batch, it)[1])
@@ -3369,16 +3423,14 @@ def dist_one_rank(card: str, t0: float) -> dict:
     torch.cuda.empty_cache()
     rate = {k: len(v) / sum(v) for k, v in secs.items()}
     log(dict(phase=phase, card=card, config={k: v for k, v in FUSED_GAN_ARGS.items()},
-             vs_bare=dict(worst=gap[0], rel_gap=gap[1], bound="3 x two bare runs' gap"),
-             two_bare_runs=dict(worst=bare_spread[0], rel_gap=bare_spread[1]),
+             vs_bare=dict(worst=gap[0], rel_gap=gap[1],
+                          bound="bit for bit, both with deterministic algorithms"),
              main_it_per_s=rate["dp"], bare_main_it_per_s=rate["bare"], main_step_s=secs,
              allreduce_ms_per_main_step=allreduce_ms, launches_per_main_step=launched,
              seconds=time.perf_counter() - t0))
-    # bit for bit where the bare step is; else within three times the gap of
-    # one pair of bare runs (itself a sample of the step's own spread)
-    assert gap[1] <= 3.0 * bare_spread[1], \
-        f"{phase}: one rank vs bare {gap}, two bare runs {bare_spread}"
-    return firsts[0], launched
+    # with one rank the all-reduces copy and divide by 1: nothing may move
+    assert got == bare_first, f"{phase}: one rank vs bare {gap}"
+    return bare_first, launched
 
 
 def dist_references() -> dict:
@@ -3535,6 +3587,510 @@ def distributed(card: str, t0: float) -> tuple[dict, dict]:
     return entry, launched
 
 
+# ------------------------------------------------------------ int8_train --
+
+QAT_ARGS = dict(TRAIN_ARGS, int8_train=True)
+# kernel 4 / 7 / 5 launches per QAT main step, as a trace of the JAX
+# package's QAT step body calls them (tests/test_torch_qat.py, QAT_CALLS),
+# and kernels 9/10 none
+QAT_PER_STEP = {
+    "fused": {"int8_conv3x3": 56, "int8_downconv": 6, "int8_deconv": 8, "resblock_fwd": 0,
+              "resblock_bwd": 0},
+    "reference": {"int8_conv3x3": 64, "int8_downconv": 8, "int8_deconv": 8, "resblock_fwd": 0,
+                  "resblock_bwd": 0},
+}
+QAT_SCOPES = {"conv": "int8_conv3x3", "stride2": "int8_downconv", "deconv": "int8_deconv"}
+# the straight-through convs at the QAT step's shapes, bf16: (wrapper, NCHW
+# input, Co, padding): the encoder's blocks and G2's decode at 2B images,
+# the D fakes' and G1's first decode at 4B, the down convs at 2B
+QAT_STE_SHAPES = [
+    ("conv3x3", (2 * B, 256, 64, 64), 256, "reflect"),
+    ("conv3x3", (4 * B, 256, 64, 64), 256, "reflect"),
+    ("downconv", (2 * B, 64, 256, 256), 128, "reflect"),
+    ("downconv", (2 * B, 128, 128, 128), 256, "reflect"),
+    ("deconv", (4 * B, 256, 64, 64), 128, None),
+    ("deconv", (4 * B, 128, 128, 128), 64, None),
+]
+# the backward against autograd of the float conv: the same cuDNN call, whose
+# sums (and the reflect pad's backward) may add in another order from call
+# to call, so two bf16 steps of each gradient's largest magnitude
+QAT_GRAD_TOL = 2.0**-7
+# QAT against the plain bf16 step from the same state: tests/test_qat.py's bar
+QAT_LOSS_RTOL, QAT_LOSS_ATOL = 0.15, 0.05
+QAT_LOSS_KEYS = ("g_adv", "g_cls", "l1_cc_rec", "total_g")
+# a small f32 QAT step on the card against the CPU: the float ops between
+# the int8 convs sum in another order on each device, which can flip an int8
+# input by one step (tests/test_torch_qat_gpu.py)
+QAT_CPU_LOSS_TOL = 1e-3
+QAT_SMALL = dict(crop_size=32, dim=8, latent_dim=4, num_domains=3, batch_size=2,
+                 use_dis_content=False, compute_dtype="float32", int8_train=True, seed=0)
+
+
+# the norms' kernels, whose launches a QAT step keeps as the plain step with
+# kernels 9/10 off launches them (tests/test_torch_qat.py, QAT_NORM_CALLS)
+QAT_NORM_KERNELS = ("moments", "adain")
+
+
+def qat_counts() -> dict:
+    return {"int8_conv3x3": kq.conv3x3.launches, "int8_downconv": kq.downconv.launches,
+            "int8_deconv": kq.deconv.launches, **fused_counts(),
+            "moments": kmoments.moments.launches, "adain": kadain.adain.launches}
+
+
+def _launched(before: dict) -> dict:
+    return {k: v - before[k] for k, v in qat_counts().items()}
+
+
+def _part(launched: dict, keys) -> dict:
+    return {k: launched[k] for k in keys}
+
+
+def check_qat_ste() -> list:
+    """Each straight-through conv at the QAT step's shapes, bf16: one launch
+    of its kernel; the forward's int8 operands and int32 sums equal to the
+    plain version's and y equal to it bit for bit; the backward within
+    QAT_GRAD_TOL of autograd of the float conv, each gradient relative to
+    its largest magnitude."""
+    rows = []
+    for i, (wname, shape, co, padding) in enumerate(QAT_STE_SHAPES):
+        b, c, h, w = shape
+        x = _randn(shape, torch.bfloat16, 600 + i)
+        deconv = wname == "deconv"
+        weight = _card_weight((c, co, 3, 3) if deconv else (co, c, 3, 3), 610 + i)
+        bias = _card_weight((co,), 620 + i, 0.1)
+        weight.requires_grad_(True)
+        bias.requires_grad_(True)
+        amax = x.abs().amax().float()
+        xg = x.clone().requires_grad_(True)
+        wrapper = getattr(kq, wname)
+        n0 = wrapper.launches
+        if deconv:
+            qc = kq.quant_deconv(weight, bias, amax)
+            y = qat.int8_deconv_ste(xg, weight, bias, amax, torch.bfloat16, qc)
+        else:
+            stride = 2 if wname == "downconv" else 1
+            qc = kq.quant_conv(weight, bias, amax, stride, padding)
+            y = qat.int8_conv3x3_ste(xg, weight, bias, amax, padding, stride, torch.bfloat16, qc)
+        torch.cuda.synchronize()
+        assert wrapper.launches - n0 == 1, f"int8_train/ste {wname} {shape}: launches"
+        exact = _check_exact(x, qc, None)
+        want = kq.conv_plain(x, qc)
+        assert y.dtype == torch.bfloat16 and torch.equal(y.detach(), want), \
+            f"int8_train/ste {wname} {shape}: forward differs from the plain version"
+        g = _randn(tuple(y.shape), torch.bfloat16, 630 + i)
+        grads = torch.autograd.grad(y, (xg, weight, bias), g)
+        xr, wr, br = (t.detach().clone().requires_grad_(True) for t in (x, weight, bias))
+        if deconv:
+            yf = F.conv_transpose2d(xr, wr.bfloat16(), br.bfloat16(), 2, 1, 1)
+        else:
+            xp, pad = (F.pad(xr, (1, 1, 1, 1), mode="reflect"), 0) if padding else (xr, 1)
+            yf = F.conv2d(xp, wr.bfloat16(), br.bfloat16(), stride, pad)
+        want_grads = torch.autograd.grad(yf, (xr, wr, br), g)
+        errs = {}
+        for what, got, ref in zip(("dx", "dw", "db"), grads, want_grads):
+            assert got.dtype == ref.dtype, f"int8_train/ste {wname} {shape}: {what} dtype"
+            errs[what] = ((got.float() - ref.float()).abs().max()
+                          / ref.float().abs().max().clamp_min(1e-12)).item()
+        rows.append(dict(wrapper=wname, shape=list(shape), co=co, padding=padding, **exact,
+                         forward_equal=True, grad_rel_err=errs, grad_tol=QAT_GRAD_TOL))
+        assert max(errs.values()) <= QAT_GRAD_TOL, f"int8_train/ste {wname} {shape}: {errs}"
+        del x, xg, y, g, grads, want_grads, xr, wr, br, yf
+    torch.cuda.empty_cache()
+    log(dict(phase="int8_train/ste", dtype="bf16", rows=rows))
+    return rows
+
+
+def check_small_qat_against_cpu() -> None:
+    """A small f32 QAT main step of each GAN step on the card against the
+    same step on the CPU: the CPU's calibration on both, the same weights
+    and styles, no noise; losses within QAT_CPU_LOSS_TOL relative, kernels
+    4 / 7 / 5 launched as QAT_PER_STEP says."""
+    host, dev = train_batch(QAT_SMALL, seed=41)
+    rng = np.random.default_rng(42)
+    z, z_sr, z_sr2 = (torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32))
+                      for _ in range(3))
+    c = np.eye(3, dtype=np.float32)[[1, 2]]
+    for gan_step in ("reference", "fused"):
+        cpu = AdaINModel(default_train_args(**QAT_SMALL, gan_step=gan_step), device="cpu")
+        card = AdaINModel(default_train_args(**QAT_SMALL, gan_step=gan_step))
+        tree = cpu.calibrate_quant_train(host, c, z)
+        card.load_int8_train(tree)
+        before = qat_counts()
+        on_card = _floats(card.main_step(dev, StepDraws(z_sr=z_sr.cuda(), z_sr2=z_sr2.cuda())))
+        launched = _launched(before)
+        on_cpu = _floats(cpu.main_step(host, StepDraws(z_sr=z_sr, z_sr2=z_sr2)))
+        errs = {k: abs(on_card[k] - v) / max(abs(v), 1e-3) for k, v in on_cpu.items()}
+        worst = max(errs, key=errs.get)
+        log(dict(phase="card_vs_cpu", model="AdaINModel", flags=dict(int8_train=True,
+                 gan_step=gan_step), dtype="f32 QAT step", max_rel_loss_err=errs[worst],
+                 worst_loss=worst, tol=QAT_CPU_LOSS_TOL, launches=launched))
+        assert _part(launched, QAT_PER_STEP[gan_step]) == QAT_PER_STEP[gan_step], \
+            f"small QAT {gan_step}: launches {launched}"
+        assert errs[worst] <= QAT_CPU_LOSS_TOL, f"small QAT {gan_step} card vs CPU: {worst}"
+
+
+@contextlib.contextmanager
+def timed_weight_quantize(records: list):
+    """Time every QuantConv build (``quant_conv``, ``quant_deconv``) inside
+    the block with CUDA events around it: each a record (name, ms)."""
+    saved = {name: getattr(kq, name) for name in ("quant_conv", "quant_deconv")}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = saved[name](*args, **kwargs)
+            end.record()
+            end.synchronize()
+            records.append((name, start.elapsed_time(end)))
+            return out
+        return call
+
+    for name in saved:
+        setattr(kq, name, timed(name))
+    try:
+        yield records
+    finally:
+        for name, fn in saved.items():
+            setattr(kq, name, fn)
+
+
+def _qat_steps(model, batch, its, per_step, phase) -> tuple:
+    """Timed main steps at iterations ``its``, each asserted to launch
+    kernels 4 / 7 / 5 and 9 / 10 ``per_step`` times and every counted
+    kernel as often as the first; (logs, seconds, one step's launches)."""
+    steps, secs, seen = [], [], None
+    for it in its:
+        before = qat_counts()
+        logs, t = _timed_step(model, batch, it)
+        launched = _launched(before)
+        assert _part(launched, per_step) == per_step, f"{phase}: launches per main step {launched}"
+        assert seen in (None, launched), f"{phase}: launches {launched}, then {seen}"
+        seen = launched
+        steps.append(logs)
+        secs.append(t)
+    return steps, secs, seen
+
+
+def int8_train(card: str) -> dict:
+    """``int8_train``: ``--int8_train`` (QAT) at the flagship training config
+    (9's: 256 px, dim 64, latent 8, 4 domains, batch 8 a side, bf16, the
+    content discriminator, d_iter 3). First the STE convs at the step's
+    shapes and a small step against the CPU. Then ``calibrate_quant_train``
+    on the batch's x1 with targets and styles from a seeded generator; the
+    first fused QAT main step without noise beside the plain bf16 fused
+    step from the same weights (tests/test_qat.py's bar on g_adv, g_cls,
+    l1_cc_rec, total_g); main steps timed in turns, plain bf16 and QAT
+    (bf16, QAT, QAT, bf16), each asserted to launch kernels 4 / 7 / 5 as
+    QAT_PER_STEP says and kernels 9 / 10 never (the plain step 28 / 24), and
+    kernels 1 and 3 as the plain step with kernels 9/10 off, fused and
+    reference; the reference QAT step; the fused step at each single scope;
+    one step with every weight quantize timed. Returns the launches of one
+    fused and one reference main step, as counted."""
+    phase = "int8_train"
+    check_qat_ste()
+    check_small_qat_against_cpu()
+    _, batch = train_batch(TRAIN_ARGS, seed=31)
+    rng = np.random.default_rng(32)
+    z = {k: torch.from_numpy(rng.standard_normal((B, TRAIN_ARGS["latent_dim"])).astype(
+        np.float32)).cuda() for k in ("z_sr", "z_sr2")}
+    model = AdaINModel(default_train_args(**dict(QAT_ARGS, gan_step="fused")))
+    plain = AdaINModel(default_train_args(**FUSED_GAN_ARGS))  # the same seeded weights
+    for m in (model, plain):
+        m.generator.manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    k = TRAIN_ARGS["num_domains"]
+    c = F.one_hot(torch.randint(k, (B,), generator=g, device="cuda"), k).float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = model.calibrate_quant_train(batch, c, model.get_z_random(B, g))
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    before = qat_counts()
+    first = _floats(model.main_step(batch, StepDraws(**z)))
+    launched = _launched(before)
+    assert _part(launched, QAT_PER_STEP["fused"]) == QAT_PER_STEP["fused"], \
+        f"{phase}: first step's launches {launched}"
+    first_plain = _floats(plain.main_step(batch, StepDraws(**z)))
+    gaps = {k_: abs(first[k_] - first_plain[k_]) for k_ in QAT_LOSS_KEYS}
+    for k_ in QAT_LOSS_KEYS:
+        assert gaps[k_] <= QAT_LOSS_ATOL + QAT_LOSS_RTOL * abs(first_plain[k_]), \
+            f"{phase}: QAT {k_} {first[k_]} against plain {first_plain[k_]}"
+    plain_per_step = {**dict.fromkeys(QAT_PER_STEP["fused"], 0), **FUSED_GAN_PER_STEP}
+    secs = {"qat": [], "plain": []}
+    peak = {}
+    before = _snapshot(model)
+    steps = []
+    for i, kind in enumerate(("plain", "qat", "qat", "plain")):
+        torch.cuda.reset_peak_memory_stats()
+        its = (3 * (2 * i + 1), 3 * (2 * i + 2))
+        if kind == "qat":
+            logs, t, qat_launched = _qat_steps(model, batch, its, QAT_PER_STEP["fused"], phase)
+            steps += logs
+        else:
+            _, t, _ = _qat_steps(plain, batch, its, plain_per_step, f"{phase} plain bf16")
+        secs[kind] += t
+        peak[kind] = max(peak.get(kind, 0.0), torch.cuda.max_memory_allocated() / 1024**3)
+    changed = _changed(model, before)
+    want = {n: n != "content_discriminator" for n in model.nets}
+    assert changed == want, f"{phase}: QAT main steps changed {changed}, expected {want}"
+    # the plain step with kernels 9/10 off, fused and reference: the norms'
+    # launches that the QAT steps must keep
+    plain.args.fused_resblock = "off"
+    plain_off = {}
+    for it, gan_step in ((45, "fused"), (48, "reference")):
+        plain.args.gan_step = gan_step
+        _, _, plain_off[gan_step] = _qat_steps(
+            plain, batch, (it,), dict.fromkeys(QAT_PER_STEP[gan_step], 0),
+            f"{phase} plain bf16 {gan_step}, kernels 9/10 off")
+    plain.args.fused_resblock, plain.args.gan_step = FUSED_GAN_ARGS["fused_resblock"], "fused"
+    # where the time goes: device time by kernel over one main step of each
+    for name, m in (("plain bf16", plain), ("QAT", model)):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, seconds = _timed_step(m, batch, 27)
+        _log_profile(prof, f"{phase} {name} fused main step", seconds, 25)
+    del plain
+    torch.cuda.empty_cache()
+    model.args.gan_step = "reference"
+    ref_steps, ref_s, ref_launched = _qat_steps(model, batch, (30, 33),
+                                                QAT_PER_STEP["reference"], f"{phase} reference")
+    for gan_step, got in (("fused", qat_launched), ("reference", ref_launched)):
+        assert _part(got, QAT_NORM_KERNELS) == _part(plain_off[gan_step], QAT_NORM_KERNELS), \
+            f"{phase} {gan_step}: norm launches {got}, plain with 9/10 off {plain_off[gan_step]}"
+    model.args.gan_step = "fused"
+    scopes = {}
+    for scope, wname in QAT_SCOPES.items():
+        model._qat_scope = qat.parse_qat_scope(scope)
+        per_step = {k_: (n if k_ == wname else 0) for k_, n in QAT_PER_STEP["fused"].items()}
+        logs, t, _ = _qat_steps(model, batch, (36, 39), per_step, f"{phase} scope {scope}")
+        scopes[scope] = dict(step_s=t, it_per_s=len(t) / sum(t), launches=per_step)
+        steps += logs
+    model._qat_scope = qat.parse_qat_scope("all")
+    records = []
+    with timed_weight_quantize(records):
+        _qat_steps(model, batch, (42,), QAT_PER_STEP["fused"], f"{phase} quantize timed")
+    _check_finite(phase, first, *steps, *ref_steps)
+    qat_rate = len(secs["qat"]) / sum(secs["qat"])
+    plain_rate = len(secs["plain"]) / sum(secs["plain"])
+    log(dict(
+        phase=phase, model="AdaINModel", card=card,
+        config={k_: v for k_, v in QAT_ARGS.items() if k_ != "seed"}, gan_step="fused",
+        images_per_side=B, calibrate_s=calibrate_s,
+        amax_leaves={k_: len(v) for k_, v in tree.items()},
+        main_it_per_s=qat_rate, plain_bf16_it_per_s=plain_rate,
+        qat_over_plain=qat_rate / plain_rate, main_step_s=secs["qat"],
+        plain_step_s=secs["plain"], reference_step_s=ref_s,
+        reference_it_per_s=len(ref_s) / sum(ref_s), scopes=scopes,
+        peak_memory_allocated_gb=peak["qat"], plain_peak_memory_allocated_gb=peak["plain"],
+        weight_quantize_ms_per_step=sum(ms for _, ms in records),
+        weight_quantizes_per_step=len(records),
+        first_step_losses=first, plain_first_step_losses=first_plain,
+        loss_gaps=gaps, loss_tol=dict(rtol=QAT_LOSS_RTOL, atol=QAT_LOSS_ATOL),
+        per_main_step=dict(fused=qat_launched, reference=ref_launched),
+        plain_kernels_9_10_off_per_main_step=plain_off,
+    ))
+    del model
+    torch.cuda.empty_cache()
+    return dict(fused=qat_launched, reference=ref_launched)
+
+
+# ---------------------------------------------------------------- export --
+
+# the bundles, under the checkout's gitignored build/, removed after
+EXPORT_DIR = Path(__file__).resolve().parent / "build" / "export_bundles"
+# the bundles' kernel launches per forward, as the eager forwards launch them
+EXPORT_COUNTERS = {"moments": kmoments.moments, "adain": kadain.adain,
+                   "int8_downconv": kq.downconv, "int8_resblock": kq.resblock,
+                   "int8_conv3x3": kq.conv3x3, "int8_deconv": kq.deconv, "head": khead.head}
+EXPORT_FLOAT_PER_FORWARD = {**dict.fromkeys(EXPORT_COUNTERS, 0), "moments": 13, "adain": 8}
+EXPORT_INT8_PER_FORWARD = {**dict.fromkeys(EXPORT_COUNTERS, 0), **{
+    k: v for k, v in INT8_PER_FORWARD.items() if k in EXPORT_COUNTERS}}
+# replays each bundle in a process that imports torch and the kernels' ops
+# only, and prints whether each output equals the eager one and its launches.
+# Both sides run with TF32 off and cuDNN's deterministic algorithms: with
+# its default f32 algorithms two eager calls of the f32 forward part by
+# about 1.5e-7 on an H100, so the bit-for-bit check needs them on either
+# side
+REPLAY = r"""
+import json, sys
+import torch
+from masterthesis_tpu_torch.ops.kernels import library
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+root = sys.argv[1]
+expected = torch.load(root + "/expected.pt")
+counters = {"moments": library.moments.moments, "adain": library.adain.adain,
+            "int8_downconv": library.int8_conv.downconv,
+            "int8_resblock": library.int8_conv.resblock,
+            "int8_conv3x3": library.int8_conv.conv3x3, "int8_deconv": library.int8_conv.deconv,
+            "head": library.head.head}
+out = {}
+for case, (path, inputs, want) in expected.items():
+    fn = torch.export.load(f"{root}/{path}").module()
+    before = {k: f.launches for k, f in counters.items()}
+    with torch.no_grad():
+        got = fn(*inputs)
+    torch.cuda.synchronize()
+    out[case] = dict(equal=torch.equal(got, want),
+                     max_abs_diff=(got.float() - want.float()).abs().max().item(),
+                     launches={k: f.launches - before[k] for k, f in counters.items()})
+mods = sorted(m for m in sys.modules if m.startswith(("jax", "masterthesis")))
+print(json.dumps(dict(cases=out, modules=mods)))
+"""
+
+
+def _counted(fn) -> tuple:
+    before = {k: f.launches for k, f in EXPORT_COUNTERS.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches - before[k] for k, f in EXPORT_COUNTERS.items()}
+
+
+def _host_s(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _turns(fns: dict, reps: int = 3, rounds: int = 1) -> dict:
+    """img/s of each of two request functions timed in turns (a, b, b, a),
+    ``rounds`` times: over all requests, and from the median request."""
+    (a, fa), (b, fb) = fns.items()
+    secs = {a: [], b: []}
+    for _ in range(rounds):
+        for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+            secs[name] += [_host_s(fn) for _ in range(reps)]
+    out = {name: B * len(s) / sum(s) for name, s in secs.items()}
+    out.update({f"{name}_median": B / float(np.median(s)) for name, s in secs.items()})
+    return out
+
+
+def _dispatch_us(calls: int = 2000) -> dict:
+    """Host µs per call, in turns, of two ops' CUDA implementations called
+    directly (what ``library.call`` runs on a plain CUDA tensor), through
+    the op (``library.OPS``, what a traced program calls) and through the
+    wrapper that the model calls, each on a small input: moments (one
+    argument) on a (1, 1, 8, 8) f32 tensor and the stride-2 int8 conv
+    (eleven) on a (1, 32, 8, 8) one. The dispatcher's cost is op - direct."""
+    x = torch.zeros((1, 1, 8, 8), device="cuda")
+    x8 = torch.zeros((1, 32, 8, 8), device="cuda")
+    qc = kq.quant_conv(torch.full((32, 32, 3, 3), 0.01, device="cuda"), None, 1.0, 2, None)
+    conv_args = (x8, qc.w, qc.scale, qc.bias, qc.inv_sx, None, None, False, 0.0, False, False)
+    cases = {
+        "moments": {"direct": lambda: library.EAGER["moments"](x),
+                    "op": lambda: library.OPS["moments"](x),
+                    "wrapper": lambda: kmoments.moments(x)},
+        "int8_downconv": {"direct": lambda: library.EAGER["int8_downconv"](*conv_args),
+                          "op": lambda: library.OPS["int8_downconv"](*conv_args),
+                          "wrapper": lambda: kq.downconv(x8, qc)},
+    }
+    out = {}
+    for op, fns in cases.items():
+        secs = {name: [] for name in fns}
+        for name in ("direct", "op", "wrapper", "wrapper", "op", "direct"):
+            fns[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[name]()
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+        out[op] = {name: sum(s) / (len(s) * calls) * 1e6 for name, s in secs.items()}
+    return out
+
+
+def export_phase(card: str) -> dict:
+    """``export``: the serving-bundle export at 4's shape (AdaINModel, 256
+    px, dim 64, latent 8, 4 domains, B=8, seed 0). The f32 model's
+    ``forward_random`` and the int8 model's (calibrated at bf16 compute)
+    ``forward_random`` and ``forward_reference`` are exported with
+    ``tools.export_serving.export_bundle``, saved, and replayed in a fresh
+    process that imports torch and ``ops/kernels/library.py`` only: each
+    replay must equal its eager forward bit for bit and launch the same
+    kernels as often (float 13 moments, 8 AdaIN; int8 1 moments, 2 down
+    convs, 8 resblocks, 2 transposed convs, 1 head). Then the replay's and
+    the eager forward's img/s in turns, in this process, and the
+    dispatcher's µs per call (:func:`_dispatch_us`) with the share of an
+    eager int8 request that its 14 op calls would take (``library.call``
+    skips it on the eager path; the eager forwards against a checkout
+    without the ops are compared by ``scripts/port_serve_ab.py``). Returns
+    each bundle's launches per forward."""
+    phase = "export"
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    _, dev = request_inputs(ARGS, seed=1)
+    eps = torch.randn((B, ARGS["latent_dim"]), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+    f32 = AdaINModel(default_test_args(compute_dtype="float32", **ARGS))
+    q = AdaINModel(default_test_args(compute_dtype="bfloat16", **ARGS))
+    q.calibrate_int8(*calibration_batches(ARGS))
+    size = ARGS["crop_size"]
+    t0 = time.perf_counter()
+    export_bundle(f32, str(EXPORT_DIR / "f32"), B, size, fns=("forward_random",))
+    export_bundle(q, str(EXPORT_DIR / "int8_bf16"), B, size)
+    export_s = time.perf_counter() - t0
+    args_random = (dev["img"], dev["z"], dev["c"])
+    args_ref = (dev["img"], dev["ref"], dev["c"], eps)
+    cases = {
+        "f32/forward_random": (f32, "f32/forward_random.pt2", "forward_random", args_random,
+                               EXPORT_FLOAT_PER_FORWARD),
+        "int8_bf16/forward_random": (q, "int8_bf16/forward_random.pt2", "forward_random",
+                                     args_random, EXPORT_INT8_PER_FORWARD),
+        "int8_bf16/forward_reference": (q, "int8_bf16/forward_reference.pt2",
+                                        "forward_reference", args_ref, None),
+    }
+    expected, eager_launches = {}, {}
+    torch.backends.cudnn.deterministic = True
+    for case, (model, path, fn, args, per_forward) in cases.items():
+        out, launched = _counted(lambda: getattr(model, fn)(*args)[0])
+        if per_forward is not None:
+            assert launched == per_forward, f"{phase} {case}: eager launches {launched}"
+        check_image(out, (B, size, size, 3), f"{phase} {case}")
+        expected[case] = (path, args, out)
+        eager_launches[case] = launched
+    torch.backends.cudnn.deterministic = False
+    torch.save(expected, EXPORT_DIR / "expected.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", REPLAY, str(EXPORT_DIR)], capture_output=True,
+                          text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    replay_s = time.perf_counter() - t0
+    assert proc.returncode == 0, f"{phase}: the replay process failed\n{proc.stderr[-4000:]}"
+    replay = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert not [m for m in replay["modules"] if m.startswith("jax") or
+                m.startswith("masterthesis_tpu.") or ".models" in m], replay["modules"]
+    for case, got in replay["cases"].items():
+        assert got["equal"], f"{phase} {case}: the replay differs by {got['max_abs_diff']}"
+        assert got["launches"] == eager_launches[case], \
+            f"{phase} {case}: replay launches {got['launches']}, eager {eager_launches[case]}"
+    rates = {}
+    for name, model in (("f32", f32), ("int8_bf16", q)):
+        bundle = load_bundle(str(EXPORT_DIR / name))
+        rates[name] = _turns({"eager": lambda m=model: m.forward_random(*args_random),
+                              "replay": lambda b=bundle: b.forward_random(*args_random)},
+                             reps=5, rounds=2)
+    per_call = _dispatch_us()
+    # the share of the median eager int8 request that the dispatcher would
+    # take: the moments op's cost for its one call, the conv op's for the 13
+    # others (each of eleven to fifteen arguments)
+    cost = {op: t["op"] - t["direct"] for op, t in per_call.items()}
+    op_calls = sum(EXPORT_INT8_PER_FORWARD.values())
+    dispatch_share = (cost["moments"] + (op_calls - 1) * cost["int8_downconv"]) * 1e-6 * \
+        rates["int8_bf16"]["eager_median"] / B
+    log(dict(
+        phase=phase, model="AdaINModel", card=card, batch=B, export_s=export_s,
+        replay_process_s=replay_s, replay=replay["cases"], replay_modules=replay["modules"],
+        eager_launches=eager_launches, img_per_s=rates,
+        dispatch_us=per_call, op_calls_per_int8_forward=op_calls,
+        dispatch_share_of_request=dispatch_share,
+        bundle_mb={p.name: sum(f.stat().st_size for f in p.iterdir()) / 2**20
+                   for p in EXPORT_DIR.iterdir() if p.is_dir()},
+    ))
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    return {case: got["launches"] for case, got in replay["cases"].items()}
+
+
 def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
     model = model_cls(default_train_args(**{**TRAIN_ARGS, **(flags or {})}))
@@ -3607,9 +4163,12 @@ def main(argv) -> int:
                 fn = line.split("Function properties for", 1)[1].strip()
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 log(f"  {name}: {fn} | {line.strip()}")
-    if argv[:2] == ["--only", "distributed"]:
-        distributed(card, t0)
-        log(dict(phase="seconds", upto="distributed", seconds=time.perf_counter() - t0))
+    if argv[:1] == ["--only"]:
+        phases = {"distributed": lambda: distributed(card, t0),
+                  "int8_train": lambda: int8_train(card), "export": lambda: export_phase(card)}
+        for name in argv[1].split(","):
+            phases[name]()
+            log(dict(phase="seconds", upto=name, seconds=time.perf_counter() - t0))
         return 0
 
     entries = []
@@ -3676,6 +4235,22 @@ def main(argv) -> int:
         **{k: dict(launches=launched[k]) for k in FUSED_GAN_PER_STEP},
         "moments/bf16": dict(launches=launched["moments"])}
     log(dict(phase="seconds", upto="distributed", seconds=time.perf_counter() - t0))
+    qat_launched = int8_train(card)
+    for gan_step, per_step in qat_launched.items():
+        per_main_step[f"int8_train/{gan_step}"] = {
+            {"moments": "moments/bf16", "adain": "adain/bf16"}.get(k, k): dict(launches=n)
+            for k, n in per_step.items()}
+    for e in entries:
+        if e["name"] in {f"{k}/bf16" for k in QAT_SCOPES.values()}:
+            e["int8_train"] = {gan_step: per_step[e["name"].split("/")[0]]
+                               for gan_step, per_step in qat_launched.items()}
+    log(dict(phase="seconds", upto="int8_train", seconds=time.perf_counter() - t0))
+    export_launched = export_phase(card)
+    for e in entries:
+        kernel = e["name"].split("/")[0]
+        if kernel in EXPORT_COUNTERS:
+            e["export"] = {case: launched[kernel] for case, launched in export_launched.items()}
+    log(dict(phase="seconds", upto="export", seconds=time.perf_counter() - t0))
     # each training phase's launches (moments also ms, bound ms and error)
     # per main step, beside the serving launches in "launches"
     for e in entries:

@@ -20,6 +20,19 @@ returns ``(y, pending)``: its norm and activation as a per-(sample, channel)
 affine ``{"scale", "shift", "relu", "alpha"}`` that the next conv applies in
 its quantize prologue.
 
+int8 training (``--int8_train``, ``TranslationModel.calibrate_quant_train``).
+A conv holds a second amax, ``train_amax``, apart from the serving
+``amax_in``, as the JAX package keeps ``_train_quant`` apart from
+``quant_cols``. Inside ``ops/qat.qat_trace`` (the main training step) an
+eligible conv with one (the 3x3 pad-1 convs at stride 1, scope "conv", and
+2, "stride2"; the (3, 2, 1, 1) transposed convs, "deconv") whose kind is in
+the step's scope runs its straight-through Function of ``ops/qat.py``, from
+weights quantized on the device again whenever they changed
+(:meth:`_Int8State.train_quant`); any other conv runs float. The serving
+routes (deferred norms, in-kernel statistics, the whole-block kernels 6, 9
+and 10) stay off there, as in ``masterthesis_tpu/models/blocks.py:257-281``,
+``:459-475`` and ``:870-876``.
+
 Training. Inside ``resblock_train.fused_train_trace`` (the main training
 step), a ``ResnetBlock`` with instance norm and relu, or an
 ``AdaINResnetBlock`` with relu or no activation, whose input passes the JAX
@@ -46,7 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from masterthesis_tpu_torch.ops import norms
+from masterthesis_tpu_torch.ops import norms, qat
 from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kint8
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
@@ -181,7 +194,10 @@ class _Int8State(nn.Module):
     amax while calibrating; ``amax_in`` (a non-persistent buffer, so outside
     the state_dict) the installed one; the quantized weights are built from
     the float ones at the first int8 call and dropped by :meth:`set_amax`
-    and :meth:`drop_quant`."""
+    and :meth:`drop_quant`. ``train_amax`` is the ``--int8_train`` one
+    (:meth:`set_train_amax`), with its activation scales made once; its
+    quantized weights (:meth:`train_quant`) are built at the first QAT
+    forward after each update or load, which call :meth:`drop_quant`."""
 
     calibrates = True
 
@@ -189,6 +205,9 @@ class _Int8State(nn.Module):
         self.register_buffer("amax_in", None, persistent=False)
         self.calib_amax: Optional[torch.Tensor] = None
         self._quant = None
+        self.train_amax: Optional[torch.Tensor] = None
+        self._train_scales = None  # kint8.act_scales(train_amax), inv_sx on the device
+        self._train_quant = None
 
     def record_amax(self, x: torch.Tensor) -> None:
         if self.calib_amax is not None and x.numel():
@@ -201,16 +220,40 @@ class _Int8State(nn.Module):
         self._quant = None
 
     def drop_quant(self) -> None:
-        self._quant = None
+        """The weights changed: quantize them again at the next int8 call."""
+        self._quant = self._train_quant = None
 
     @property
     def int8(self) -> bool:
-        return self.amax_in is not None and self.calib_amax is None
+        """Whether the serving int8 route is on (never inside a QAT step)."""
+        return self.amax_in is not None and self.calib_amax is None and not qat.qat_trace_mode()
 
     def quant(self) -> kint8.QuantConv:
         if self._quant is None:
             self._quant = self._make_quant()
         return self._quant
+
+    def set_train_amax(self, amax) -> None:
+        """Install an ``--int8_train`` amax (a scalar), or None: its scales
+        are made here, on the CPU, once per calibration."""
+        self._train_quant = None
+        if amax is None:
+            self.train_amax = self._train_scales = None
+            return
+        a = torch.as_tensor(amax, dtype=torch.float32).detach().reshape(())
+        inv, sx = kint8.act_scales(a)
+        dev = self.weight.device
+        self.train_amax = a.to(dev)
+        self._train_scales = (inv.to(dev), sx.to(dev))
+
+    def train_quant(self) -> kint8.QuantConv:
+        """The QAT QuantConv of the current weights, quantized on their
+        device at the first QAT forward after :meth:`drop_quant`: once per
+        update, not once per forward."""
+        if self._train_quant is None:
+            with torch.no_grad():
+                self._train_quant = self._make_quant(self._train_scales)
+        return self._train_quant
 
 
 class Conv2d(_Int8State):
@@ -242,9 +285,9 @@ class Conv2d(_Int8State):
     def fan_in(self) -> int:
         return self.weight[0].numel()
 
-    def _make_quant(self) -> kint8.QuantConv:
+    def _make_quant(self, scales=None) -> kint8.QuantConv:
         return kint8.quant_conv(self.weight, self.bias, self.amax_in, self.stride,
-                                self.padding_type)
+                                self.padding_type, scales)
 
     def forward(self, x, pending: Optional[dict] = None):
         """``pending``: a deferred norm from the previous block, applied in
@@ -252,11 +295,17 @@ class Conv2d(_Int8State):
         (y, sum, sumsq) from an int8 conv with ``serving_stats``."""
         if self.calib_amax is not None:
             self.record_amax(apply_pending(x, pending, self.dtype) if pending is not None else x)
-        if self.int8 and (self.kernel_size, self.padding) == (3, 1) and self.stride in (1, 2):
+        eligible = (self.kernel_size, self.padding) == (3, 1) and self.stride in (1, 2)
+        if self.int8 and eligible:
             conv = kint8.conv3x3 if self.stride == 1 else kint8.downconv
             return conv(x, self.quant(), pending, self.serving_stats)
         if pending is not None:
             x = apply_pending(x, pending, self.dtype)
+        if (qat.qat_trace_mode() and self.train_amax is not None and eligible and self.sn is None
+                and ("conv" if self.stride == 1 else "stride2") in qat.qat_scope()):
+            return qat.int8_conv3x3_ste(x, self.weight, self.bias, self.train_amax,
+                                        self.padding_type, self.stride, self.dtype,
+                                        self.train_quant())
         pad = self.padding
         if self.padding_type is not None:
             x = pad2d(x, pad, self.padding_type)
@@ -288,8 +337,8 @@ class ConvTranspose2d(_Int8State):
         self.calibrates = (kernel_size, stride, padding, output_padding) == (3, 2, 1, 1)
         self._init_int8()
 
-    def _make_quant(self) -> kint8.QuantConv:
-        return kint8.quant_deconv(self.weight, self.bias, self.amax_in)
+    def _make_quant(self, scales=None) -> kint8.QuantConv:
+        return kint8.quant_deconv(self.weight, self.bias, self.amax_in, scales)
 
     def forward(self, x, pending: Optional[dict] = None):
         if self.calibrates:
@@ -298,6 +347,10 @@ class ConvTranspose2d(_Int8State):
                 return kint8.deconv(x, self.quant(), pending, self.serving_stats)
         if pending is not None:
             x = apply_pending(x, pending, self.dtype)
+        if (self.calibrates and qat.qat_trace_mode() and self.train_amax is not None
+                and "deconv" in qat.qat_scope()):
+            return qat.int8_deconv_ste(x, self.weight, self.bias, self.train_amax, self.dtype,
+                                       self.train_quant())
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv_transpose2d(
             x.to(self.dtype), self.weight.to(self.dtype), bias,

@@ -32,12 +32,25 @@ gradient penalty, a double backward through D), ``--dis_sn`` (spectral
 norm on the discriminators' convs, ``ops/spectral.py``), ``--ms_dis`` (the
 multi-scale discriminator), ``--vgg_loss`` (the perceptual terms ``g_p`` and
 ``g_p2``, in f32) and ``--remat`` (``torch.utils.checkpoint`` around the
-content encoder and the decoder). Only ``--int8_train`` is not ported.
+content encoder and the decoder) and ``--int8_train`` (below).
 WGAN-GP's penalty takes its discriminator forward and the gradient at the
 interpolates without cuDNN on the card: cuDNN's f32 4x4/s2 convs there move
 the penalty by 1.9e-4 from an f64 evaluation (the CPU's f32 by 1.3e-8;
 ``tools/wgangp_card_vs_cpu.py``), ATen's own conv by 2e-7. The double
 backward into D's params keeps cuDNN, which is accurate there.
+
+``--int8_train`` (quantization-aware training, ``ops/qat.py``):
+:meth:`TranslationModel.calibrate_quant_train` measures every conv's input
+range over one batch of the content encoder and the decoder and installs
+it as the convs' ``train_amax``; while one is installed the main step runs
+inside ``qat.qat_trace`` instead of ``fused_train_trace``: the eligible
+convs of the content encoder and the decoder whose kind is in
+``--int8_train_scope`` take their int8 forward (kernels 4, 7, 5) with the
+float conv's gradient, and the whole-block kernels 9 and 10 stay off, as
+the JAX package's ``_with_qat`` routes its step
+(``masterthesis_tpu/models/translation.py:627-657``). The content step and
+the serving forwards stay float. Under data parallelism it raises: the
+calibration would need an all-reduce with MAX to equal one device's.
 
 ``compute_visuals`` (through ``forward``) gives the trainer's 2x4 image grid.
 
@@ -71,7 +84,7 @@ from masterthesis_tpu_torch.models.blocks import DROPOUT_RATE, Conv2d
 from masterthesis_tpu_torch.models.functions import apply_updates
 from masterthesis_tpu_torch.models.model import Model
 from masterthesis_tpu_torch.models.quantize import LEAF, extract_amax, int8_convs, merge_amax
-from masterthesis_tpu_torch.ops import spectral
+from masterthesis_tpu_torch.ops import qat, spectral
 from masterthesis_tpu_torch.ops.kernels.resblock_train import fused_train_trace
 from masterthesis_tpu_torch.parallel import mesh as pmesh
 
@@ -81,7 +94,8 @@ GEN_NETS = ("content_encoder", "style_encoder", "decoder")
 # flags of the JAX package whose branches the port does not have yet, with
 # the ROADMAP item that holds them
 _UNPORTED = (
-    (lambda a: a.int8_train, "--int8_train", "A.8, QAT"),
+    (lambda a: a.int8_train and (a.num_devices or 1) > 1, "--int8_train under data parallel",
+     "A.8, QAT under data parallel"),
 )
 
 
@@ -205,11 +219,18 @@ class TranslationModel(Model):
         # the installed amax tree per net, or None: the float path
         self.quant: dict | None = None
         self.perceptual: L.VGGPerceptualLoss | None = None  # --vgg_loss, training
+        # --int8_train: the installed amax tree per net (None: plain steps),
+        # the conv kinds it quantizes and each net's int8 convs
+        self._train_quant: dict | None = None
+        self._qat_scope: frozenset | None = None
+        self._qat_convs: dict = {}
         self.print_loss = ["g_adv", "g_cls", "l1_cc_rec"]
 
     # NCHW building blocks
     def encode_content(self, img: torch.Tensor, noise=None) -> torch.Tensor:
-        serving = bool(self.quant and self.quant.get("content_encoder"))
+        # the deferred-norm chain is the int8 serving forward's, never a QAT step's
+        serving = (bool(self.quant and self.quant.get("content_encoder"))
+                   and not qat.qat_trace_mode())
         return self.nets.content_encoder(img, serving=serving, noise=noise)
 
     def encode_style(self, img: torch.Tensor, c: torch.Tensor, eps=None):
@@ -297,12 +318,80 @@ class TranslationModel(Model):
         self.quant = None
 
     def load_params(self, state_dicts: dict) -> None:
-        """Load weights; an int8 model keeps its amax tree and quantizes the
-        new weights at its next forward."""
+        """Load weights; an int8 model keeps its amax tree (serving's and
+        ``--int8_train``'s) and quantizes the new weights at its next int8
+        forward."""
         super().load_params(state_dicts)
+        self._drop_quants()
+
+    def load(self, checkpoint=None, opt_ckpt=None) -> None:
+        """``Model.load``; the int8 weights are quantized again, as after
+        :meth:`load_params`."""
+        super().load(checkpoint, opt_ckpt)
+        self._drop_quants()
+
+    def _drop_quants(self) -> None:
         for net in self.nets.values():
             for m in int8_convs(net).values():
                 m.drop_quant()
+
+    # int8 training (--int8_train)
+    def calibrate_quant_train(self, batch, c, z) -> dict:
+        """Measure the ``--int8_train`` activation ranges on one batch and
+        install them (``masterthesis_tpu/models/translation.py:295-340``).
+
+        Runs the content encoder and the decoder on the float path, without
+        noise or dropout, over ``batch`` (NHWC images, or a dict whose
+        ``x1`` (else ``x``) are), with one-hot targets ``c`` and styles ``z``
+        (B, latent): the draws are the caller's, as :meth:`calibrate_int8`
+        takes them. Records each conv's max |input| and installs it as the
+        conv's ``train_amax`` (the serving ``amax_in`` stays as it is, so
+        the serving forwards stay float). Returns the per-net amax tree."""
+        if self._ranks() > 1:
+            raise NotImplementedError(
+                "--int8_train under data parallel is not ported to masterthesis_tpu_torch yet "
+                "(ROADMAP A.8, QAT under data parallel)")
+        if isinstance(batch, dict):
+            batch = batch.get("x1", batch.get("x"))
+        convs = [m for name in INT8_NETS for m in int8_convs(self.nets[name]).values()]
+        try:
+            with torch.no_grad():
+                for m in convs:
+                    m.calib_amax = torch.zeros((), device=self.device)
+                z_c = self.nets.content_encoder(_nchw(self._tensor(batch)))
+                self.nets.decoder(z_c, self._tensor(z), self._tensor(c))
+                cols = {name: extract_amax(self.nets[name]) for name in INT8_NETS}
+        finally:
+            for m in convs:
+                m.calib_amax = None
+        self.load_int8_train(cols)
+        return cols
+
+    def load_int8_train(self, quant: dict) -> None:
+        """Install an ``--int8_train`` amax tree (one flat dict per net of
+        ``INT8_NETS``, as :meth:`calibrate_quant_train` returns)."""
+        for name, tree in quant.items():
+            convs = int8_convs(self.nets[name])
+            if set(tree) != {f"{path}.{LEAF}" for path in convs}:
+                raise KeyError(f"{name}: the amax tree does not match its convs")
+            for path, m in convs.items():
+                m.set_train_amax(tree[f"{path}.{LEAF}"])
+            self._qat_convs[name] = list(convs.values())
+        self._train_quant = {name: dict(tree) for name, tree in quant.items()}
+
+    @property
+    def int8_train_installed(self) -> bool:
+        """Whether an ``--int8_train`` calibration is installed: the main
+        steps then run under QAT."""
+        return self._train_quant is not None
+
+    def disable_int8_train(self) -> None:
+        """Back to plain training steps."""
+        for name in INT8_NETS:
+            for m in int8_convs(self.nets[name]).values():
+                m.set_train_amax(None)
+        self._train_quant = None
+        self._qat_convs = {}
 
     # training
     def _check_train_flags(self) -> None:
@@ -324,6 +413,8 @@ class TranslationModel(Model):
         ``nets``. A flag whose branch is not ported raises first."""
         self._check_train_flags()
         a = self.args
+        if a.int8_train:
+            self._qat_scope = qat.parse_qat_scope(a.int8_train_scope)
         common = dict(norm=a.dis_norm, num_domains=a.num_domains, n_layers=a.dis_n_layers or 6,
                       sn=bool(a.dis_sn), dtype=dtype)
         if a.ms_dis:
@@ -427,6 +518,8 @@ class TranslationModel(Model):
             k = len(params[n])
             g = pmesh.mean_gradients(grads[i:i + k], self._data_group())
             apply_updates(params[n], g, self.state.opt_state[n], lr, **self.optimizer_config(n))
+            for m in self._qat_convs.get(n, ()):
+                m.drop_quant()  # QAT quantizes the new weights at its next forward
             i += k
 
     def _make_d_fakes(self, img, c_org, b, z_sr, draws):
@@ -658,14 +751,19 @@ class TranslationModel(Model):
 
     def main_step(self, batch, draws: Optional[StepDraws] = None) -> dict:
         """D1, D2, G phase 1, G phase 2, by ``args.gan_step`` ("reference"
-        or "fused"); returns the logged losses (0-dim tensors on the
+        or "fused"), under QAT where :meth:`calibrate_quant_train` installed
+        a calibration; returns the logged losses (0-dim tensors on the
         device) and ``lr``."""
         img, c_org, b = self._batch(batch)
         draws = self._step_draws(draws, b)
         lr = self.schedule(self.state.step)
         logs = {}
         step = self._fused_step if self.args.gan_step == "fused" else self._reference_step
-        with fused_train_trace(self.args.fused_resblock or "off"):
+        if self.int8_train_installed:
+            trace = qat.qat_trace(self._qat_scope)
+        else:
+            trace = fused_train_trace(self.args.fused_resblock or "off")
+        with trace:
             step(img, c_org, b, draws, lr, logs)
         logs = pmesh.mean_logs(logs, self._data_group())
         logs["lr"] = lr

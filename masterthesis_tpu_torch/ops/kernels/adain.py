@@ -1,7 +1,8 @@
 """Adaptive instance norm forward, the norm of every decoder resblock.
 
-``adain`` is the wrapper: on a CPU tensor it runs :func:`adain_plain`, on a
-CUDA tensor it launches ``csrc/adain.cu`` (which replaces
+``adain`` is the wrapper, around the op ``masterthesis_tpu_torch::adain``
+(``library.py``): on a CPU tensor it runs :func:`adain_plain`, on a CUDA
+tensor it launches ``csrc/adain.cu`` (:func:`adain_cuda`, which replaces
 ``masterthesis_tpu/ops/pallas/adain.py`` ``_pallas_adain_fwd``) or raises.
 ``adain.launches`` counts the kernel's launches.
 
@@ -17,7 +18,7 @@ import ctypes
 
 import torch
 
-from masterthesis_tpu_torch.ops.kernels import build
+from masterthesis_tpu_torch.ops.kernels import build, library
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -89,8 +90,13 @@ def _check_planes(what: str, x: torch.Tensor, **operands) -> None:
 def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):
     """x (B, C, H, W) f32 or bf16, gamma and beta f32 (B, C) -> x's shape and
     dtype. Its gradient is ``ops/norms.py``'s."""
-    if x.device.type == "cpu":
-        return adain_plain(x, gamma, beta, eps)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"adain runs on CPU or CUDA tensors, not {x.device}")
+    return library.call("adain", x, gamma, beta, float(eps))
+
+
+def adain_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):
+    """One launch of the kernel: :func:`adain` on a CUDA tensor."""
     _check_x("adain", x)
     _check_planes("adain", x, gamma=gamma, beta=beta)
     b, c, h, w = x.shape
@@ -111,7 +117,18 @@ def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float =
     return out
 
 
+def _adain_cpu(x, gamma, beta, eps):
+    # looks adain_plain up at each call, so that a substitute for it runs
+    return adain_plain(x, gamma, beta, eps)
+
+
+def _adain_fake(x, gamma, beta, eps):
+    return torch.empty_like(x)
+
+
 adain.launches = 0
+library.register("adain", "(Tensor x, Tensor gamma, Tensor beta, float eps) -> Tensor",
+                 _adain_cpu, adain_cuda, _adain_fake)
 
 
 def adain_stats(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, gamma: torch.Tensor,

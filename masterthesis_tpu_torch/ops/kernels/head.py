@@ -1,7 +1,8 @@
 """The int8 decoder's 1x1 tanh head with the last upsample's LayerNorm.
 
-``head`` is the wrapper: on a CPU tensor it runs :func:`head_plain`, on a
-CUDA tensor it launches ``csrc/head.cu`` (which replaces
+``head`` is the wrapper, around the op ``masterthesis_tpu_torch::head``
+(``library.py``): on a CPU tensor it runs :func:`head_plain`, on a CUDA
+tensor it launches ``csrc/head.cu`` (:func:`head_cuda`, which replaces
 ``masterthesis_tpu/ops/pallas/conv_int8.py`` ``pallas_packed_head``) or
 raises. One pass: the deferred per-(sample, channel) LayerNorm affine, relu,
 the 1x1 conv C -> Co, bias and tanh. The TPU kernel's lane-packed layout is
@@ -33,7 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from masterthesis_tpu_torch.ops.kernels import build
+from masterthesis_tpu_torch.ops.kernels import build, library
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 MAX_OUT = 8  # output channels a thread keeps in registers (csrc/head.cu kMaxOut)
@@ -132,10 +133,25 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
         raise ValueError(f"head: activation {act!r} is not one of {ACTS}")
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("head has no backward; call it under torch.inference_mode()")
-    if x.device.type == "cpu":
-        return head_plain(x, pending, weight, bias, act)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"head runs on CPU or CUDA tensors, not {x.device}")
+    return library.call("head", x, pending["scale"], pending["shift"], bool(pending.get("relu")),
+                        float(pending.get("alpha", 0.0)), weight, bias, act == "tanh")
+
+
+def _op_args(scale, shift, relu, alpha, tanh):
+    return {"scale": scale, "shift": shift, "relu": relu, "alpha": alpha}, "tanh" if tanh else None
+
+
+def _head_cpu(x, scale, shift, relu, alpha, weight, bias, tanh):
+    pending, act = _op_args(scale, shift, relu, alpha, tanh)
+    return head_plain(x, pending, weight, bias, act)
+
+
+def head_cuda(x, scale, shift, relu, alpha, weight, bias, tanh):
+    """One launch of the kernel: :func:`head` on a CUDA tensor, the pending
+    affine and the activation as the op passes them."""
+    pending, act = _op_args(scale, shift, relu, alpha, tanh)
     weight, bias = _checked(x, pending, weight, bias)
     b, c, h, w = x.shape
     co = weight.shape[0]
@@ -144,10 +160,9 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.mt_head(
-            x.data_ptr(), pending["scale"].data_ptr(), pending["shift"].data_ptr(),
-            int(bool(pending.get("relu"))), float(pending.get("alpha", 0.0)),
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), int(relu), float(alpha),
             weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, c, h * w, co, int(act == "tanh"), int(x.dtype == torch.bfloat16), tiling.runs,
+            b, c, h * w, co, int(tanh), int(x.dtype == torch.bfloat16), tiling.runs,
             tiling.blocks_per_sample, int(tiling.vector), build.stream_of(x),
         )
     build.check(lib, err, "head")
@@ -155,4 +170,11 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
     return out
 
 
+def _head_fake(x, scale, shift, relu, alpha, weight, bias, tanh):
+    return x.new_empty((x.shape[0], weight.shape[0], x.shape[2], x.shape[3]))
+
+
 head.launches = 0
+library.register(
+    "head", "(Tensor x, Tensor scale, Tensor shift, bool relu, float alpha, Tensor weight, "
+    "Tensor? bias, bool tanh) -> Tensor", _head_cpu, head_cuda, _head_fake)

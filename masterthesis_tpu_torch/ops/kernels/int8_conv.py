@@ -40,11 +40,20 @@ acc * scale + bias in f32 is rounded once to bf16, and the statistics are
 the same exact integer sums in either dtype. The resblock's residual adds
 x + round(h * a + b) and rounds the sum (``x + y.astype(x.dtype)``).
 
-On a CPU tensor each wrapper runs its plain version, which does the same
-arithmetic with torch ops: the integer conv runs in float64, which is exact
-(|acc| <= 9 * Cp * 127^2, far below 2^53; f32 would not be, past 2^24). On a CUDA
-tensor it launches the kernels or raises. Each wrapper counts its calls that
-launch the kernels in ``<wrapper>.launches``.
+Each wrapper runs its op (``library.call``: ``int8_conv3x3``,
+``int8_downconv``, ``int8_deconv``, ``int8_resblock``), which takes the
+``QuantConv`` as its tensors and flags. On a CPU tensor the op runs the
+plain version, which does the same arithmetic with torch ops: the integer
+conv runs in float64, which is exact (|acc| <= 9 * Cp * 127^2, far below
+2^53; f32 would not be, past 2^24). On a CUDA tensor it launches the
+kernels or raises. Each wrapper counts its calls that launch the kernels in
+``<wrapper>.launches``.
+
+The weights quantize on their own device (:func:`quantize_weight`), bit for
+bit as on the CPU, so that training with int8 forwards (``ops/qat.py``) can
+quantize them again after every update without a copy to the host; the
+activation scales are made on the CPU (:func:`act_scales`), once per
+calibration.
 """
 from __future__ import annotations
 
@@ -56,7 +65,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from masterthesis_tpu_torch.ops.kernels import build
+from masterthesis_tpu_torch.ops.kernels import build, library
 
 INT8_MAX = 127.0
 K_ALIGN = 32  # channel padding of the int8 operands: one k32 step of the wgmma
@@ -87,13 +96,16 @@ def _quantize(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 
 def quantize_weight(w: torch.Tensor, out_dim: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric int8 over every other dim of ``w``, on
-    the CPU (see :func:`act_scales`)."""
-    w = w.detach().cpu()
+    w's device. Both divisions are tensor by tensor, which a CUDA tensor
+    rounds correctly, as the CPU does (see :func:`act_scales`), so the card
+    gives the CPU's bits."""
+    w = w.detach().float()
     dims = [d for d in range(w.dim()) if d != out_dim]
     shape = [1] * w.dim()
     shape[out_dim] = -1
-    scale = w.float().abs().amax(dim=dims).clamp_min(1e-12) / INT8_MAX
-    q = torch.round(w.float() / scale.view(shape)).clamp(-INT8_MAX, INT8_MAX)
+    amax = w.abs().amax(dim=dims).clamp_min(1e-12)
+    scale = amax / torch.full_like(amax, INT8_MAX)
+    q = torch.round(w / scale.view(shape)).clamp(-INT8_MAX, INT8_MAX)
     return q.to(torch.int8), scale
 
 
@@ -125,14 +137,17 @@ def phase_row(py: int, co, px: int):
     return co * 4 + py * 2 + px
 
 
-@dataclass(frozen=True)
+@dataclass(slots=True)
 class QuantConv:
     """A conv's int8 operands, built once from its float weights and amax.
 
     ``w`` is (R, kh * kw, Cp) int8: R output rows (Co, or 4 Co phase rows for
     the transposed conv), taps, input channels zero-padded to Cp. ``scale``
     and ``bias`` are (R,) f32 (``bias`` may be None); ``inv_sx`` is the (1,)
-    f32 127 / amax. ``pad`` is (top, bottom, left, right).
+    f32 127 / amax. ``pad`` is (top, bottom, left, right). Not frozen: the
+    ops make one per call from the tensors they are given, and a frozen
+    dataclass's ``__init__`` costs seven times as much; nothing changes one
+    after it is made (:func:`with_unit_scale` makes a copy).
     """
 
     w: torch.Tensor
@@ -160,43 +175,46 @@ def _kernel_layout(w_rhwc: torch.Tensor) -> torch.Tensor:
     return F.pad(w_rhwc.reshape(r, kh * kw, c), (0, cp - c)).contiguous()
 
 
-def quant_conv(weight: torch.Tensor, bias, amax, stride: int, padding_type: Optional[str]) -> QuantConv:
+def quant_conv(weight: torch.Tensor, bias, amax, stride: int, padding_type: Optional[str],
+               scales=None) -> QuantConv:
     """A 3x3, pad-1 Conv2d (weight OIHW) quantized for :func:`conv3x3`,
-    :func:`downconv` or a resblock conv. ``padding_type`` None is zero padding, as in the JAX
-    package; 'replicate' has no kernel and is refused."""
+    :func:`downconv` or a resblock conv, on the weight's device. ``padding_type`` None is zero
+    padding, as in the JAX package; 'replicate' has no kernel and is refused. ``scales``:
+    :func:`act_scales` of ``amax`` made before (then ``amax`` is not read)."""
     if padding_type not in (None, "zero", "reflect"):
         raise NotImplementedError(f"int8 conv: padding '{padding_type}' has no kernel")
     co, ci, kh, kw = weight.shape
     if (kh, kw) != (3, 3):
         raise ValueError(f"int8 conv takes 3x3 kernels, got {kh}x{kw}")
-    inv, sx = act_scales(amax)
+    inv, sx = act_scales(amax) if scales is None else scales
     w_q, sw = quantize_weight(weight, out_dim=0)
     dev = weight.device
     return QuantConv(
-        w=_kernel_layout(w_q.permute(0, 2, 3, 1)).to(dev),
-        scale=(sx * sw).to(dev),
-        bias=None if bias is None else bias.float().contiguous(),
+        w=_kernel_layout(w_q.permute(0, 2, 3, 1)),
+        scale=sx.to(dev) * sw,
+        bias=None if bias is None else bias.detach().float().contiguous(),
         inv_sx=inv.reshape(1).to(dev),
         cin=ci, cout=co, kh=3, kw=3, stride=stride, pad=(1, 1, 1, 1),
         reflect=padding_type == "reflect", phases=1,
     )
 
 
-def quant_deconv(weight: torch.Tensor, bias, amax) -> QuantConv:
+def quant_deconv(weight: torch.Tensor, bias, amax, scales=None) -> QuantConv:
     """A ConvTranspose2d(3, 2, 1, 1) (weight IOHW, the port's layout: the
-    JAX kernel spatially flipped) quantized for :func:`deconv`."""
+    JAX kernel spatially flipped) quantized for :func:`deconv`, on the
+    weight's device; ``scales`` as in :func:`quant_conv`."""
     ci, co, kh, kw = weight.shape
     if (kh, kw) != (3, 3):
         raise ValueError(f"int8 deconv takes 3x3 kernels, got {kh}x{kw}")
-    inv, sx = act_scales(amax)
+    inv, sx = act_scales(amax) if scales is None else scales
     w_q, sw = quantize_weight(weight, out_dim=1)
     k = w_q.flip(2, 3).permute(2, 3, 0, 1)  # the JAX HWIO kernel
     w4 = subpixel_weights(k)  # (2, 2, C, 4Co)
     dev = weight.device
-    b = torch.zeros(co, device=dev) if bias is None else bias.float()
+    b = torch.zeros(co, device=dev) if bias is None else bias.detach().float()
     return QuantConv(
-        w=_kernel_layout(w4.permute(3, 0, 1, 2)).to(dev),
-        scale=(sx * sw).repeat_interleave(4).to(dev),
+        w=_kernel_layout(w4.permute(3, 0, 1, 2)),
+        scale=(sx.to(dev) * sw).repeat_interleave(4),
         bias=b.repeat_interleave(4).contiguous(),
         inv_sx=inv.reshape(1).to(dev),
         cin=ci, cout=co, kh=2, kw=2, stride=1, pad=(0, 1, 0, 1),
@@ -528,16 +546,82 @@ def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
     return y, s, sq
 
 
-def _conv(what: str, x: torch.Tensor, qc: QuantConv, pending, with_stats: bool):
+# op name -> (wrapper name, what errors call it, stride, phases)
+_CONV_OPS = {
+    "int8_conv3x3": ("conv3x3", "int8 conv3x3", 1, 1),
+    "int8_downconv": ("downconv", "int8 downconv", 2, 1),
+    "int8_deconv": ("deconv", "int8 deconv", 1, 4),
+}
+# [y], or with with_stats [y, sum, sumsq]
+_CONV_SCHEMA = ("(Tensor x, Tensor w, Tensor scale, Tensor? bias, Tensor inv_sx, "
+                "Tensor? pre_scale, Tensor? pre_shift, bool relu, float alpha, bool reflect, "
+                "bool with_stats) -> Tensor[]")
+
+
+def _op_quant(stride: int, phases: int, x, w, scale, bias, inv_sx, reflect: bool) -> QuantConv:
+    """The QuantConv that a conv op of ``stride`` and ``phases`` was given
+    as tensors and flags."""
+    if phases == 4:
+        return QuantConv(w, scale, bias, inv_sx, x.shape[1], w.shape[0] // 4, 2, 2, 1,
+                         (0, 1, 0, 1), False, 4)
+    return QuantConv(w, scale, bias, inv_sx, x.shape[1], w.shape[0], 3, 3, stride, (1, 1, 1, 1),
+                     reflect, 1)
+
+
+def _op_pending(pre_scale, pre_shift, relu: bool, alpha: float) -> Optional[dict]:
+    if pre_scale is None:
+        return None
+    return {"scale": pre_scale, "shift": pre_shift, "relu": relu, "alpha": alpha}
+
+
+def _conv_impls(op: str):
+    """The op's CPU, CUDA and fake implementations."""
+    wrapper, what, stride, phases = _CONV_OPS[op]
+
+    def cpu(x, w, scale, bias, inv_sx, pre_scale, pre_shift, relu, alpha, reflect, with_stats):
+        qc = _op_quant(stride, phases, x, w, scale, bias, inv_sx, reflect)
+        out = conv_plain(x, qc, _op_pending(pre_scale, pre_shift, relu, alpha), with_stats)
+        return list(out) if with_stats else [out]
+
+    def cuda(x, w, scale, bias, inv_sx, pre_scale, pre_shift, relu, alpha, reflect, with_stats):
+        qc = _op_quant(stride, phases, x, w, scale, bias, inv_sx, reflect)
+        _check_input(what, x, qc)
+        out = conv_padded_cuda(
+            quant_pad_cuda(x, qc, _op_pending(pre_scale, pre_shift, relu, alpha)), qc,
+            with_stats, out_dtype=x.dtype)
+        globals()[wrapper].launches += 1
+        return list(out) if with_stats else [out]
+
+    def fake(x, w, scale, bias, inv_sx, pre_scale, pre_shift, relu, alpha, reflect, with_stats):
+        qc = _op_quant(stride, phases, x, w, scale, bias, inv_sx, reflect)
+        hp, wp = padded_size(qc, x.shape[2], x.shape[3])
+        f = 2 if qc.phases == 4 else 1
+        ho, wo = (hp - qc.kh) // qc.stride + 1, (wp - qc.kw) // qc.stride + 1
+        y = x.new_empty((x.shape[0], qc.cout, f * ho, f * wo))
+        if not with_stats:
+            return [y]
+        return [y, x.new_empty((x.shape[0], qc.cout), dtype=torch.float32),
+                x.new_empty((x.shape[0], qc.cout), dtype=torch.float32)]
+
+    return cpu, cuda, fake
+
+
+def _conv(op: str, x: torch.Tensor, qc: QuantConv, pending, with_stats: bool):
+    what = _CONV_OPS[op][1]
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError(f"{what} has no backward; call it under torch.inference_mode()")
-    if x.device.type == "cpu":
-        return conv_plain(x, qc, pending, with_stats), False
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on CPU or CUDA tensors, not {x.device}")
-    _check_input(what, x, qc)
-    return conv_padded_cuda(quant_pad_cuda(x, qc, pending), qc, with_stats,
-                            out_dtype=x.dtype), True
+    if x.dim() != 4 or x.shape[1] != qc.cin:  # the op takes C from x
+        raise ValueError(f"{what}: x must be (B, {qc.cin}, H, W), got {tuple(x.shape)}")
+    pre_scale = pre_shift = None
+    relu, alpha = False, 0.0
+    if pending is not None:
+        pre_scale, pre_shift = pending["scale"], pending["shift"]
+        relu, alpha = bool(pending.get("relu")), float(pending.get("alpha", 0.0))
+    out = library.call(op, x, qc.w, qc.scale, qc.bias, qc.inv_sx, pre_scale, pre_shift, relu,
+                       alpha, qc.reflect, with_stats)
+    return tuple(out) if with_stats else out[0]
 
 
 def conv3x3(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
@@ -548,10 +632,7 @@ def conv3x3(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
     template's own, so any C and Co run on the kernel."""
     if qc.stride != 1 or qc.phases != 1:
         raise ValueError("conv3x3 takes a stride-1 QuantConv from quant_conv")
-    out, launched = _conv("int8 conv3x3", x, qc, pending, with_stats)
-    if launched:
-        conv3x3.launches += 1
-    return out
+    return _conv("int8_conv3x3", x, qc, pending, with_stats)
 
 
 def downconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
@@ -562,10 +643,7 @@ def downconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
     before quantizing."""
     if qc.stride != 2 or qc.phases != 1:
         raise ValueError("downconv takes a stride-2 QuantConv")
-    out, launched = _conv("int8 downconv", x, qc, pending, with_stats)
-    if launched:
-        downconv.launches += 1
-    return out
+    return _conv("int8_downconv", x, qc, pending, with_stats)
 
 
 def deconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
@@ -575,10 +653,7 @@ def deconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
     all four phases. ``pending`` as in :func:`downconv`."""
     if qc.phases != 4:
         raise ValueError("deconv takes a QuantConv from quant_deconv")
-    out, launched = _conv("int8 deconv", x, qc, pending, with_stats)
-    if launched:
-        deconv.launches += 1
-    return out
+    return _conv("int8_deconv", x, qc, pending, with_stats)
 
 
 def resblock(x: torch.Tensor, q1: QuantConv, q2: QuantConv, gamma: torch.Tensor,
@@ -596,13 +671,35 @@ def resblock(x: torch.Tensor, q1: QuantConv, q2: QuantConv, gamma: torch.Tensor,
     """
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("int8 resblock has no backward; call it under torch.inference_mode()")
-    if x.device.type == "cpu":
-        return resblock_plain(x, q1, q2, gamma, beta, relu_mid, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8 resblock runs on CPU or CUDA tensors, not {x.device}")
     for qc in (q1, q2):
-        if qc.stride != 1 or qc.phases != 1 or qc.cout != x.shape[1]:
+        if qc.stride != 1 or qc.phases != 1 or qc.cin != x.shape[1] or qc.cout != x.shape[1]:
             raise ValueError("int8 resblock takes two stride-1 C->C QuantConvs")
+    return library.call(
+        "int8_resblock", x, q1.w, q1.scale, q1.bias, q1.inv_sx, q1.reflect, q2.w, q2.scale,
+        q2.bias, q2.inv_sx, q2.reflect, gamma, beta, relu_mid, float(eps))
+
+
+def _resblock_quants(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2, reflect2):
+    return (_op_quant(1, 1, x, w1, scale1, bias1, inv1, reflect1),
+            _op_quant(1, 1, x, w2, scale2, bias2, inv2, reflect2))
+
+
+def _resblock_cpu(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2, reflect2,
+                  gamma, beta, relu_mid, eps):
+    q1, q2 = _resblock_quants(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2,
+                              reflect2)
+    return resblock_plain(x, q1, q2, gamma, beta, relu_mid, eps)
+
+
+def resblock_cuda(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2, reflect2,
+                  gamma, beta, relu_mid, eps):
+    """The seven launches of :func:`resblock` on a CUDA tensor, its convs as
+    the op passes them."""
+    q1, q2 = _resblock_quants(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2,
+                              reflect2)
+    for qc in (q1, q2):
         _check_input("int8 resblock", x, qc)
     h1, a1, b1 = conv_padded_cuda(quant_pad_cuda(x, q1), q1, True, gamma, beta, eps, nhwc=True,
                                   out_dtype=x.dtype)
@@ -622,6 +719,10 @@ def resblock(x: torch.Tensor, q1: QuantConv, q2: QuantConv, gamma: torch.Tensor,
     return out
 
 
+def _resblock_fake(x, *args):
+    return torch.empty_like(x)
+
+
 def with_unit_scale(qc: QuantConv) -> QuantConv:
     """The same conv dequantizing with scale 1 and no bias, so that y holds
     the int32 accumulators (exactly, while they stay below 2^24)."""
@@ -632,3 +733,10 @@ conv3x3.launches = 0
 downconv.launches = 0
 deconv.launches = 0
 resblock.launches = 0
+for _op in _CONV_OPS:
+    library.register(_op, _CONV_SCHEMA, *_conv_impls(_op))
+library.register(
+    "int8_resblock", "(Tensor x, Tensor w1, Tensor scale1, Tensor? bias1, Tensor inv_sx1, "
+    "bool reflect1, Tensor w2, Tensor scale2, Tensor? bias2, Tensor inv_sx2, bool reflect2, "
+    "Tensor gamma, Tensor beta, bool relu_mid, float eps) -> Tensor",
+    _resblock_cpu, resblock_cuda, _resblock_fake)

@@ -1,8 +1,9 @@
 """Per-(sample, channel) spatial sums, the statistics pass of every norm on
 the float forward.
 
-``moments`` is the wrapper: on a CPU tensor it runs :func:`moments_plain`,
-on a CUDA tensor it launches ``csrc/moments.cu`` (which replaces
+``moments`` is the wrapper, around the op ``masterthesis_tpu_torch::moments``
+(``library.py``): on a CPU tensor it runs :func:`moments_plain`, on a CUDA
+tensor it launches ``csrc/moments.cu`` (:func:`moments_cuda`, which replaces
 ``masterthesis_tpu/ops/pallas/moments.py`` ``spatial_sums`` and
 ``spatial_sums_sbc``) or raises. ``moments.launches`` counts the kernel's
 launches.
@@ -13,7 +14,7 @@ import ctypes
 
 import torch
 
-from masterthesis_tpu_torch.ops.kernels import build
+from masterthesis_tpu_torch.ops.kernels import build, library
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -39,10 +40,13 @@ def _library() -> ctypes.CDLL:
 def moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, C, H, W) f32 or bf16 -> (sum, sumsq) over H, W, both f32 (B, C).
     Its gradient is ``ops/norms.py``'s."""
-    if x.device.type == "cpu":
-        return moments_plain(x)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"moments runs on CPU or CUDA tensors, not {x.device}")
+    return library.call("moments", x)
+
+
+def moments_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel: :func:`moments` on a CUDA tensor."""
     if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(
             f"moments takes a contiguous 4-D f32 or bf16 tensor, got {tuple(x.shape)} "
@@ -62,4 +66,16 @@ def moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return s, sq
 
 
+def _moments_cpu(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    # looks moments_plain up at each call, so that a substitute for it runs
+    return moments_plain(x)
+
+
+def _moments_fake(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    out = torch.promote_types(x.dtype, torch.float32)
+    return x.new_empty(x.shape[:2], dtype=out), x.new_empty(x.shape[:2], dtype=out)
+
+
 moments.launches = 0
+library.register("moments", "(Tensor x) -> (Tensor, Tensor)", _moments_cpu, moments_cuda,
+                 _moments_fake)

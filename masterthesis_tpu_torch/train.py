@@ -29,7 +29,10 @@ place of the JAX package's ``fold_in(base_rng, global_iter)``: the step's
 :class:`StepDraws` (the same on every rank: the model keeps each rank's
 rows of the global draws), the device preprocess of ``--device_preproc``
 (a stream per rank: each rank's images are its own) and the image grid
-each have their own. A run resumed with ``--resume``,
+each have their own, and so do ``--int8_train``'s calibration draws: the
+trainer calibrates at every ``--int8_calib_freq``-th iteration, and at the
+first one of a run that has no calibration yet (a resume), as
+``masterthesis_tpu/train.py:82-89`` does. A run resumed with ``--resume``,
 ``--resume_opt`` and ``--last_iter`` continues the data stream where the
 saved run was (``DataLoader.fast_forward``), so it repeats the iterations
 of the unbroken run.
@@ -50,7 +53,7 @@ from masterthesis_tpu_torch.parallel import mesh as pmesh
 from masterthesis_tpu_torch.utils.profiling import StepTimer, TimerBlock
 
 # the streams of an iteration's generators
-STEP, PREPROC, VISUALS = 0, 1, 2
+STEP, PREPROC, VISUALS, CALIB = 0, 1, 2, 3
 
 
 def iteration_generator(seed: int, it: int, stream: int, device, rank: int = 0) -> torch.Generator:
@@ -143,6 +146,9 @@ class Trainer:
                         args.load_size, args.crop_size, train=True,
                         no_flip=getattr(args, "no_flip", False),
                     )
+                if args.int8_train and (global_iter % max(1, args.int8_calib_freq) == 0
+                                        or not model.int8_train_installed):
+                    self.calibrate(args, model, batch, global_iter)
                 draws = StepDraws(iteration_generator(seed, global_iter, STEP, self.device))
                 model.optimize_parameters(batch, global_iter, draws)
                 rate = timer.lap()
@@ -171,6 +177,17 @@ class Trainer:
                     model.save(global_iter)
                     log("training complete")
                     return model
+
+    def calibrate(self, args, model, batch, it: int) -> dict:
+        """``--int8_train``'s delayed scaling: the activation ranges of this
+        batch's ``x1``, with one-hot targets and styles drawn from the
+        iteration's ``CALIB`` generator, as the JAX trainer draws them from
+        its step key."""
+        g = iteration_generator(getattr(args, "seed", 0) or 0, it, CALIB, self.device)
+        b = len(batch["x1"])
+        idx = torch.randint(args.num_domains, (b,), generator=g, device=self.device)
+        c = torch.nn.functional.one_hot(idx, args.num_domains).float()
+        return model.calibrate_quant_train(batch, c, model.get_z_random(b, g))
 
     def run(self, args):
         dataloader = self.load_dataset(args)

@@ -16,8 +16,8 @@
   decodes; G phase 2: one of each) and 24 backwards (G1 and G2 only); the
   content step none. And the draws: given ones are used as they are, and two
   steps from one generator seed are equal.
-- Flags: ``--int8_train`` raises ``NotImplementedError`` naming its ROADMAP
-  item; each other training flag (the fused GAN step, the multi-scale
+- Flags: ``--int8_train`` under data parallel (``--num_devices`` 2) raises
+  ``NotImplementedError`` naming its ROADMAP item; each other training flag (the fused GAN step, the multi-scale
   discriminator, spectral norm, RaGAN, hinge, WGAN-GP, the perceptual loss,
   remat) builds its nets in both models and takes a main step that moves
   every net but the content discriminator.
@@ -379,7 +379,7 @@ def test_two_steps_from_one_generator_seed_are_equal():
         _model().main_step(_batch(), StepDraws())
 
 
-@pytest.mark.parametrize("flag", [dict(int8_train=True)])
+@pytest.mark.parametrize("flag", [dict(int8_train=True, num_devices=2)])
 def test_unported_train_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _model(**flag)
