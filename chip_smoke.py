@@ -9,7 +9,8 @@ against its plain PyTorch version.
                                        # fused GAN step; BaseModel A, B)
     python3 chip_smoke.py --only distributed   # the build and phase 15 alone, no
                                                # result lines (a quicker check);
-                                               # --only int8_train,export: 16 and 17
+                                               # --only int8_train,export: 16 and 17;
+                                               # --only distributed,checkpoint_orbax
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -260,8 +261,22 @@ against its plain PyTorch version.
    plain version at the path's shape and at ragged shapes, and timed beside
    its bound and ``F.batch_norm``'s inference form with the same
    statistics (its kernels-line entry, ``adain_stats/f32``). Ranks that
-   share a card give no speed number. Cumulative seconds are printed after
-   it.
+   share a card give no speed number. (d) ``--int8_train`` under data
+   parallel at 16's config (AdaINModel, bf16, 256 px, dim 64), run by (b)'s
+   two ranks after (b), 4 rows a side each, against one rank on the 8:
+   ``calibrate_quant_train`` (each rank on its rows of the global draws,
+   the maxima all-reduced with MAX over gloo's CUDA path) gives both ranks
+   one amax tree, the MAX of one rank's calibrations of the two row halves
+   bit for bit and its 8-row tree within 1e-5 relative; the first fused
+   QAT main step's losses within (b)'s 2e-2 of one rank's with that tree;
+   the int8 weights after the update bit-equal across the ranks; each rank
+   launching kernels 4 / 7 / 5 56 / 6 / 8 times and kernels 9/10 never.
+   And (a)'s NCCL rank, after its plain step: the calibration and the first
+   fused QAT step through the data-parallel path bit for bit equal to the
+   bare model's, both with deterministic algorithms. The kernels line's
+   entries of kernels 4, 5 and 7 in bf16 gain ``int8_train_dp``: their
+   launches per rank per QAT main step. Cumulative seconds are printed
+   after it.
 16. ``int8_train``: ``--int8_train`` (QAT) at 9's config (AdaINModel, bf16,
    256 px, dim 64, B=8 a side, ``--fused_resblock auto``). First each
    straight-through conv at the step's shapes (kernel 4 at (16 | 32, 256,
@@ -293,7 +308,21 @@ against its plain PyTorch version.
    and the share of an eager int8 request it would take (the eager path
    skips it). The kernels line's
    entries of kernels 1 and 3-8 gain ``export``: the replays' launches.
-18. Last lines: the card, the ``{"kernels": [...]}`` line, then
+18. ``checkpoint_orbax``: ``--ckpt_format orbax``. The train CLI at
+   ``train_cli``'s config writes ``model_N.orbax/`` and ``opt_N.orbax/``
+   (``torch.distributed.checkpoint`` directories) and a fresh trainer
+   resumes from them within ``train_cli``'s bars (the restore bit for bit,
+   the first resumed iteration within 1e-5, later ones 1e-3); then the
+   flagship's training state after a fused step saved as ``.ckpt`` files and
+   as ``.orbax`` directories, each save's and load's seconds and bytes, the
+   restore bit for bit, and serving models (f32, and int8 at bf16 compute)
+   resumed from the ``.orbax`` store serving ``forward_random`` bit for bit
+   as models given the saved weights in memory (deterministic algorithms);
+   libzstd's version as loaded here, with a compress / decompress round
+   trip (the reader of the JAX package's orbax stores needs it; the card's
+   machine has no orbax to write one). The kernels line's per-main-step
+   launches gain ``checkpoint_orbax/train_cli``.
+19. Last lines: the card, the ``{"kernels": [...]}`` line, then
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure ends the script with a non-zero exit and no
@@ -2298,11 +2327,21 @@ def _check_restored(model, model_path, opt_path) -> None:
             assert torch.equal(mine.cpu(), theirs), f"train_cli resume: {n} Adam moments"
 
 
-def train_cli_route(card: str, root: Path, route: str, extra: list, fused: dict) -> dict:
+def _nbytes(path: Path) -> int:
+    """A checkpoint's bytes: its file's, or every file's under its directory."""
+    if path.is_dir():
+        return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    return path.stat().st_size
+
+
+def train_cli_route(card: str, root: Path, route: str, extra: list, fused: dict,
+                    phase: str = None) -> dict:
     """``train_cli/<route>``: the CLI at the flagship config over the JPEG
-    tree, then a fresh trainer resumed from the checkpoint at CLI_SAVE.
-    Returns the launches per main step."""
-    phase = f"train_cli/{route}"
+    tree, then a fresh trainer resumed from the checkpoint at CLI_SAVE
+    (``.ckpt`` files, or ``.orbax`` directories where ``extra`` asks for
+    ``--ckpt_format orbax``). Returns the launches per main step."""
+    phase = phase or f"train_cli/{route}"
+    ext = ".orbax" if "orbax" in extra else ".ckpt"
     exps = root / "exps"
     argv = ["--dataroot", str(root / "data"), "--exp_dir", str(exps), "--name", route,
             "--n_iters", str(CLI_ITERS), "--max_iter", str(CLI_ITERS), *CLI_ARGV, *extra]
@@ -2316,6 +2355,9 @@ def train_cli_route(card: str, root: Path, route: str, extra: list, fused: dict)
     launched = {**fused_counts(), "moments": kmoments.moments.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1024**3
     mains = [it for it in trainer.records if it % 3 == 0]
+    if fused is None:  # alone (--only): its first main step's moments launches stand
+        fused = {"moments/bf16": dict(launches=trainer.records[0][0]["moments"]),
+                 "rates": dict(main_it_per_s=None, schedule_img_per_s=None)}
     per_step = {**FUSED_GAN_PER_STEP, "moments": fused["moments/bf16"]["launches"]}
     for it in mains:
         assert trainer.records[it][0] == per_step, \
@@ -2324,11 +2366,11 @@ def train_cli_route(card: str, root: Path, route: str, extra: list, fused: dict)
     losses = _losses(trainer.records, range(CLI_ITERS + 1))
     _check_finite(phase, *losses.values())
     ck = Path(args.checkpoint_dir)
-    want = {f"{k}_{i}.ckpt" for k in ("model", "opt") for i in (0, CLI_SAVE, CLI_ITERS + 1)}
+    want = {f"{k}_{i}{ext}" for k in ("model", "opt") for i in (0, CLI_SAVE, CLI_ITERS + 1)}
     assert set(os.listdir(ck)) == want, f"{phase}: checkpoints {sorted(os.listdir(ck))}"
     grids = sorted(os.listdir(args.display_dir))
     assert grids == ["gen_0.jpg", f"gen_{CLI_SAVE}.jpg"], f"{phase}: grids {grids}"
-    sizes = {f: (ck / f).stat().st_size for f in (f"model_{CLI_SAVE}.ckpt", f"opt_{CLI_SAVE}.ckpt")}
+    sizes = {f: _nbytes(ck / f) for f in (f"model_{CLI_SAVE}{ext}", f"opt_{CLI_SAVE}{ext}")}
     busy = _device_busy_ms(trainer.prof)
     rates = trainer.throughput
     clean = [rates[i] for i in CLI_CLEAN]
@@ -2336,7 +2378,7 @@ def train_cli_route(card: str, root: Path, route: str, extra: list, fused: dict)
     torch.cuda.empty_cache()
 
     # a fresh trainer resumed from the checkpoint at CLI_SAVE
-    resume = [str(ck / f"model_{CLI_SAVE}.ckpt"), str(ck / f"opt_{CLI_SAVE}.ckpt")]
+    resume = [str(ck / f"model_{CLI_SAVE}{ext}"), str(ck / f"opt_{CLI_SAVE}{ext}")]
     rargs = TrainArguments().parse([
         *argv[:5], f"{route}_resumed", "--n_iters", str(CLI_SAVE + 3), "--max_iter",
         str(CLI_SAVE + 3), *CLI_ARGV, *extra, "--resume", resume[0], "--resume_opt", resume[1],
@@ -3253,6 +3295,9 @@ DIST_BF16_RTOL = RESBLOCK_TOL
 # NVIDIA H100 80GB HBM3 at 700 W), a last-bit change in a float conv being
 # enough to flip an int8 rounding downstream
 DIST_SPATIAL_TOL = 1e-3  # the 2 x 2 f32 forward against the unsharded one
+# (d): the ranks' amax tree against one rank's on all 8 rows, relative: the
+# convs sum in another order at another batch
+QAT_DP_TREE_RTOL = 1e-5
 DIST_OUT = Path("build") / "distributed"  # the ranks' results (gitignored)
 # kernel 3's stats-given entry at the 2 x 2 forward's AdaIN shape (4 images
 # and 32 of the 64 bottleneck rows a rank; 8 launches a forward), and ragged
@@ -3297,6 +3342,66 @@ def _dist_train_rank(rank: int, out: str) -> None:
     out8 = pmesh.forward_rows(model, mesh, dev["img"], dev["z"], dev["c"])
     if rank == 0:
         torch.save(dict(result=result, int8=out8.cpu()), os.path.join(out, "train.pt"))
+    del model
+    torch.cuda.empty_cache()
+    torch.save(_dist_qat_rank(rank, mesh), os.path.join(out, f"qat{rank}.pt"))
+
+
+def qat_calib_draws() -> tuple:
+    """(d)'s calibration draws for the global batch: one-hot targets and
+    styles from a seeded generator on the card (a rank takes its rows)."""
+    g = torch.Generator(device="cuda").manual_seed(47)
+    k = QAT_ARGS["num_domains"]
+    c = F.one_hot(torch.randint(k, (B,), generator=g, device="cuda"), k).float()
+    return c, torch.randn(B, QAT_ARGS["latent_dim"], generator=g, device="cuda")
+
+
+def qat_int8_digest(model) -> str:
+    """A digest of the int8 weights, scales and activation scales that the
+    next QAT forward uses, over every conv with an int8 route."""
+    import hashlib
+
+    from masterthesis_tpu_torch.models.quantize import int8_convs
+
+    h = hashlib.sha256()
+    for net in ("content_encoder", "decoder"):
+        for name, m in sorted(int8_convs(model.nets[net]).items()):
+            if (m.kernel_size, m.padding) != (3, 1):
+                continue
+            q = m.train_quant()
+            for t in (q.w, q.scale, q.inv_sx):
+                h.update(name.encode())
+                h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _cpu_tree(tree: dict) -> dict:
+    return {n: {k: v.cpu() for k, v in leaves.items()} for n, leaves in tree.items()}
+
+
+def _dist_qat_rank(rank: int, mesh) -> dict:
+    """(d): ``--int8_train`` over the two ranks, each on its 4 rows a side:
+    ``calibrate_quant_train`` with its rows of the global draws, then the
+    first fused QAT main step; the tree, the losses, the launches and the
+    int8 weights' digest after the update."""
+    from masterthesis_tpu_torch.data.loader import shard_batch
+    from masterthesis_tpu_torch.parallel import mesh as pmesh
+
+    _, batch = train_batch(QAT_ARGS, seed=46)
+    c, z = qat_calib_draws()
+    rows = slice(rank * B // 2, (rank + 1) * B // 2)
+    local = shard_batch(batch, mesh)
+    model = pmesh.replicate(AdaINModel(default_train_args(**dict(QAT_ARGS, gan_step="fused"))),
+                            mesh)
+    tree = model.calibrate_quant_train(local, c[rows], z[rows])
+    torch.cuda.synchronize()
+    before = qat_counts()
+    logs = model.main_step(local, StepDraws(_dist_generator()))
+    torch.cuda.synchronize()
+    counted = _launched(before)
+    return dict(tree=_cpu_tree(tree), logs=_floats(logs),
+                launches=_part(counted, QAT_PER_STEP["fused"]),
+                norm_launches=_part(counted, QAT_NORM_KERNELS), int8=qat_int8_digest(model))
 
 
 def _dist_spatial_rank(rank: int, out: str) -> None:
@@ -3417,9 +3522,11 @@ def dist_one_rank(card: str, t0: float) -> dict:
         for it, who in zip(range(3, 27, 3), ("bare", "dp", "dp", "bare") * 2):
             secs[who].append(_timed_step(model if who == "dp" else bare, batch, it)[1])
         allreduce_ms = _allreduce_ms(model, model.mesh.group("data"))
+        del model, bare
+        torch.cuda.empty_cache()
+        qat_one = _nccl_qat_one_rank()
     finally:
         dist.destroy_process_group()
-    del model, bare
     torch.cuda.empty_cache()
     rate = {k: len(v) / sum(v) for k, v in secs.items()}
     log(dict(phase=phase, card=card, config={k: v for k, v in FUSED_GAN_ARGS.items()},
@@ -3427,10 +3534,46 @@ def dist_one_rank(card: str, t0: float) -> dict:
                           bound="bit for bit, both with deterministic algorithms"),
              main_it_per_s=rate["dp"], bare_main_it_per_s=rate["bare"], main_step_s=secs,
              allreduce_ms_per_main_step=allreduce_ms, launches_per_main_step=launched,
+             int8_train=dict(qat_one, bound="bit for bit, both with deterministic algorithms"),
              seconds=time.perf_counter() - t0))
     # with one rank the all-reduces copy and divide by 1: nothing may move
     assert got == bare_first, f"{phase}: one rank vs bare {gap}"
-    return bare_first, launched
+    assert qat_one["tree_equal"], f"{phase}: the int8 training calibration of one rank vs bare"
+    assert qat_one["equal"], f"{phase}: the QAT step of one rank vs bare {qat_one['rel_gap']}"
+    assert qat_one["launches"] == QAT_PER_STEP["fused"], f"{phase}: QAT launches {qat_one}"
+    return bare_first, launched, qat_one["launches"]
+
+
+def _nccl_qat_one_rank() -> dict:
+    """(a) for ``--int8_train``, inside the NCCL group of one: the
+    calibration (its MAX all-reduce runs) and the first fused QAT main step
+    through the data-parallel path against the bare model's, both with
+    deterministic algorithms: the trees and the losses bit for bit."""
+    from masterthesis_tpu_torch.parallel import mesh as pmesh
+
+    _, batch = train_batch(QAT_ARGS, seed=46)
+    c, z = qat_calib_draws()
+    qargs = default_train_args(**dict(QAT_ARGS, gan_step="fused"))
+    bare = AdaINModel(qargs)
+    with deterministic_algorithms():
+        bare_tree = bare.calibrate_quant_train(batch, c, z)
+        bare_logs = _floats(bare.main_step(batch, StepDraws(_dist_generator())))
+    del bare
+    torch.cuda.empty_cache()
+    model = pmesh.replicate(AdaINModel(qargs), pmesh.make_mesh(1))
+    with deterministic_algorithms():
+        tree = model.calibrate_quant_train(batch, c, z)
+        torch.cuda.synchronize()
+        before = qat_counts()
+        logs = _floats(model.main_step(batch, StepDraws(_dist_generator())))
+        torch.cuda.synchronize()
+    launched = _part(_launched(before), QAT_PER_STEP["fused"])
+    del model
+    torch.cuda.empty_cache()
+    gap = _rel_gap(logs, bare_logs)
+    return dict(tree_equal=all(torch.equal(tree[n][k], v) for n in bare_tree
+                               for k, v in bare_tree[n].items()),
+                equal=logs == bare_logs, worst=gap[0], rel_gap=gap[1], launches=launched)
 
 
 def dist_references() -> dict:
@@ -3456,7 +3599,30 @@ def dist_references() -> dict:
     refs["spatial"] = model.forward_random(dev["img"], dev["z"], dev["c"])[0].cpu()
     del model
     torch.cuda.empty_cache()
+    refs["qat"] = dist_qat_reference()
     return refs
+
+
+def dist_qat_reference() -> dict:
+    """(d)'s one-rank counterpart on the 8 rows: the calibration of all of
+    them, the MAX of the calibrations of each rank's 4, and the first fused
+    QAT main step with that MAX tree and the ranks' draws."""
+    from masterthesis_tpu_torch.models.quantize import merge_amax
+
+    _, batch = train_batch(QAT_ARGS, seed=46)
+    c, z = qat_calib_draws()
+    model = AdaINModel(default_train_args(**dict(QAT_ARGS, gan_step="fused")))
+    out = {"whole": _cpu_tree(model.calibrate_quant_train(batch, c, z))}
+    h = B // 2
+    halves = [model.calibrate_quant_train({k: v[i:i + h] for k, v in batch.items()},
+                                          c[i:i + h], z[i:i + h]) for i in (0, h)]
+    tree = {n: merge_amax(halves[0][n], halves[1][n]) for n in halves[0]}
+    out["halves"] = _cpu_tree(tree)
+    model.load_int8_train(tree)
+    out["logs"] = _floats(model.main_step(batch, StepDraws(_dist_generator())))
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def _diff(got, want) -> dict:
@@ -3488,6 +3654,44 @@ def dist_two_ranks(card: str, bare_first: dict, refs: dict, t0: float) -> None:
     assert all(v <= 1.0 for v in small_tol.values()), f"{phase}: small steps {small_tol}"
     assert rows["max_abs_err"] <= 1e-5, f"{phase}: int8 vs one rank on the same rows {rows}"
     check_image(saved["int8"], (B, 256, 256, 3), f"{phase} int8")
+
+
+def dist_qat(card: str, ref: dict, t0: float) -> dict:
+    """(d): ``--int8_train`` on the two gloo ranks against one rank on the 8
+    rows: one amax tree on both ranks, the MAX of one rank's calibrations of
+    the two row halves bit for bit and its 8-row tree within
+    QAT_DP_TREE_RTOL; the first fused QAT main step's losses within (b)'s
+    bar of one rank's with that tree; the int8 weights after the update
+    equal across the ranks; each rank's kernel 4 / 7 / 5 launches those of
+    one device's QAT step, kernels 9/10 none. Returns the launches per rank
+    per main step."""
+    phase = "distributed/int8_train"
+    ranks = [torch.load(DIST_OUT / f"qat{r}.pt") for r in range(2)]
+
+    def same(a, b):
+        return all(torch.equal(a[n][k], v) for n in b for k, v in b[n].items())
+
+    tree = ranks[0]["tree"]
+    whole = max(abs(tree[n][k].item() - v.item()) / v.item()
+                for n in ref["whole"] for k, v in ref["whole"][n].items())
+    gap = _rel_gap(ranks[0]["logs"], ref["logs"])
+    log(dict(phase=phase, card=card, ranks=2, rows_per_rank=B // 2,
+             trees_equal_across_ranks=same(ranks[1]["tree"], tree),
+             tree_vs_max_of_halves="bit for bit" if same(tree, ref["halves"]) else "differs",
+             tree_vs_8_rows=dict(rel=whole, tol=QAT_DP_TREE_RTOL),
+             losses_vs_one_rank=dict(worst=gap[0], rel_gap=gap[1], tol=DIST_BF16_RTOL),
+             int8_weights_equal_across_ranks=ranks[0]["int8"] == ranks[1]["int8"],
+             launches_per_rank_per_main_step=[r["launches"] for r in ranks],
+             norm_launches_per_rank_per_main_step=[r["norm_launches"] for r in ranks],
+             note="ranks share one card: no speed is measured", seconds=time.perf_counter() - t0))
+    assert same(ranks[1]["tree"], tree), f"{phase}: the ranks' amax trees differ"
+    assert same(tree, ref["halves"]), f"{phase}: the tree is not the MAX over the ranks' rows"
+    assert whole <= QAT_DP_TREE_RTOL, f"{phase}: tree vs one rank's on 8 rows {whole}"
+    assert gap[1] <= DIST_BF16_RTOL, f"{phase}: QAT step vs one rank {gap}"
+    assert ranks[0]["int8"] == ranks[1]["int8"], f"{phase}: int8 weights differ across ranks"
+    for r in ranks:
+        assert r["launches"] == QAT_PER_STEP["fused"], f"{phase}: launches {r['launches']}"
+    return ranks[0]["launches"]
 
 
 def dist_spatial(card: str, ref: torch.Tensor, t0: float) -> dict:
@@ -3562,16 +3766,18 @@ def check_adain_stats() -> dict:
                      per="rank of the 2 x 2 spatial forward at B=8, 256px, dim 64")
 
 
-def distributed(card: str, t0: float) -> tuple[dict, dict]:
-    """The ``distributed`` phase: (a); then the ranks of (b) and of (c) at
-    once (two process groups sharing the card, which times nothing), each
-    held against its one-rank counterpart. Returns the kernel 3 stats-given
-    entry and the launches per main step of (a)."""
+def distributed(card: str, t0: float) -> tuple[dict, dict, dict]:
+    """The ``distributed`` phase: (a); then the ranks of (b) and (d), and of
+    (c), at once (two process groups sharing the card, which times
+    nothing), each held against its one-rank counterpart. Returns the
+    kernel 3 stats-given entry, the launches per main step of (a) and the
+    int8 conv launches per rank per QAT main step of (d) and of (a)'s one
+    NCCL rank."""
     from concurrent.futures import ThreadPoolExecutor
 
     from masterthesis_tpu_torch.parallel import mesh as pmesh
 
-    bare_first, launched = dist_one_rank(card, t0)
+    bare_first, launched, qat_nccl = dist_one_rank(card, t0)
     refs = dist_references()
     DIST_OUT.mkdir(parents=True, exist_ok=True)
     t_ranks = time.perf_counter()
@@ -3582,9 +3788,10 @@ def distributed(card: str, t0: float) -> tuple[dict, dict]:
             job.result()
     log(dict(phase="distributed/ranks", groups=[2, 4], seconds=time.perf_counter() - t_ranks))
     dist_two_ranks(card, bare_first, refs, t0)
+    qat_ranks = dist_qat(card, refs["qat"], t0)
     entry = dist_spatial(card, refs["spatial"], t0)
     shutil.rmtree(DIST_OUT, ignore_errors=True)
-    return entry, launched
+    return entry, launched, dict(gloo2_per_rank=qat_ranks, nccl1=qat_nccl)
 
 
 # ------------------------------------------------------------ int8_train --
@@ -4091,6 +4298,109 @@ def export_phase(card: str) -> dict:
     return {case: got["launches"] for case, got in replay["cases"].items()}
 
 
+# ------------------------------------------------------------ checkpoint_orbax --
+
+
+def zstd_check() -> dict:
+    """The system's libzstd as the orbax reader loads it here: its version
+    and a compress / decompress round trip of 4 MiB (a frame that states its
+    size, read with and without it: the reader's streaming path)."""
+    from masterthesis_tpu_torch import checkpoint_orbax
+
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes() + bytes(3 << 20)
+    t0 = time.perf_counter()
+    frame = checkpoint_orbax.zstd_compress(data, 1)
+    compress_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = checkpoint_orbax.zstd_decompress(frame)
+    decompress_s = time.perf_counter() - t0
+    assert back == data and checkpoint_orbax.zstd_decompress(frame, len(data)) == data, \
+        "libzstd round trip"
+    return dict(library=checkpoint_orbax.ZSTD_LIBRARY, version=checkpoint_orbax.zstd_version(),
+                bytes=len(data), compressed=len(frame), compress_s=compress_s,
+                decompress_s=decompress_s, round_trip="equal")
+
+
+def checkpoint_orbax(card: str, fused: dict = None) -> dict:
+    """``checkpoint_orbax``: ``--ckpt_format orbax`` on the card. The train
+    CLI at ``train_cli``'s config writes ``model_N.orbax/`` and
+    ``opt_N.orbax/`` (``torch.distributed.checkpoint`` directories) and a
+    fresh trainer resumes from them within ``train_cli``'s resume bars
+    (``train_cli_route``). Then the flagship's training state after a fused
+    step, saved both ways: the save and load seconds and bytes of each, the
+    restore bit for bit; a serving model resumed from the ``.orbax`` store
+    and one given the saved weights in memory serve ``forward_random`` bit
+    for bit alike in f32 and in int8 at bf16 compute (the same calibration),
+    with deterministic algorithms. And libzstd as loaded here. Returns the
+    CLI's launches per main step."""
+    phase = "checkpoint_orbax"
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt_orbax_", dir=out_dir))
+    try:
+        t0 = time.perf_counter()
+        write_jpeg_tree(root / "data")
+        data_s = time.perf_counter() - t0
+        per_step = train_cli_route(card, root, "orbax", ["--ckpt_format", "orbax"], fused,
+                                   phase=f"{phase}/train_cli")
+        shutil.rmtree(root / "exps", ignore_errors=True)
+
+        _, batch = train_batch(FUSED_GAN_ARGS, seed=51)
+        model = AdaINModel(default_train_args(**FUSED_GAN_ARGS, checkpoint_dir=str(root / "ck")))
+        model.main_step(batch, StepDraws(_dist_generator()))
+        back = AdaINModel(default_train_args(**dict(FUSED_GAN_ARGS, seed=7)))
+        routes = {}
+        for fmt, ext in (("msgpack", ".ckpt"), ("orbax", ".orbax")):
+            model.args.ckpt_format = fmt
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.save(1)
+            save_s = time.perf_counter() - t0
+            paths = [root / "ck" / f"{k}_1{ext}" for k in ("model", "opt")]
+            t0 = time.perf_counter()
+            back.load(*map(str, paths))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            _check_restored(back, *map(str, paths))
+            routes[fmt] = dict(save_s=save_s, load_s=load_s,
+                               bytes={p.name: _nbytes(p) for p in paths},
+                               form=ckpt.checkpoint_format(str(paths[0])))
+        del back
+        weights = {n: net.state_dict() for n, net in model.nets.items()}
+        serving = {}
+        for dtype in ("float32", "bfloat16"):
+            resumed = AdaINModel(default_test_args(**ARGS, compute_dtype=dtype,
+                                                   resume=str(root / "ck" / "model_1.orbax")))
+            saved = AdaINModel(default_test_args(**dict(ARGS, compute_dtype=dtype, seed=3)))
+            saved.load_params({n: weights[n] for n in saved.nets})
+            _, dev = request_inputs(ARGS, seed=52)
+            outs = []
+            for m in (resumed, saved):
+                with deterministic_algorithms():
+                    if dtype == "bfloat16":
+                        m.calibrate_int8(*calibration_batches(ARGS))
+                    outs.append(m.forward_random(dev["img"], dev["z"], dev["c"])[0])
+            torch.cuda.synchronize()
+            name = "f32" if dtype == "float32" else "int8_bf16"
+            check_image(outs[0], (B, 256, 256, 3), f"{phase} {name}")
+            serving[name] = dict(equal=torch.equal(*outs),
+                                 max_abs_err=(outs[0].float() - outs[1].float()).abs().max().item())
+            del resumed, saved
+        del model
+        torch.cuda.empty_cache()
+        zstd = zstd_check()
+        log(dict(phase=phase, card=card, data_s=data_s, routes=routes, serving=serving,
+                 serving_bound="bit for bit, deterministic algorithms", zstd=zstd,
+                 note="warm page cache: the files were just written"))
+        for name, r in serving.items():
+            assert r["equal"], f"{phase}: {name} forward of the resumed model {r}"
+        assert routes["orbax"]["form"] == "dcp" and routes["msgpack"]["form"] == "torch", routes
+        return per_step
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def profile_train(model_cls=AdaINModel, flags=None) -> None:
     """Device time by kernel over one main step (``--profile``)."""
     model = model_cls(default_train_args(**{**TRAIN_ARGS, **(flags or {})}))
@@ -4165,7 +4475,8 @@ def main(argv) -> int:
                 log(f"  {name}: {fn} | {line.strip()}")
     if argv[:1] == ["--only"]:
         phases = {"distributed": lambda: distributed(card, t0),
-                  "int8_train": lambda: int8_train(card), "export": lambda: export_phase(card)}
+                  "int8_train": lambda: int8_train(card), "export": lambda: export_phase(card),
+                  "checkpoint_orbax": lambda: checkpoint_orbax(card)}
         for name in argv[1].split(","):
             phases[name]()
             log(dict(phase="seconds", upto=name, seconds=time.perf_counter() - t0))
@@ -4229,8 +4540,14 @@ def main(argv) -> int:
     for name, runs in evaluate_phase(card, t0).items():
         next(e for e in entries if e["name"] == name)["evaluate"] = dict(
             forwards_per_run=EVAL_FORWARDS, launches=runs)
-    adain_stats_entry, launched = distributed(card, t0)
+    adain_stats_entry, launched, qat_dp = distributed(card, t0)
     entries.append(adain_stats_entry)
+    for e in entries:
+        kernel = e["name"].split("/")[0]
+        if e["name"] in {f"{k}/bf16" for k in QAT_SCOPES.values()}:
+            e["int8_train_dp"] = {"fused": {who: n[kernel] for who, n in qat_dp.items()},
+                                  "per": "rank per QAT main step, 4 rows a side each on "
+                                         "gloo2, 8 on nccl1"}
     per_main_step["distributed/nccl1"] = {
         **{k: dict(launches=launched[k]) for k in FUSED_GAN_PER_STEP},
         "moments/bf16": dict(launches=launched["moments"])}
@@ -4251,6 +4568,9 @@ def main(argv) -> int:
         if kernel in EXPORT_COUNTERS:
             e["export"] = {case: launched[kernel] for case, launched in export_launched.items()}
     log(dict(phase="seconds", upto="export", seconds=time.perf_counter() - t0))
+    per_main_step["checkpoint_orbax/train_cli"] = checkpoint_orbax(
+        card, variants["train_variants/fused"] | {"rates": fused_rates})
+    log(dict(phase="seconds", upto="checkpoint_orbax", seconds=time.perf_counter() - t0))
     # each training phase's launches (moments also ms, bound ms and error)
     # per main step, beside the serving launches in "launches"
     for e in entries:

@@ -16,14 +16,15 @@ the whole-block kernels, as in the JAX package),
 schedule and loss flags, ``use_dis_content``/``d_iter``, the discriminators'
 shapes and ``fused_resblock`` ("auto": the whole-block resblock kernels on
 the card; "off"; tests also set "on", which routes CPU tensors through the
-kernels' plain versions, as the JAX package's tests set "interpret"). A
-training flag that selects a branch the port lacks raises
-``NotImplementedError`` when the model is built; the rest are kept so that
-one namespace drives either package. The sample CLI (``sample.py``) reads
+kernels' plain versions, as the JAX package's tests set "interpret"). Every
+flag of the JAX package selects its branch in the port too; the flags that
+only the JAX package reads are kept so that one namespace drives either
+package. The sample CLI (``sample.py``) reads
 the test flags as the JAX sampler does (and, as it, not
-``--num_devices``); there, as in training, ``--ckpt_format orbax`` raises
-``checkpoint.ORBAX_ERROR``. ``--num_devices`` is the data-parallel
-trainer's world size (``train.py``).
+``--num_devices``); there, as in training, ``--ckpt_format`` picks the
+form of what is written (``checkpoint.py``: ``.ckpt`` files, or ``.orbax``
+directories). ``--num_devices`` is the data-parallel trainer's world size
+(``train.py``), ``--int8_train`` among its flags.
 """
 from __future__ import annotations
 

@@ -1,33 +1,47 @@
-"""Checkpoints: two files per save point, with a tolerant per-net restore.
+"""Checkpoints: two per save point, with a tolerant per-net restore.
 
-The port of ``masterthesis_tpu/checkpoint.py``. The files keep the JAX
-package's names and top-level layout: ``model_{it}.ckpt`` holds
-``{"params": {net: state_dict}}`` (spectral norm's ``u`` is a buffer inside
-its net's state_dict) and ``opt_{it}.ckpt`` holds ``{"opt_state": {net:
-AdamState.state_dict()}, "step": int}``. They are written with
-``torch.save`` (host tensors) and read with ``torch.load(weights_only=True)``:
-this is what ``--ckpt_format msgpack`` means in the port. The JAX package's
-``orbax`` directories are not ported.
+The port of ``masterthesis_tpu/checkpoint.py``. They keep the JAX package's
+names and top-level layout: ``model_{it}`` holds ``{"params": {net:
+state_dict}}`` (spectral norm's ``u`` is a buffer inside its net's
+state_dict) and ``opt_{it}`` holds ``{"opt_state": {net:
+AdamState.state_dict()}, "step": int}``. As in the JAX package, the path
+picks the form (``--ckpt_format`` picks the path's ending, ``Model.save``):
 
-A file the JAX package wrote (Flax's msgpack, ``flax.serialization
-.msgpack_serialize``) reads too: :func:`load_pytree` tells the two apart by
-their first bytes (a ``torch.save`` file is a zip, ``PK``; a Flax file a
-msgpack map) and decodes a Flax file with :func:`msgpack_restore`, a reader
-of its own (neither Flax nor msgpack is needed), into nested dicts of torch
-tensors in the JAX layout; ``tools/convert_jax.py`` carries them into the
-port's nets (``Model.load``).
+- ``model_{it}.ckpt``, one ``torch.save`` file of host tensors, read with
+  ``torch.load(weights_only=True)`` (``--ckpt_format msgpack``);
+- ``model_{it}.orbax/``, a directory: a ``torch.distributed.checkpoint``
+  store (``dcp.save`` with a ``FileSystemWriter``), PyTorch's form for
+  directory and sharded state, as orbax's is the JAX package's
+  (``--ckpt_format orbax``).
+
+Both are written under a temporary name and renamed, so that a cut run
+never leaves half a checkpoint.
+
+What the JAX package wrote reads too (:func:`load_pytree` tells the forms
+apart, :func:`checkpoint_format`): a Flax msgpack file
+(``flax.serialization.msgpack_serialize``; a msgpack map where a
+``torch.save`` zip has ``PK``), decoded by :func:`msgpack_restore`, a reader
+of its own (neither Flax nor msgpack is needed), and an orbax directory
+(``_METADATA`` and ``manifest.ocdbt``), read by ``checkpoint_orbax.read_store`` without JAX, orbax
+or tensorstore. Both give nested dicts of torch tensors in the JAX layout,
+which ``tools/convert_jax.py`` carries into the port's nets
+(``Model.load``).
 """
 from __future__ import annotations
 
 import os
+import shutil
 import struct
+import warnings
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-ORBAX_ERROR = ("--ckpt_format orbax is not ported to masterthesis_tpu_torch: its checkpoints "
-               "are torch.save files (--ckpt_format msgpack)")
+from masterthesis_tpu_torch import checkpoint_orbax
+
+FORMATS = ("a torch.save file (.ckpt), a torch.distributed.checkpoint directory (.orbax), "
+           "and what the JAX package writes: a Flax msgpack file or an orbax directory")
 
 
 def _to_host(tree):
@@ -41,12 +55,25 @@ def _to_host(tree):
 
 
 def save_pytree(tree: Dict[str, Any], path: str) -> None:
-    """Write ``tree`` (dicts and lists of tensors and numbers) to ``path``,
-    through a temporary file, so that a cut run never leaves half a file."""
-    if path.endswith(".orbax"):
-        raise NotImplementedError(ORBAX_ERROR)
+    """Write ``tree`` (dicts and lists of tensors and numbers) to ``path``:
+    a ``torch.save`` file, or where ``path`` ends in ``.orbax`` a
+    ``torch.distributed.checkpoint`` directory (replacing one that is there,
+    as the JAX package saves with ``force=True``). The directory is written
+    by this process alone (``no_dist``): a data-parallel run saves from rank
+    0 only (``Model.writes``)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    if path.endswith(".orbax"):
+        from torch.distributed.checkpoint import FileSystemWriter, save
+
+        shutil.rmtree(tmp, ignore_errors=True)
+        with warnings.catch_warnings():  # "assuming ... a single process": it is one
+            warnings.simplefilter("ignore", UserWarning)
+            save(_to_host(tree), storage_writer=FileSystemWriter(tmp), no_dist=True)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        return
     torch.save(_to_host(tree), tmp)
     os.replace(tmp, path)
 
@@ -54,21 +81,72 @@ def save_pytree(tree: Dict[str, Any], path: str) -> None:
 def is_flax_file(path: str) -> bool:
     """Whether ``path`` is a file the JAX package wrote: a msgpack map (fixmap
     0x80-0x8f, map16 0xde, map32 0xdf) where a ``torch.save`` zip has ``PK``."""
+    if not os.path.isfile(path):
+        return False
     with open(path, "rb") as f:
         head = f.read(2)
     return len(head) > 0 and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF))
 
 
+def checkpoint_format(path: str) -> str:
+    """Which form ``path`` holds: "jax_orbax" (a directory orbax wrote: its
+    ``_METADATA`` and ``manifest.ocdbt``), "dcp" (a ``torch.distributed.checkpoint`` directory: its
+    ``.metadata``), "msgpack" (a Flax file) or "torch" (a ``torch.save``
+    zip). Anything else raises, naming the forms taken."""
+    if os.path.isdir(path):
+        if checkpoint_orbax.is_jax_store(path):
+            return "jax_orbax"
+        if os.path.isfile(os.path.join(path, ".metadata")):
+            return "dcp"
+    elif os.path.isfile(path):
+        if is_flax_file(path):
+            return "msgpack"
+        with open(path, "rb") as f:
+            if f.read(2) == b"PK":
+                return "torch"
+    else:
+        raise FileNotFoundError(f"checkpoint not found: {path}")
+    raise ValueError(f"{path} is no checkpoint this package reads; it reads {FORMATS}")
+
+
+def written_by_jax(path: str) -> bool:
+    """Whether ``path`` holds a checkpoint of the JAX package (its trees
+    are in the JAX layout)."""
+    return checkpoint_format(path) in ("jax_orbax", "msgpack")
+
+
 def load_pytree(path: str, device="cpu") -> Any:
-    """Read a :func:`save_pytree` file, or a file the JAX package wrote
-    (:func:`msgpack_restore`), its tensors onto ``device``."""
-    if path.endswith(".orbax"):
-        raise NotImplementedError(ORBAX_ERROR)
-    if is_flax_file(path):
+    """Read a :func:`save_pytree` file or directory, or a checkpoint the JAX
+    package wrote (:func:`msgpack_restore`, ``checkpoint_orbax.read_store``),
+    its tensors onto ``device``."""
+    kind = checkpoint_format(path)
+    if kind == "torch":
+        return torch.load(path, map_location=device, weights_only=True)
+    if kind == "msgpack":
         with open(path, "rb") as f:
             tree = msgpack_restore(f.read())
-        return _to_device(tree, device)
-    return torch.load(path, map_location=device, weights_only=True)
+    elif kind == "jax_orbax":
+        tree = checkpoint_orbax.read_store(path)
+    else:
+        tree = _load_dcp(path)
+    return _to_device(tree, device)
+
+
+def _load_dcp(path: str) -> dict:
+    """A ``torch.distributed.checkpoint`` directory's whole tree, without a
+    template: DCP's empty-state-dict planner builds it from the store's
+    metadata (as ``format_utils.dcp_to_torch_save`` reads one), in this
+    process alone."""
+    from torch.distributed.checkpoint import FileSystemReader
+    from torch.distributed.checkpoint.default_planner import _EmptyStateDictLoadPlanner
+    from torch.distributed.checkpoint.state_dict_loader import _load_state_dict
+
+    tree: dict = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        _load_state_dict(tree, storage_reader=FileSystemReader(path),
+                         planner=_EmptyStateDictLoadPlanner(), no_dist=True)
+    return tree
 
 
 def _to_device(tree, device):

@@ -10,14 +10,17 @@ step and each net's Adam moments), the lr schedule, and a generator on its
 device from which its training steps draw.
 
 Checkpoints (``save``/``load``, ``checkpoint.py``): ``model_{it}.ckpt`` and
-``opt_{it}.ckpt`` in ``args.checkpoint_dir``, restored per net with the JAX
-package's messages; ``args.resume``/``resume_opt`` load at ``initialize``,
-and ``resume_opt`` with ``last_iter`` sets the step as the JAX package does.
-``load`` also takes a ``model_{it}.ckpt`` that the JAX package wrote (Flax
-msgpack), net by net through ``tools/convert_jax.net_from_jax``, with the
-spectral ``u`` vectors of its ``extra`` tree, and a JAX ``opt_{it}.ckpt``:
-each net's optax state, whose ``scale_by_adam`` moments are converted leaf
-by leaf as the params are (:func:`adam_from_jax`).
+``opt_{it}.ckpt`` in ``args.checkpoint_dir`` (``model_{it}.orbax/`` and
+``opt_{it}.orbax/`` directories under ``--ckpt_format orbax``, as the JAX
+package names them), restored per net with the JAX package's messages;
+``args.resume``/``resume_opt`` load at ``initialize``, and ``resume_opt``
+with ``last_iter`` sets the step as the JAX package does. ``load`` also
+takes a ``model_{it}`` that the JAX package wrote (a Flax msgpack file or
+an orbax directory), net by net through
+``tools/convert_jax.net_from_jax``, with the spectral ``u`` vectors of its
+``extra`` tree, and a JAX ``opt_{it}``: each net's optax state, whose
+``scale_by_adam`` moments are converted leaf by leaf as the params are
+(:func:`adam_from_jax`).
 Logging: ``get_current_lr``, ``save_images`` (``gen_{it}.jpg`` in
 ``args.display_dir``) and ``write_loss`` (a tensorboardX writer on
 ``args.logdir`` for training, or None where tensorboardX is missing).
@@ -53,8 +56,6 @@ class Model:
 
     def __init__(self, args, device=None):
         self.args = args
-        if getattr(args, "ckpt_format", None) == "orbax":
-            raise NotImplementedError(ckpt.ORBAX_ERROR)
         # fail fast on a bad checkpoint path, before the nets are built
         for attr in ("resume", "resume_opt"):
             path = getattr(args, attr, None)
@@ -133,17 +134,19 @@ class Model:
         return self.mesh is None or self.mesh.rank == 0
 
     def save(self, it: int) -> None:
-        """``model_{it}.ckpt`` (every net's state_dict) and ``opt_{it}.ckpt``
-        (every net's Adam state and the step) in ``args.checkpoint_dir``;
+        """``model_{it}`` (every net's state_dict) and ``opt_{it}`` (every
+        net's Adam state and the step) in ``args.checkpoint_dir``: ``.ckpt``
+        files, or ``.orbax`` directories under ``--ckpt_format orbax``;
         data parallel, by rank 0 alone."""
         if not self.writes:
             return
         ckdir = self.args.checkpoint_dir
+        ext = ".orbax" if getattr(self.args, "ckpt_format", None) == "orbax" else ".ckpt"
         ckpt.save_pytree({"params": {n: net.state_dict() for n, net in self.nets.items()}},
-                         os.path.join(ckdir, f"model_{it}.ckpt"))
+                         os.path.join(ckdir, f"model_{it}{ext}"))
         ckpt.save_pytree({"opt_state": {n: s.state_dict() for n, s in self.state.opt_state.items()},
                           "step": self.state.step},
-                         os.path.join(ckdir, f"opt_{it}.ckpt"))
+                         os.path.join(ckdir, f"opt_{it}{ext}"))
 
     def load(self, checkpoint=None, opt_ckpt=None) -> None:
         """Restore the nets from ``checkpoint`` and the optimizer state and
@@ -151,16 +154,16 @@ class Model:
         lacks keeps its weights, a net the model lacks is skipped, each
         with the JAX package's message. A ``checkpoint`` the JAX package
         wrote loads too (:meth:`_load_jax`), and so does its ``opt_ckpt``
-        (:func:`adam_from_jax`)."""
+        (:func:`adam_from_jax`), in either of its forms."""
         if checkpoint is not None:
             restored = ckpt.load_pytree(checkpoint, self.device)
-            if ckpt.is_flax_file(checkpoint):
+            if ckpt.written_by_jax(checkpoint):
                 self._load_jax(restored)
             else:
                 ckpt.restore_matching(self.nets, restored.get("params", restored), "network")
         if opt_ckpt is not None:
             restored = ckpt.load_pytree(opt_ckpt, self.device)
-            if ckpt.is_flax_file(opt_ckpt):
+            if ckpt.written_by_jax(opt_ckpt):
                 restored = self._opt_from_jax(restored)
             ckpt.restore_matching(self.state.opt_state, restored.get("opt_state", {}), "optimizer")
             if "step" in restored:

@@ -49,8 +49,10 @@ convs of the content encoder and the decoder whose kind is in
 float conv's gradient, and the whole-block kernels 9 and 10 stay off, as
 the JAX package's ``_with_qat`` routes its step
 (``masterthesis_tpu/models/translation.py:627-657``). The content step and
-the serving forwards stay float. Under data parallelism it raises: the
-calibration would need an all-reduce with MAX to equal one device's.
+the serving forwards stay float. Under data parallelism each rank
+calibrates on its rows and the ranks' maxima are all-reduced with MAX, so
+that every rank installs one device's tree and, from identical weights,
+quantizes alike.
 
 ``compute_visuals`` (through ``forward``) gives the trainer's 2x4 image grid.
 
@@ -90,13 +92,6 @@ from masterthesis_tpu_torch.parallel import mesh as pmesh
 
 INT8_NETS = ("content_encoder", "decoder")
 GEN_NETS = ("content_encoder", "style_encoder", "decoder")
-
-# flags of the JAX package whose branches the port does not have yet, with
-# the ROADMAP item that holds them
-_UNPORTED = (
-    (lambda a: a.int8_train and (a.num_devices or 1) > 1, "--int8_train under data parallel",
-     "A.8, QAT under data parallel"),
-)
 
 
 class StepDraws:
@@ -346,11 +341,14 @@ class TranslationModel(Model):
         (B, latent): the draws are the caller's, as :meth:`calibrate_int8`
         takes them. Records each conv's max |input| and installs it as the
         conv's ``train_amax`` (the serving ``amax_in`` stays as it is, so
-        the serving forwards stay float). Returns the per-net amax tree."""
-        if self._ranks() > 1:
-            raise NotImplementedError(
-                "--int8_train under data parallel is not ported to masterthesis_tpu_torch yet "
-                "(ROADMAP A.8, QAT under data parallel)")
+        the serving forwards stay float). Returns the per-net amax tree.
+
+        Data parallel (every rank calls it, with its rows of the global
+        batch and of the global draws): each rank measures its own rows,
+        where a batch norm takes the global batch's statistics, and the
+        ranks' maxima are all-reduced with MAX, so that every rank installs
+        the one tree that one device measures over the global batch, as the
+        JAX package's calibration pass reduces over every device's rows."""
         if isinstance(batch, dict):
             batch = batch.get("x1", batch.get("x"))
         convs = [m for name in INT8_NETS for m in int8_convs(self.nets[name]).values()]
@@ -360,6 +358,11 @@ class TranslationModel(Model):
                     m.calib_amax = torch.zeros((), device=self.device)
                 z_c = self.nets.content_encoder(_nchw(self._tensor(batch)))
                 self.nets.decoder(z_c, self._tensor(z), self._tensor(c))
+                group = self._data_group()
+                if group is not None:
+                    amax = pmesh.all_reduce_max(torch.stack([m.calib_amax for m in convs]), group)
+                    for m, a in zip(convs, amax):
+                        m.calib_amax = a
                 cols = {name: extract_amax(self.nets[name]) for name in INT8_NETS}
         finally:
             for m in convs:
@@ -398,10 +401,6 @@ class TranslationModel(Model):
         a = self.args
         if a.int8_train and a.remat:
             raise ValueError("--int8_train is incompatible with --remat, as in the JAX package")
-        for selected, flag, item in _UNPORTED:
-            if selected(a):
-                raise NotImplementedError(
-                    f"{flag} is not ported to masterthesis_tpu_torch yet (ROADMAP {item})")
 
     def _add_training_nets(self, dtype: torch.dtype) -> None:
         """The nets beside the generators: ``discriminator1``,
@@ -410,7 +409,8 @@ class TranslationModel(Model):
         build it; spectrally normalized with ``dis_sn``) and, with
         ``use_dis_content``, the ``content_discriminator`` on the content
         codes; with ``vgg_loss`` the frozen f32 ``perceptual`` loss, outside
-        ``nets``. A flag whose branch is not ported raises first."""
+        ``nets``. ``--int8_train`` with ``--remat`` raises first, as in the
+        JAX package."""
         self._check_train_flags()
         a = self.args
         if a.int8_train:

@@ -15,7 +15,8 @@ calls the collectives itself:
   and hands the model the mesh: its training step then all-reduces each
   net's gradients (:func:`mean_gradients`) and keeps every batch-coupled
   term global (:func:`all_reduce_sum`, an all-reduce that autograd goes
-  through, for RaGAN's means and batch norm's statistics).
+  through, for RaGAN's means and batch norm's statistics);
+  :func:`all_reduce_max` gives every rank one int8 training calibration.
 
 Without a process group everything here is the single-process identity:
 ``make_mesh(1)`` is then a one-rank mesh whose collectives do nothing.
@@ -161,6 +162,16 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     return _AllReduceSum.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``group``, without gradient (the
+    int8 training calibration's amax); ``x`` itself without a group."""
+    if group is None:
+        return x
+    y = x.detach().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
 
 
 def group_size(group) -> int:

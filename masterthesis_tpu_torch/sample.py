@@ -11,8 +11,11 @@ sizes.
     python -m masterthesis_tpu_torch.sample --dataroot DIR_OR_VIDEO \\
         --model AdaINModel --resume model_N.ckpt --targets fog sun ...
 
-``--resume`` takes the port's own checkpoints and the ``model_N.ckpt``
-files that the JAX package writes (``Model.load``). The sampler runs on one
+``--resume`` takes the port's own checkpoints and those the JAX package
+writes, ``model_N.ckpt`` files and ``model_N.orbax`` directories
+(``Model.load``); ``--ckpt_format`` is read, as by the JAX sampler, only to
+pick the form of what is written, and the sampler writes no checkpoint.
+The sampler runs on one
 device: ``Sampler(device=None)`` is the card, and without one that is an
 error (``device="cpu"`` runs the kernels' plain versions, as the tests do);
 it does not read ``--num_devices``, as the JAX sampler does not. The style codes, the VAE

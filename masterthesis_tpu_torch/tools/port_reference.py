@@ -17,7 +17,8 @@ original's block is unusable as written: its conv does not widen, DESIGN.md
 divergence 4), and the original's ``ResnetGenerator`` builds no residual
 blocks, so only a net with ``n_blocks=0`` imports.
 
-CLI (writes a checkpoint that ``Model.load``, ``--resume``, reads; the nets
+CLI (writes a checkpoint that ``Model.load``, ``--resume``, reads: a
+``torch.save`` file, or a directory where DST ends in ``.orbax``; the nets
 are built on the card unless ``--device cpu``)::
 
     python -m masterthesis_tpu_torch.tools.port_reference model_100.ckpt out.ckpt \\
@@ -299,7 +300,7 @@ def main(argv=None):
 
     p = argparse.ArgumentParser("port an original PyTorch model_{it}.ckpt to the port")
     p.add_argument("src", help="the original's model_{it}.ckpt")
-    p.add_argument("dst", help="output checkpoint path (.ckpt); load with --resume")
+    p.add_argument("dst", help="output checkpoint path (.ckpt/.orbax); load with --resume")
     p.add_argument("--model", default="AdaINModel")
     p.add_argument("--dim", type=int, default=64)
     p.add_argument("--latent_dim", type=int, default=8)

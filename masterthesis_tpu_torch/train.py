@@ -32,7 +32,8 @@ rows of the global draws), the device preprocess of ``--device_preproc``
 each have their own, and so do ``--int8_train``'s calibration draws: the
 trainer calibrates at every ``--int8_calib_freq``-th iteration, and at the
 first one of a run that has no calibration yet (a resume), as
-``masterthesis_tpu/train.py:82-89`` does. A run resumed with ``--resume``,
+``masterthesis_tpu/train.py:82-89`` does, on every rank alike (the
+calibration is a collective). A run resumed with ``--resume``,
 ``--resume_opt`` and ``--last_iter`` continues the data stream where the
 saved run was (``DataLoader.fast_forward``), so it repeats the iterations
 of the unbroken run.
@@ -182,12 +183,19 @@ class Trainer:
         """``--int8_train``'s delayed scaling: the activation ranges of this
         batch's ``x1``, with one-hot targets and styles drawn from the
         iteration's ``CALIB`` generator, as the JAX trainer draws them from
-        its step key."""
+        its step key. Data parallel, every rank draws them for the global
+        batch and keeps its own rows (as ``StepDraws.shard`` does the
+        step's), so that the ranks together use one device's draws."""
         g = iteration_generator(getattr(args, "seed", 0) or 0, it, CALIB, self.device)
         b = len(batch["x1"])
-        idx = torch.randint(args.num_domains, (b,), generator=g, device=self.device)
+        mesh = model.mesh
+        ranks = 1 if mesh is None else mesh.axis_size("data")
+        rows = slice(0, b) if mesh is None else slice(mesh.index("data") * b,
+                                                      (mesh.index("data") + 1) * b)
+        idx = torch.randint(args.num_domains, (b * ranks,), generator=g, device=self.device)
         c = torch.nn.functional.one_hot(idx, args.num_domains).float()
-        return model.calibrate_quant_train(batch, c, model.get_z_random(b, g))
+        z = model.get_z_random(b * ranks, g)
+        return model.calibrate_quant_train(batch, c[rows], z[rows])
 
     def run(self, args):
         dataloader = self.load_dataset(args)

@@ -28,6 +28,7 @@ from masterthesis_tpu.models import AdaINModel as JaxAdaINModel
 from masterthesis_tpu_torch.arguments import default_test_args, default_train_args
 from masterthesis_tpu_torch.models import AdaINModel
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
+from tests.torch_jax_init import initialized
 from masterthesis_tpu_torch.tools.convert_jax import params_from_jax, quant_from_jax
 
 torch.set_num_threads(2)
@@ -42,7 +43,7 @@ def setup():
     """The JAX model with the flag, calibrated on two batches, and the port
     on the same weights and amax tree, with and without the flag."""
     jm = JaxAdaINModel(jax_test_args(**FLAGS, **SHAPE))
-    params = jax.tree_util.tree_map(np.asarray, jm.initialize().params)
+    params = jax.tree_util.tree_map(np.asarray, initialized(jm).params)
     rng = np.random.default_rng(0)
     inputs = SimpleNamespace(
         img=rng.uniform(-1, 1, (B, SIZE, SIZE, 3)).astype(np.float32),

@@ -1,9 +1,9 @@
 """The port's checkpoints: ``model_{it}.ckpt`` and ``opt_{it}.ckpt`` with the
 JAX package's layout, a bit-exact round trip (params, spectral ``u``, Adam
 moments and counts, step), the tolerant per-net restore with the JAX
-package's messages, the step set by ``--resume_opt``/``--last_iter``, and
-``--ckpt_format orbax`` refused with a message naming the flag. The
-behaviours of ``tests/test_checkpoint.py``.
+package's messages and the step set by ``--resume_opt``/``--last_iter``:
+the behaviours of ``tests/test_checkpoint.py`` (``--ckpt_format orbax``:
+tests/test_torch_checkpoint_orbax.py).
 """
 import os
 
@@ -115,9 +115,3 @@ def test_missing_resume_path_fails_first(tmp_path):
     with pytest.raises(FileNotFoundError, match="--resume_opt"):
         AdaINModel(_args(resume_opt=str(tmp_path / "nope.ckpt")), device="cpu")
 
-
-def test_orbax_format_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="--ckpt_format orbax"):
-        AdaINModel(_args(checkpoint_dir=str(tmp_path), ckpt_format="orbax"), device="cpu")
-    with pytest.raises(NotImplementedError, match="--ckpt_format orbax"):
-        ckpt.save_pytree({"x": torch.ones(1)}, str(tmp_path / "model_5.orbax"))

@@ -30,6 +30,7 @@ from masterthesis_tpu.models import AdaINModel as JaxAdaINModel
 from masterthesis_tpu_torch import checkpoint as ckpt
 from masterthesis_tpu_torch.arguments import default_test_args, default_train_args
 from masterthesis_tpu_torch.models import AdaINModel
+from tests.torch_jax_init import compiled_jax_init
 
 torch.set_num_threads(2)
 
@@ -133,7 +134,8 @@ def jax_checkpoint(tmp_path_factory):
     jm = JaxAdaINModel(jax_train_args(checkpoint_dir=ckdir, logdir=None, use_dis_content=True,
                                       dis_sn=True, dis_content_layers=1,
                                       dis_content_final_kernel=2, **SHAPE))
-    state = jm.initialize()
+    with compiled_jax_init():  # the weights are moved off the init below
+        state = jm.initialize()
     rng = np.random.default_rng(0)
     # move the weights off their init, so that a net left unloaded shows
     params = jax.tree_util.tree_map(
@@ -145,7 +147,8 @@ def jax_checkpoint(tmp_path_factory):
     jm.save(state, 5)
     model_path = os.path.join(ckdir, "model_5.ckpt")
     served = JaxAdaINModel(jax_test_args(resume=model_path, **SHAPE))
-    serve_state = served.initialize()
+    with compiled_jax_init():  # restored from the checkpoint
+        serve_state = served.initialize()
     return SimpleNamespace(model=model_path, opt=os.path.join(ckdir, "opt_5.ckpt"),
                            params=params, extra=extra, served=served, serve_state=serve_state)
 

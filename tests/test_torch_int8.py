@@ -36,6 +36,7 @@ from masterthesis_tpu_torch.models import AdaINModel
 from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
+from tests.torch_jax_init import initialized
 from masterthesis_tpu_torch.tools.convert_jax import (
     _conv,
     _conv_transpose,
@@ -250,7 +251,7 @@ def setup():
     """The JAX model calibrated on two batches, and the port on the same
     weights: (jax model, params, port model, inputs, jax draws)."""
     jm = JaxAdaINModel(jax_test_args(**SHAPE))
-    params = jax.tree_util.tree_map(np.asarray, jm.initialize().params)
+    params = jax.tree_util.tree_map(np.asarray, initialized(jm).params)
     rng = np.random.default_rng(0)
     params = _perturb(params, rng)
     tm = AdaINModel(default_test_args(**SHAPE), device="cpu")

@@ -56,6 +56,7 @@ from masterthesis_tpu_torch.arguments import default_test_args
 from masterthesis_tpu_torch.models import AdaINModel, BaseModel
 from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
+from tests.torch_jax_init import initialized
 from masterthesis_tpu_torch.tools.convert_jax import (
     _conv,
     _conv_transpose,
@@ -316,7 +317,7 @@ def bf16_setup(request, inputs):
     between fused bf16 ops)."""
     jax_cls, port_cls, flags = MODELS[request.param]
     jm = jax_cls(jax_test_args(compute_dtype="bfloat16", **flags, **SHAPE))
-    params = _perturb(jax.tree_util.tree_map(np.asarray, jm.initialize().params),
+    params = _perturb(jax.tree_util.tree_map(np.asarray, initialized(jm).params),
                       np.random.default_rng(1))
     ref_float = _f32(jm._forward_random_jit(params, inputs.img, inputs.z, inputs.c))
     quant = _jax_int8(jm, params, inputs)
@@ -397,7 +398,7 @@ def instance_setups(inputs):
     for dtype in ("float32", "bfloat16"):
         jm = JaxAdaINModel(jax_test_args(compute_dtype=dtype, dec_norm="instance", **SHAPE))
         if params is None:
-            params = _perturb(jax.tree_util.tree_map(np.asarray, jm.initialize().params),
+            params = _perturb(jax.tree_util.tree_map(np.asarray, initialized(jm).params),
                               np.random.default_rng(2))
         ref_float = _f32(jm._forward_random_jit(params, inputs.img, inputs.z, inputs.c))
         quant = _jax_int8(jm, params, inputs)

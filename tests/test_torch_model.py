@@ -26,6 +26,7 @@ from masterthesis_tpu_torch.arguments import default_test_args
 from masterthesis_tpu_torch.models import AdaINModel
 from masterthesis_tpu_torch.ops.kernels import adain as kadain
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
+from tests.torch_jax_init import initialized
 from masterthesis_tpu_torch.tools.convert_jax import _flatten, params_from_jax
 
 torch.set_num_threads(2)
@@ -53,7 +54,7 @@ def _perturb(tree, rng):
 @pytest.fixture(scope="module")
 def tree():
     jm = JaxAdaINModel(jax_test_args(**SHAPE))
-    params = jax.tree_util.tree_map(np.asarray, jm.initialize().params)
+    params = jax.tree_util.tree_map(np.asarray, initialized(jm).params)
     return _perturb(params, np.random.default_rng(0))
 
 

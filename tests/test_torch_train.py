@@ -16,11 +16,11 @@
   decodes; G phase 2: one of each) and 24 backwards (G1 and G2 only); the
   content step none. And the draws: given ones are used as they are, and two
   steps from one generator seed are equal.
-- Flags: ``--int8_train`` under data parallel (``--num_devices`` 2) raises
-  ``NotImplementedError`` naming its ROADMAP item; each other training flag (the fused GAN step, the multi-scale
+- Flags: each training flag (the fused GAN step, the multi-scale
   discriminator, spectral norm, RaGAN, hinge, WGAN-GP, the perceptual loss,
   remat) builds its nets in both models and takes a main step that moves
-  every net but the content discriminator.
+  every net but the content discriminator (``--int8_train``, alone and data
+  parallel: tests/test_torch_qat.py, tests/test_torch_qat_parallel.py).
 
 The whole step against the JAX package's is in tests/test_torch_train_step*.py.
 """
@@ -47,6 +47,7 @@ from masterthesis_tpu_torch.models.state import AdamState  # noqa: E402
 from masterthesis_tpu_torch.models.translation import StepDraws  # noqa: E402
 from masterthesis_tpu_torch.ops import norms  # noqa: E402
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb  # noqa: E402
+from tests.torch_jax_init import initialized  # noqa: E402
 from masterthesis_tpu_torch.tools.convert_jax import params_from_jax  # noqa: E402
 from tests import torch_train_steps as S  # noqa: E402
 
@@ -379,12 +380,6 @@ def test_two_steps_from_one_generator_seed_are_equal():
         _model().main_step(_batch(), StepDraws())
 
 
-@pytest.mark.parametrize("flag", [dict(int8_train=True, num_devices=2)])
-def test_unported_train_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _model(**flag)
-
-
 PORTED_FLAGS = {
     "gan_step_fused": dict(gan_step="fused"),
     "ms_dis": dict(ms_dis=True, dis_n_layers=3, num_scales=2),
@@ -429,7 +424,7 @@ def test_discriminators_load_from_a_flax_init_and_match_it():
     every leaf of the three discriminators is consumed, and their forwards
     agree with Flax's at f32 (1e-4 of the largest logit)."""
     jm = JaxAdaINModel(jax_train_args(logdir=None, mode="train", compute_dtype="float32", **TINY))
-    tree = jax.tree_util.tree_map(np.asarray, jm.initialize().params)
+    tree = jax.tree_util.tree_map(np.asarray, initialized(jm).params)
     model = _model(fused="off")
     model.load_params(params_from_jax(tree, model))
     rng = np.random.default_rng(80)

@@ -17,6 +17,10 @@
   of the largest magnitude), for AdaINModel and BaseModel A.
 - ``TrainArguments().parse`` resolves the port's classes and makes the
   experiment's directories; ``Trainer()`` without a card raises.
+
+The JAX models initialize with each net's init compiled
+(``torch_jax_init.compiled_jax_init``): no check here reads the JAX init's
+values (the visuals take the one perturbed tree into both packages).
 """
 import os
 import re
@@ -37,6 +41,7 @@ from masterthesis_tpu_torch import data, models
 from masterthesis_tpu_torch.arguments import TrainArguments, default_test_args, default_train_args
 from masterthesis_tpu_torch.tools.convert_jax import params_from_jax
 from masterthesis_tpu_torch.train import Trainer
+from tests.torch_jax_init import compiled_jax_init
 
 from conftest import make_image_tree, tiny_train_args
 
@@ -82,7 +87,8 @@ def test_trainer_matches_the_jax_trainer(tmp_path, capsys, case):
                             **_dirs(tmp_path, "jax"))
     trainer = JaxTrainer()
     loader = trainer.load_dataset(jargs)
-    jmodel, state = trainer.create_model(jargs)
+    with compiled_jax_init():
+        jmodel, state = trainer.create_model(jargs)
     state = trainer.train(jargs, jmodel, state, loader, mesh=None)
     want = capsys.readouterr().out
 
@@ -171,7 +177,9 @@ def test_compute_visuals_matches_jax(name):
     jcls, cls, flags = VISUAL_MODELS[name]
     shape = dict(crop_size=32, dim=8, latent_dim=4, num_domains=4, batch_size=2, **flags)
     jm = jcls(jax_test_args(**shape))
-    tree = _perturb(jax.tree_util.tree_map(np.asarray, jm.initialize().params),
+    with compiled_jax_init():
+        state = jm.initialize()
+    tree = _perturb(jax.tree_util.tree_map(np.asarray, state.params),
                     np.random.default_rng(0))
     tm = cls(default_test_args(**shape), device="cpu")
     tm.load_params(params_from_jax(tree, tm))

@@ -31,6 +31,7 @@ body, reference or fused.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -287,6 +288,21 @@ def jax_step_calls(args_kw, tree, batch, z_sr, z_sr2, model_cls=AdaINModel) -> t
     return calls["fwd"], calls["bwd"]
 
 
+_UPDATES: dict = {}
+
+
+def _jitted_update(jm, net: str):
+    """The JAX package's ``apply_updates`` for ``net``'s optimizer under
+    ``jax.jit``, as its training step runs it inside its jitted step: one
+    compile per optimizer configuration and shapes, where eagerly each of its
+    few hundred elementwise ops compiles on its own."""
+    a = jm.args
+    key = (a.beta1, a.beta2, a.wd, net == "content_discriminator")
+    if key not in _UPDATES:
+        _UPDATES[key] = jax.jit(functools.partial(jax_apply_updates, jm.tx[net]))
+    return _UPDATES[key]
+
+
 def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINModel,
             gan_step: str = "reference", extras=None, gp_keys=None, aux=None,
             spectral_out=None, opt=None):
@@ -299,7 +315,8 @@ def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINMode
     penalty; ``aux``: the perceptual params; ``spectral_out``, a dict, gets
     each D's stored ``u`` tree; ``opt``: the optax states to start from (a
     resumed run's), else fresh ones. Returns (logs, grads by phase, each phase's
-    updated nets), grads and nets as [{net: tree}]."""
+    updated nets), grads and nets as [{net: tree}]. The optimizer steps run
+    jitted (:func:`_jitted_update`), as inside the JAX package's step."""
     jm = jax_model(args_kw, model_cls)
     trees = [jax.tree_util.tree_map(jnp.asarray, t) for t in trees]
     extras = [jax.tree_util.tree_map(jnp.asarray, e) for e in (extras or [{}] * len(trees))]
@@ -315,7 +332,7 @@ def run_jax(args_kw, trees, batch, z_sr, z_sr2, fused: bool, model_cls=AdaINMode
     def update(params, nets, g):
         new = {}
         for n in nets:
-            new[n], opt[n] = jax_apply_updates(jm.tx[n], g[n], opt[n], params[n], lr)
+            new[n], opt[n] = _jitted_update(jm, n)(g[n], opt[n], params[n], lr)
         phases.append(dict(g))
         updated.append(new)
 
