@@ -10,7 +10,8 @@ against its plain PyTorch version.
     python3 chip_smoke.py --only distributed   # the build and phase 15 alone, no
                                                # result lines (a quicker check);
                                                # --only int8_train,export: 16 and 17;
-                                               # --only distributed,checkpoint_orbax
+                                               # --only distributed,checkpoint_orbax;
+                                               # --only int8_breakdown
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -43,11 +44,18 @@ against its plain PyTorch version.
    Kernels 7 and 5 are also held exact, and to a second call, at ragged
    stride-2 shapes, at BaseModel B's deconv widths (276 -> 138, 146 -> 73)
    and at widths whose box tile holds fewer columns than its 128 (Wo 80).
+   Their y leaves by TMA box stores in either dtype where its rows are a
+   multiple of 16 bytes (f32 Wo % 4 == 0, bf16 Wo % 8 == 0; a transposed
+   conv's rows are 2 Wo), else by the threads: each of their rows and exact
+   cases names its route (``y_store``, the library's
+   ``mt_int8_y_by_tma``), and a line per kernel sets the bf16 route's ms
+   per forward beside the f32 route's, cuDNN's bf16 conv and the bound.
    ``int8_breakdown``: each launch of kernels 6 and 4 at (8, 256, 64, 64)
    and at (8, 268, 64, 64) (a tail N tile's launch of its own), and of
    kernels 7 and 5 at the AdaINModel int8 forward's four shapes and
-   BaseModel B's two deconvs, by its device time (torch.profiler's kernel
-   records) beside its own bound.
+   BaseModel B's two deconvs, in f32 and in bf16, by its device time
+   (torch.profiler's kernel records) beside its own bound, and kernels 7
+   and 5 per forward in each dtype.
 4. Builds AdaINModel with its own seeded init at 256px, dim 64, latent 8,
    4 domains, and in f32 and bf16 serves B=8 ``forward_random`` requests and
    one ``forward_reference`` with the launch counts set to 0 just before and
@@ -855,7 +863,8 @@ def _strided_exact_cases(kind, dtype=torch.float32) -> dict:
         assert all(torch.equal(g, w) for g, w in zip(got, want)), f"{kind} {shape}: differs"
         assert all(torch.equal(g, a) for g, a in zip(got, again)), f"{kind} {shape}: two calls differ"
         out[f"{list(shape)} -> {co}"] = dict(**exact, outputs_and_stats_equal=True,
-                                            bit_equal_repeat=True, cp=qc.cp, rows=qc.w.shape[0])
+                                            bit_equal_repeat=True, cp=qc.cp, rows=qc.w.shape[0],
+                                            y_store=kq.y_store(qc, shape[3], dtype))
     return out
 
 
@@ -908,6 +917,7 @@ def check_int8_conv(kind: str, dtype_name: str = "f32") -> dict:
                  "deconv": lambda t: F.conv_transpose2d(t, wb, None, 2, 1, 1)}[kind]
         rows.append(dict(
             shape=list(shape), co=co, per_forward=per_forward, prologue=pending is not None,
+            y_store=kq.y_store(qc, w, dtype),
             **exact, max_abs_err=err, tol=0.0, stats=stats, stats_equal=stats or None,
             macs=macs, ms=device_ms(lambda t: wrapper(t, qc, pending, with_stats=stats), sets),
             plain_ms=device_ms(lambda t: kq.conv_plain(t, qc, pending, stats), sets, iters=5),
@@ -1176,6 +1186,7 @@ def check_resblock(kind: str) -> dict:
                      name=name, per="main step at batch 8 per side, 256px, dim 64, bf16",
                      count="per_step")
     entry["ms_per_call"] = {r["shape"][0]: r["ms"] for r in rows}
+    entry["bound_ms_per_call"] = {r["shape"][0]: r["bound_ms"] for r in rows}
     return entry
 
 
@@ -1303,18 +1314,23 @@ def int8_breakdown() -> dict:
     the 256-wide N tile and a 12-row tail tile as two launches; and of
     kernels 7 (``int8_downconv``) and 5 (``int8_deconv``), with their path's
     prologue and statistics, at the four shapes of the AdaINModel int8
-    forward and at DecoderConcat's two deconvs (276 -> 138, 146 -> 73). Each
-    launch beside its own bound (bytes: each input read once, each output
-    written once, over 3.35 TB/s; operations: 2 x the int8 MACs over 1,979
-    TOP/s), on rotating inputs that exceed L2."""
+    forward and at DecoderConcat's two deconvs (276 -> 138, 146 -> 73), in
+    f32 and in bf16 (x and y of 2 bytes, int8 at bf16 compute). Each launch
+    beside its own bound (bytes: each input read once, each output written
+    once, over 3.35 TB/s; operations: 2 x the int8 MACs over 1,979 TOP/s),
+    on rotating inputs that exceed L2. Then kernels 7 and 5 per forward
+    (down0 + down1, up0 + up1) in each dtype, and the store route of each
+    bf16 conv."""
     cases = [_int8_breakdown_plans(CONV3X3_SHAPES[0][0], "reflect"),
              _int8_breakdown_plans(CONV3X3_UNALIGNED[0], None)]
-    cases += [_strided_breakdown_plans(kind, i, shape, co, _path_pending(kind, i, *shape[:2]))
-              for kind, shapes in (("down", DOWN_SHAPES), ("deconv", DECONV_SHAPES))
-              for i, (shape, co, _) in enumerate(shapes)]
-    # DecoderConcat concatenates z before each deconv: no prologue there
-    cases += [_strided_breakdown_plans("deconv", 2 + i, shape, co, None)
-              for i, (shape, co, _) in enumerate(DECONV_B_SHAPES)]
+    for dtype in DTYPES.values():
+        cases += [_strided_breakdown_plans(kind, i, shape, co, _path_pending(kind, i, *shape[:2]),
+                                           dtype)
+                  for kind, shapes in (("down", DOWN_SHAPES), ("deconv", DECONV_SHAPES))
+                  for i, (shape, co, _) in enumerate(shapes)]
+        # DecoderConcat concatenates z before each deconv: no prologue there
+        cases += [_strided_breakdown_plans("deconv", 2 + i, shape, co, None, dtype)
+                  for i, (shape, co, _) in enumerate(DECONV_B_SHAPES)]
     timed = iter(_launch_ms([(fn, len(steps), case["sets"]) for case in cases
                              for fn, steps in case["plans"].values()]))
     out = {}
@@ -1329,23 +1345,38 @@ def int8_breakdown() -> dict:
                                  over_bound=t / b_ms))
             res[name] = dict(launches=rows, sum_ms=sum(ms), call_ms=device_ms(fn, case["sets"]),
                              sum_bound_ms=sum(r["bound_ms"] for r in rows))
-        shape = case["shape"]
+        shape, dtype_name = case["shape"], case.get("dtype", "f32")
+        extra = {"y_store": case["y_store"]} if "y_store" in case else {}
         log(dict(phase="int8_breakdown", shape=list(shape), co=case["co"], cp=case["cp"],
-                 dtype="f32", stat_tiles=case["tiles"], **res))
-        out[(case["kind"], tuple(shape))] = res
+                 dtype=dtype_name, stat_tiles=case["tiles"], **extra, **res))
+        out[(case["kind"], tuple(shape), dtype_name)] = res
     del cases
     torch.cuda.empty_cache()
+    per_forward = {}
+    for kind, wname, shapes in (("down", "int8_downconv", DOWN_SHAPES),
+                                ("deconv", "int8_deconv", DECONV_SHAPES)):
+        for dtype_name in DTYPES:
+            rows = [out[(kind, tuple(shape), dtype_name)][wname] for shape, _, _ in shapes]
+            per_forward[f"{wname}/{dtype_name}"] = dict(
+                call_ms=sum(r["call_ms"] for r in rows), launch_ms=sum(r["sum_ms"] for r in rows),
+                bound_ms=sum(r["sum_bound_ms"] for r in rows),
+                by_launch=[[x["ms"] for x in r["launches"]] for r in rows])
+    log(dict(phase="int8_breakdown", per_forward=per_forward,
+             note="kernels 7 and 5 per AdaINModel int8 forward (B=8, 256px): down0 + down1, "
+                  "up0 + up1; call_ms by CUDA events, launch_ms the profiled launches' sum"))
     return out
 
 
-def _strided_breakdown_plans(kind, i, shape, co, pending) -> dict:
+def _strided_breakdown_plans(kind, i, shape, co, pending, dtype=torch.float32) -> dict:
     """Kernel 7 (``kind`` "down") or 5 ("deconv") at ``shape`` -> ``co``
-    channels with the prologue ``pending`` and statistics: its launches in
-    order, each with the (bytes, operations) it must move and do, and the
-    rotating input sets."""
+    channels with the prologue ``pending`` and statistics, x and y in
+    ``dtype``: its launches in order, each with the (bytes, operations) it
+    must move and do, the rotating input sets, and the route by which y
+    leaves (the library's rule)."""
     b, c, h, w = shape
     numel = math.prod(shape)
-    sets = copies(lambda j: (_randn(shape, torch.float32, 1000 + 10 * i + j),), 4 * numel)
+    esize = dtype.itemsize
+    sets = copies(lambda j: (_randn(shape, dtype, 1000 + 10 * i + j),), esize * numel)
     x = sets[0][0]
     amax = kq.prologue_plain(x, pending).abs().amax()
     down = kind == "down"
@@ -1355,7 +1386,7 @@ def _strided_breakdown_plans(kind, i, shape, co, pending) -> dict:
     hp, wp = h + qc.pad[0] + qc.pad[1], w + qc.pad[2] + qc.pad[3]
     r, taps = qc.w.shape[:2]
     pad = b * hp * wp * qc.cp
-    out_bytes = 4 * b * co * (h * w // 4 if down else 4 * h * w)
+    out_bytes = esize * b * co * (h * w // 4 if down else 4 * h * w)
     macs = b * c * co * 9 * (h // 2) * (w // 2) if down else b * c * co * 9 * h * w
     tiles, _ = kq.conv_tiling(qc, hp, wp)
     convs = [(f"conv (N {n})", (pad + n * taps * qc.cp + out_bytes * n // r + 2 * b * tiles * n * 8,
@@ -1365,9 +1396,11 @@ def _strided_breakdown_plans(kind, i, shape, co, pending) -> dict:
     plans = {f"int8_{'downconv' if down else 'deconv'}": (
         lambda t: wrapper(t, qc, pending, with_stats=True), [
             (f"quant_pad (x NCHW{', affine + relu' if pending else ''})",
-             (4 * numel + pad + prologue, 0)),
+             (esize * numel + pad + prologue, 0)),
             *convs, ("stats", (2 * b * tiles * r * 8 + 2 * r * 4 + 2 * b * co * 4, 0))])}
-    return dict(kind=kind, shape=shape, co=co, cp=qc.cp, tiles=tiles, sets=sets, plans=plans)
+    name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    return dict(kind=kind, shape=shape, co=co, cp=qc.cp, tiles=tiles, sets=sets, plans=plans,
+                dtype=name, y_store=kq.y_store(qc, w, dtype))
 
 
 def _int8_breakdown_plans(shape, padding) -> dict:
@@ -2151,12 +2184,14 @@ def train_variant(card: str, name: str, fused_s: float, timed: int = 2) -> dict:
             **{k: dict(launches=n) for k, n in moments.items()}}
 
 
-def train_variants(card: str, per_call_ms: dict) -> tuple[dict, dict]:
+def train_variants(card: str, per_call_ms: dict, per_call_bound: dict) -> tuple[dict, dict]:
     """The small steps of every training flag on the card against the CPU,
     then the fused GAN step and each flag at the flagship config. Returns
     each path's launches per main step, by phase, with kernel 9/10 ms per
-    main step (``per_call_ms``, 7's per-call times, times the calls) for the
-    fused step and ``--remat``; and the fused step's it/s and img/s."""
+    main step (``per_call_ms``, 7's per-call times, times the calls) and
+    their bound (``per_call_bound``, 7's per-call bounds, times the calls)
+    for the fused step and ``--remat``; and the fused step's it/s and
+    img/s."""
     for name, (model_cls, flags, per_step) in SMALL_VARIANTS.items():
         check_small_train_against_cpu(model_cls, flags, per_step, random_draws=True,
                                       loss_floor=VARIANT_LOSS_FLOOR)
@@ -2166,11 +2201,13 @@ def train_variants(card: str, per_call_ms: dict) -> tuple[dict, dict]:
         per_main_step[f"train_variants/{name}"] = train_variant(card, name, fused_s)
     for name, calls in (("fused", FUSED_GAN_CALLS), ("remat", REMAT_CALLS)):
         ms = {k: sum(per_call_ms[k][b] * n for b, n in c.items()) for k, c in calls.items()}
+        bound_ms = {k: sum(per_call_bound[k][b] * n for b, n in c.items())
+                    for k, c in calls.items()}
         for k, t in ms.items():
-            per_main_step[f"train_variants/{name}"][k]["ms"] = t
+            per_main_step[f"train_variants/{name}"][k].update(ms=t, bound_ms=bound_ms[k])
         log(dict(phase=f"train_variants/{name}", kernel_ms_per_main_step=ms,
-                 calls_per_main_step=calls,
-                 note="ms per call of the kernel timings (7) times the calls"))
+                 kernel_bound_ms_per_main_step=bound_ms, calls_per_main_step=calls,
+                 note="ms and bound per call of the kernel timings (7) times the calls"))
     return per_main_step, fused_rates
 
 
@@ -4474,7 +4511,7 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 log(f"  {name}: {fn} | {line.strip()}")
     if argv[:1] == ["--only"]:
-        phases = {"distributed": lambda: distributed(card, t0),
+        phases = {"int8_breakdown": int8_breakdown, "distributed": lambda: distributed(card, t0),
                   "int8_train": lambda: int8_train(card), "export": lambda: export_phase(card),
                   "checkpoint_orbax": lambda: checkpoint_orbax(card)}
         for name in argv[1].split(","):
@@ -4491,6 +4528,14 @@ def main(argv) -> int:
     bf16_entries = [check_int8_conv("down", "bf16"), check_int8_resblock("bf16"),
                     check_int8_conv("conv3x3", "bf16"), check_int8_conv("deconv", "bf16"),
                     check_head("bf16")]
+    for name in ("int8_downconv", "int8_deconv"):  # the bf16 route beside the f32 route
+        f32_e = next(e for e in int8_entries if e["name"] == name)
+        bf16_e = next(e for e in bf16_entries if e["name"] == f"{name}/bf16")
+        log(dict(phase="int8_bf16_vs_f32", kernel=name, per=bf16_e["per"], bf16_ms=bf16_e["ms"],
+                 f32_ms=f32_e["ms"], bf16_cudnn_ms=bf16_e["bf16_cudnn_ms"],
+                 bound_ms=bf16_e["bound_ms"], f32_bound_ms=f32_e["bound_ms"],
+                 below_f32=bf16_e["ms"] < f32_e["ms"],
+                 below_cudnn=bf16_e["ms"] < bf16_e["bf16_cudnn_ms"]))
     check_cli_shapes()
     int8_breakdown()
     torch.cuda.empty_cache()
@@ -4528,8 +4573,9 @@ def main(argv) -> int:
     base_launched = base_train(card, {e["name"]: e["ms_per_call"] for e in train_entries})
     per_main_step.update({f"base_train/{k}": v["per_main_step"] for k, v in base_launched.items()})
     log(dict(phase="seconds", upto="base_train", seconds=time.perf_counter() - t0))
-    variants, fused_rates = train_variants(card, {e["name"]: e["ms_per_call"]
-                                                  for e in train_entries})
+    variants, fused_rates = train_variants(
+        card, {e["name"]: e["ms_per_call"] for e in train_entries},
+        {e["name"]: e["bound_ms_per_call"] for e in train_entries})
     per_main_step.update(variants)
     log(dict(phase="seconds", upto="train_variants", seconds=time.perf_counter() - t0))
     per_main_step.update(train_cli(card, fused_rates, variants["train_variants/fused"]))

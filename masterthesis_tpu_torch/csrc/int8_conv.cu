@@ -56,12 +56,13 @@
 // type of every kernel that reads or writes them (TIn, TOut, T), never a
 // branch at run time: the quantize-and-pad launches read either and apply
 // the prologue in f32, the convs compute y = acc * scale + bias in f32 and
-// round it once to the output type on store (in bf16 the transposed and
-// stride-2 convs store y by threads, not TMA: a store row of 32 bf16 is 64
-// bytes, the f32 layout's swizzle is for 128), and the residual adds
-// x + round(h * a + b) in f32 and rounds the sum, as the JAX package's
-// composed block does in bf16 (x + y.astype(x.dtype)). The statistics come
-// from the integer accumulators, so they are the same in either type.
+// round it once to the output type (the transposed and stride-2 convs
+// before they stage it for TMA stores: rows of 32 output columns, 128 bytes
+// of f32 with the 128-byte swizzle or 64 bytes of bf16 with the 64-byte
+// one), and the residual adds x + round(h * a + b) in f32 and rounds the
+// sum, as the JAX package's composed block does in bf16 (x +
+// y.astype(x.dtype)). The statistics come from the integer accumulators, so
+// they are the same in either type.
 //
 // Numerics. The prologue and the quantize are written with __fmul_rn /
 // __fadd_rn (no FMA contraction) and rounded with rintf (half to even), so
@@ -626,20 +627,26 @@ __global__ void __launch_bounds__(kWThreads, 1)
 // apart (box (128, 1, bx, 1, by) at (c0, kx & 1, ox0 + kx / 2, ky & 1, b Hp
 // / 2 + oy0 + ky / 2)); for the transposed conv's 2x2 taps of the input
 // padded at the end viewed as (Cp, Wp, B Hp) (box (128, bx, by) at (c0, ox0
-// + kx, b Hp + oy0 + ky)). Bound by bytes, with y f32 the most of them, so
-// the epilogue is kept short and off the main loop's way: N tiles of 128
-// and a 3-deep ring leave room for two blocks per SM, so that one's epilogue
-// runs beside the other's main loop, and y goes out by TMA stores. The
-// block stages its s32 tile [column][row] (as the stride-1 conv does), adds
-// each column's pixels inside Ho and Wo into its int64 partials, then writes
-// y, dequantized from the accumulators, over it in the stores' own layout
-// (128-byte rows of 32 output columns, 128-byte swizzled); one thread issues
-// a box store per 32 columns and waits only until the stores have read
-// shared memory, and the writes to device memory go on while the SM runs
-// other blocks. Boxes past Wo, Ho or Co are clipped by the stores. TMA needs
-// y's rows at a multiple of 16 bytes (Wo % 4 == 0; for the transposed conv
-// Wo % 2 == 0); for other widths a warp per staged row stores them (tma_y
-// == 0).
+// + kx, b Hp + oy0 + ky)). Bound by bytes, with y the most of them (f32 or
+// bf16), so the epilogue is kept short and off the main loop's way: N tiles
+// of 128 and a 3-deep ring leave room for two blocks per SM, so that one's
+// epilogue runs beside the other's main loop, and y goes out by TMA stores.
+// The block stages its s32 tile [column][row] (as the stride-1 conv does),
+// adds each column's pixels inside Ho and Wo into its int64 partials, then
+// writes y, dequantized from the accumulators and rounded to TOut, over it
+// in the stores' own layout (rows of 32 output columns: 128 bytes of f32
+// with the 128-byte swizzle, 64 of bf16 with the 64-byte one, as
+// swizzled() lays them); one thread issues a box store per 32 columns and
+// waits only until the stores have read shared memory, and the writes to
+// device memory go on while the SM runs other blocks. Boxes past Wo, Ho or
+// Co are clipped by the stores, and a box never covers a column that
+// another block owns (the box tile is at least 32 columns wide). TMA needs
+// y's rows at a multiple of 16 bytes (mt_int8_y_by_tma: f32 Wo % 4 == 0,
+// bf16 Wo % 8 == 0; a transposed conv's rows are 2 Wo); for other widths a
+// warp per staged row stores them (tma_y == 0). The grid (one dimension)
+// runs an M tile's N tiles back to back, so that the 2-4 blocks that read
+// one A box run together and its re-reads hit L2 (every M tile of N tile 0
+// before N tile 1's was 1-12 % slower at 2-4 N tiles: PERF.md).
 //   stride 2: y (B, Co, Ho, Wo) as a (Wo, Ho, Co, B, 1) array; staged row
 //     c by + ly of chunk j holds columns ox0 + 32 j .. + 31 of output row oy0
 //     + ly of channel n0 + c.
@@ -658,7 +665,8 @@ struct BConvArgs {
   int Hp, Cp, R, Ho, Wo;
   int tiles, tiles_x, bx, by;  // M tiles per image, and per band of by rows; the box
   int n0;                      // the launch's first output row
-  int tma_y;                   // y by TMA stores (map_y, f32 only), or by the threads
+  int tma_y;                   // y by TMA stores (map_y), or by the threads
+  int ntiles;                  // N tiles of this launch, each M tile's back to back
 };
 
 // the box conv's N tile, and its ring: kSlab channels (bytes) a slab, 128
@@ -666,7 +674,7 @@ struct BConvArgs {
 // most 64 channels (a 128-channel slab of them would be half zeros); at N
 // 128 a ring small enough that two blocks share an SM and one's epilogue
 // overlaps the other's main loop, and big enough for the s32 tile (pitch
-// kStage) and then y (kNW x 128 f32), which go over it
+// kStage) and then y (kNW x 128 f32 at most), which go over it
 constexpr int kBoxNW = 128;
 
 template <int kNW, int kSlab>
@@ -681,11 +689,25 @@ struct BoxRing {
   static_assert(kStaged <= kBytes && kNW * kWM * 4 <= kBytes, "the staged tile fits the ring");
 };
 
-// the byte offset of 32-bit element (row, x) of a 128-byte-swizzled region
-// of 128-byte rows (x < 32): the 16-byte units of a row are permuted by the
-// row's place in its 1024-byte block, as TMA's 128-byte swizzle lays them
+// the byte offset of element (row, x), x < 32, of a region of rows of 32 T
+// (128 bytes of f32, 64 of bf16) that starts on a 1024-byte boundary, as
+// TMA's swizzle of the row's width lays it: a row's 16-byte units are XORed
+// with address bits [7:9] (128-byte swizzle: the row's place in its
+// 1024-byte block) or [7:8] (64-byte swizzle: its place in a 512-byte
+// block, in pairs of rows)
+template <typename T>
 __device__ __forceinline__ int swizzled(int row, int x) {
-  return row * 128 + (((x >> 2) ^ (row & 7)) << 4) + (x & 3) * 4;
+  constexpr int kRow = 32 * static_cast<int>(sizeof(T));
+  const int byte = x * static_cast<int>(sizeof(T));
+  return row * kRow + (((byte >> 4) ^ ((row * kRow >> 7) & (kRow / 16 - 1))) << 4) + (byte & 15);
+}
+
+// a transposed conv's two adjacent output columns (px 0, 1) as one store
+__device__ __forceinline__ void store_pair(float* to, float a, float b) {
+  *reinterpret_cast<float2*>(to) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* to, float a, float b) {
+  *reinterpret_cast<uint32_t*>(to) = mt::Vec<__nv_bfloat16>::pack2(a, b);
 }
 
 template <int kNW, bool kSub, int kSlab, typename TOut>
@@ -705,10 +727,11 @@ __global__ void __launch_bounds__(kWThreads, 2)
   uint64_t* empty = full + kBoxStages;
   float2* sc_bi = reinterpret_cast<float2*>(empty + kBoxStages);  // [kNW]: (scale, bias)
   ring_init<kBoxStages>(full, empty);
-  const int b = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
+  const int mt = blockIdx.x / p.ntiles, nt = blockIdx.x % p.ntiles;  // M tile, N tile
+  const int b = mt / p.tiles, tile = mt % p.tiles;
   const int ty = tile / p.tiles_x, tx = tile - ty * p.tiles_x;
   const int oy0 = ty * p.by, ox0 = tx * p.bx;
-  const int n0 = p.n0 + blockIdx.y * kNW;
+  const int n0 = p.n0 + nt * kNW;
   if (threadIdx.x < kNW) {
     const int n = n0 + threadIdx.x;
     sc_bi[threadIdx.x] = make_float2(n < p.R ? p.scale[n] : 0.f,
@@ -795,11 +818,13 @@ __global__ void __launch_bounds__(kWThreads, 2)
     p.psum[o] = red[threadIdx.x] + red[256 + threadIdx.x];
     p.psq[o] = red[128 + threadIdx.x] + red[384 + threadIdx.x];
   }
-  // 3. y, dequantized from the accumulators, into the stores' layout. Column
-  // c = 8 j + 2 (lane % 4) + e is staged row row0 + j step, and 2 step is a
-  // multiple of 8, so the row's swizzle alternates between two values. For
-  // the transposed conv e is px: a thread's two values of a j sit side by
-  // side (one 8-byte store)
+  // 3. y, dequantized from the accumulators and rounded to TOut, into the
+  // stores' layout (rows of 32 TOut, kRow bytes). Column c = 8 j + 2 (lane %
+  // 4) + e is staged row row0 + j step, and 2 step is a multiple of 8, so
+  // the row's swizzle alternates between two values. For the transposed
+  // conv e is px: a thread's two values of a j sit side by side (one 8-byte
+  // store of f32, 4-byte of bf16)
+  constexpr int kRow = 32 * static_cast<int>(sizeof(TOut));
   uint8_t* sy = ring_a;
   const int q4 = lane % 4;
 #pragma unroll
@@ -811,38 +836,39 @@ __global__ void __launch_bounds__(kWThreads, 2)
       const int x = kSub ? 2 * lx : lx;
       const int row0 = kSub ? (((q4 >> 1) * by + ly) << 1) + (q4 & 1) : (2 * q4 + e) * by + ly;
       const int step = kSub ? 4 * by : 8 * by;
-      uint8_t* at = sy + (x >> 5) * chunk_rows * 128 + row0 * 128 + (x & 3) * 4;
-      const int u = (x & 31) >> 2;
-      const int sw0 = (u ^ (row0 & 7)) << 4, sw1 = (u ^ ((row0 + step) & 7)) << 4;
+      uint8_t* at = sy + (x >> 5) * chunk_rows * kRow;
+      // the byte offsets of rows row0 + j step, j even and odd
+      const int o0 = swizzled<TOut>(row0, x & 31);
+      const int o1 = swizzled<TOut>(row0 + step, x & 31) - step * kRow;
 #pragma unroll
       for (int j = 0; j < kNW / 8; ++j) {
         const int c = 8 * j + 2 * q4 + e;
         const float2 sb = sc_bi[c];
         float v = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), sb.x);
         if (p.bias != nullptr) v = __fadd_rn(v, sb.y);
-        uint8_t* to = at + j * step * 128 + (j & 1 ? sw1 : sw0);
+        uint8_t* to = at + j * step * kRow + (j & 1 ? o1 : o0);
         if (kSub) {
           const float2 sb1 = sc_bi[c + 1];
           float v1 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), sb1.x);
           if (p.bias != nullptr) v1 = __fadd_rn(v1, sb1.y);
-          *reinterpret_cast<float2*>(to) = make_float2(v, v1);
+          store_pair(reinterpret_cast<TOut*>(to), v, v1);
         } else {
-          *reinterpret_cast<float*>(to) = v;
+          *reinterpret_cast<TOut*>(to) = mt::from_float<TOut>(v);
         }
       }
     }
   }
   // the chunks of 32 output columns that hold some inside the box
   const int chunks = ((kSub ? 2 * vx : vx) + 31) >> 5;
-  if (std::is_same<TOut, float>::value && p.tma_y) {
+  if (p.tma_y) {
     fence_proxy_async();
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     if (threadIdx.x == 0) {
       for (int j = 0; j < chunks; ++j) {
         if (kSub)
-          tma_store_5d(&map_y, sy + j * chunk_rows * 128, 2 * ox0 + 32 * j, 0, oy0, n0 >> 2, b);
+          tma_store_5d(&map_y, sy + j * chunk_rows * kRow, 2 * ox0 + 32 * j, 0, oy0, n0 >> 2, b);
         else
-          tma_store_5d(&map_y, sy + j * chunk_rows * 128, ox0 + 32 * j, oy0, n0, b, 0);
+          tma_store_5d(&map_y, sy + j * chunk_rows * kRow, ox0 + 32 * j, oy0, n0, b, 0);
       }
       tma_store_drain_reads();
     }
@@ -861,8 +887,8 @@ __global__ void __launch_bounds__(kWThreads, 2)
     const int x = (kSub ? 2 * ox0 : ox0) + 32 * j + lane;
     if (co < co_n && oy0 + ly < p.Ho && x < plane_w)
       static_cast<TOut*>(p.y)[((static_cast<int64_t>(b) * co_n + co) * plane_h + oy) * plane_w +
-                              x] = mt::from_float<TOut>(
-          *reinterpret_cast<const float*>(sy + j * chunk_rows * 128 + swizzled(rr, lane)));
+                              x] =
+          *reinterpret_cast<const TOut*>(sy + j * chunk_rows * kRow + swizzled<TOut>(rr, lane));
   }
 }
 
@@ -1073,15 +1099,19 @@ int launch_box(const CUtensorMap& map_in, const void* w, BConvArgs a, int64_t B,
   CUtensorMap map_w, map_y = {};
   if (!make_map_3d(&map_w, kInt8, w, a.Cp, kSub ? 4 : 9, a.R, kSlab, kNW, slab_swizzle<kSlab>()))
     return cudaErrorInvalidValue;
-  if (a.tma_y) {  // y as the stores see it (see conv_box_kernel)
+  if (a.tma_y) {  // y as the stores see it (see conv_box_kernel), e bytes an element
+    constexpr bool f32 = std::is_same<TOut, float>::value;
+    constexpr uint64_t e = sizeof(TOut);
+    const CUtensorMapSwizzle swizzle = f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
     const uint64_t wo = a.Wo, ho = a.Ho, bb = B, by = static_cast<uint64_t>(a.by);
     const bool made =
-        kSub ? make_map_5d(&map_y, kF32, a.y, {2 * wo, 2, ho, a.R / 4u, bb},
-                           {8 * wo, 16 * wo, 16 * ho * wo, a.R * 4 * ho * wo},
-                           {32, 2, static_cast<uint32_t>(by), kNW / 4, 1})
-             : make_map_5d(&map_y, kF32, a.y, {wo, ho, static_cast<uint64_t>(a.R), bb, 1},
-                           {4 * wo, 4 * ho * wo, 4 * a.R * ho * wo, 4 * bb * a.R * ho * wo},
-                           {32, static_cast<uint32_t>(by), kNW, 1, 1});
+        kSub ? make_map_5d(&map_y, f32 ? kF32 : kBf16, a.y, {2 * wo, 2, ho, a.R / 4u, bb},
+                           {2 * e * wo, 4 * e * wo, 4 * e * ho * wo, a.R * e * ho * wo},
+                           {32, 2, static_cast<uint32_t>(by), kNW / 4, 1}, swizzle)
+             : make_map_5d(&map_y, f32 ? kF32 : kBf16, a.y,
+                           {wo, ho, static_cast<uint64_t>(a.R), bb, 1},
+                           {e * wo, e * ho * wo, e * a.R * ho * wo, e * bb * a.R * ho * wo},
+                           {32, static_cast<uint32_t>(by), kNW, 1, 1}, swizzle);
     if (!made) return cudaErrorInvalidValue;
   }
   constexpr int kSmem = BoxRing<kNW, kSlab>::kSmem;
@@ -1089,7 +1119,8 @@ int launch_box(const CUtensorMap& map_in, const void* w, BConvArgs a, int64_t B,
   const cudaError_t err = allow_smem(conv_box_kernel<kNW, kSub, kSlab, TOut>, kSmem, allowed);
   if (err != cudaSuccess) return err;
   a.n0 = n0;
-  dim3 grid(static_cast<unsigned>(B * a.tiles), static_cast<unsigned>(ntiles));
+  a.ntiles = ntiles;
+  const unsigned grid = static_cast<unsigned>(B * a.tiles * ntiles);
   conv_box_kernel<kNW, kSub, kSlab, TOut><<<grid, kWThreads, kSmem, stream>>>(map_in, map_w,
                                                                             map_y, a);
   return last_error();
@@ -1216,6 +1247,16 @@ extern "C" int mt_int8_conv_launches(int64_t stride, int phases, int64_t R, int6
   return n;
 }
 
+// Whether mt_int8_conv's stride-2 or transposed conv (stride, phases) of
+// output width Wo stores y (f32, or bf16 with y_bf16) by TMA box stores,
+// given a 16-byte-aligned y: TMA needs y's rows, Wo (stride 2) or 2 Wo
+// (transposed) elements, at a multiple of 16 bytes. The stride-1 convs
+// store by the threads.
+extern "C" int mt_int8_y_by_tma(int64_t stride, int phases, int64_t Wo, int y_bf16) {
+  if (stride == 1 && !phases) return 0;
+  return (phases ? 2 * Wo : Wo) * (y_bf16 ? 2 : 4) % 16 == 0;
+}
+
 // xq: (B, Hp, Wp, Cp) int8; w: (R, T, Cp) int8; scale, bias: (R,) f32 (bias
 // may be null); y: (B, Co, Ho, Wo) f32 (bf16 with y_bf16), or (B, Ho, Wo, Co) when nhwc (stride
 // 1 without phases only), or (B, Co, 2Ho, 2Wo) when phases (T = 4 taps of a
@@ -1246,7 +1287,8 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
           : stride == 2 && T == 9 && kw == 3 && Hp % 2 == 0 && Wp % 2 == 0 &&
                 Ho == (Hp - 3) / 2 + 1 && Wo == (Wp - 3) / 2 + 1 && Co == R;
   if (!ok || nhwc || static_cast<uint64_t>(B) * Hp * Wp >= (1ULL << 31) ||
-      B * tiles >= (1LL << 31) || 4 * Ho * Wo >= (1LL << 31) || !aligned(xq) || !aligned(w))
+      B * tiles * ((R + kBoxNW - 1) / kBoxNW) >= (1LL << 31) || 4 * Ho * Wo >= (1LL << 31) ||
+      !aligned(xq) || !aligned(w))
     return cudaErrorInvalidValue;
   if (B == 0 || R == 0 || tiles == 0) return last_error();
   int64_t bx = 0, by = 0;
@@ -1257,8 +1299,7 @@ extern "C" int mt_int8_conv(const void* xq, const void* w, const void* scale, co
               static_cast<int>(R), static_cast<int>(Ho), static_cast<int>(Wo),
               static_cast<int>(tiles), static_cast<int>((Wo + bx - 1) / bx),
               static_cast<int>(bx), static_cast<int>(by), 0,
-              // TMA stores (f32 y only) need rows of y at a multiple of 16 bytes
-              !y_bf16 && (sub ? Wo % 2 == 0 : Wo % 4 == 0) && aligned(y)};
+              mt_int8_y_by_tma(stride, phases, Wo, y_bf16) && aligned(y)};
   // slabs of 64 channels for inputs of at most 64 (the ring's A rows then
   // 64 bytes, with the 64-byte swizzle)
   const bool narrow = Cp <= 64;

@@ -366,6 +366,7 @@ SIGNATURES = {
                                _I32),
     "mt_int8_stat_tiles": ([_I64, _I32, _I64, _I64, _I64, _P], _I64),
     "mt_int8_conv_launches": ([_I64, _I32, _I64, _P], _I32),
+    "mt_int8_y_by_tma": ([_I64, _I32, _I64, _I32], _I32),
     "mt_int8_conv": ([_P] * 7 + [_I64] * 12 + [_I32, _I32, _I32, _P], _I32),
     "mt_int8_stats": ([_P] * 10 + [_I64] * 5 + [_F32, _F32, _P], _I32),
     "mt_int8_residual_nhwc": ([_P] * 5 + [_I64] * 3 + [_I32, _P], _I32),
@@ -480,6 +481,21 @@ def conv_launches(qc: QuantConv) -> tuple[int, ...]:
     the library splits its N tiles: the full tiles in one launch, a tail
     tile in another. Loads the library."""
     return _launches(qc.stride, int(qc.phases == 4), qc.w.shape[0])
+
+
+@functools.cache
+def _y_by_tma(stride: int, phases: int, wo: int, y_bf16: int) -> bool:
+    return bool(_library().mt_int8_y_by_tma(stride, phases, wo, y_bf16))
+
+
+def y_store(qc: QuantConv, w: int, dtype: torch.dtype) -> str:
+    """How the card stores y of ``qc``'s conv of a map ``w`` wide, in
+    ``dtype``: "tma" (TMA box stores) or "threads", by the library's rule.
+    Loads the library."""
+    _, wp = padded_size(qc, 1, w)
+    wo = (wp - qc.kw) // qc.stride + 1
+    tma = _y_by_tma(qc.stride, int(qc.phases == 4), wo, int(dtype == torch.bfloat16))
+    return "tma" if tma else "threads"
 
 
 def conv_padded_cuda(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,

@@ -3,6 +3,8 @@
 timing knobs compiled into copies of ``masterthesis_tpu_torch/csrc/int8_conv.cu``.
 
     python3 scripts/int8_conv_knobs.py          # needs nvcc and a card
+    python3 scripts/int8_conv_knobs.py base grid_m_fastest grid_m_fastest base
+                                                # only these, in this order (in turns)
 
 Each variant is the committed source with one change applied as text
 substitutions (the script fails if one no longer applies), built
@@ -16,9 +18,12 @@ flags, and loaded with the wrappers' entry-point types:
 - ``loads_once``: the producer loads A and B only while the ring fills and
   the later k-steps reuse stale slabs (what TMA costs the main loop);
 - ``thread_stores``: the stride-2 and transposed convs store y from the
-  threads (a warp per staged row) instead of by TMA stores;
+  threads (a warp per staged row) instead of by TMA stores, in either
+  dtype;
 - ``no_stats`` / ``no_y_staging``: their epilogue without the int64
   partials, or without staging y for the stores;
+- ``grid_m_fastest``: their grid runs every M tile of N tile 0 before N
+  tile 1's (the source runs the N tiles of one M tile back to back);
 - ``box_n256``: their N tiles 256 wide (one block per SM; the path's R
   leave no tail tile);
 - ``slab_128``: their 64-channel inputs (down0) in 128-channel slabs, half
@@ -32,10 +37,12 @@ rotating inputs that exceed L2) at the stride-1 conv's (8, 256, 64, 64) ->
 256 with NCHW y, with NCHW y and statistics, and with NHWC y and
 statistics; and at the AdaINModel int8 forward's stride-2 convs (down0:
 (8, 64, 256, 256) -> 128, down1: (8, 128, 128, 128) -> 256) and transposed
-convs (up0: (8, 256, 64, 64) -> 128, up1: (8, 128, 128, 128) -> 64), with
-statistics as on the path. The quantize-and-pad ones at (8, 256, 64, 64)
--> (8, 66, 66, 256) without and with a prologue, and at down0's (8, 64,
-256, 256) -> (8, 258, 258, 64) with one. Results are wrong for the
+convs (up0: (8, 256, 64, 64) -> 128, up1: (8, 128, 128, 128) -> 64; and
+BaseModel B's, upB0: Cp 288 -> 138, upB1: (8, 160, 128, 128) -> 73), with
+statistics as on the path, y f32 and bf16 (``*_bf16_ms``). The
+quantize-and-pad ones at (8, 256, 64, 64) -> (8, 66, 66, 256) without and
+with a prologue, and at down0's (8, 64, 256, 256) -> (8, 258, 258, 64)
+with one, x f32 and bf16. Results are wrong for the
 knobs that skip work: they time, they do not check. One JSON line per
 variant, after the card's name and power limit.
 """
@@ -70,15 +77,14 @@ VARIANTS = {
                      "main loop\n  return;" + MAIN_LOOP_END, 2)],
     "no_store": [("        ycol[px] = mt::from_float<TOut>(v);", "        (void)ycol;"),
                  ("          orow[c] = mt::from_float<TOut>(v);", "          (void)orow;"),
-                 ("  if (std::is_same<TOut, float>::value && p.tma_y) {\n",
-                  "  if (std::is_same<TOut, float>::value && p.tma_y) {\n    return;\n"),
+                 ("  if (p.tma_y) {\n", "  if (p.tma_y) {\n    return;\n"),
                  ("  for (int row = gw; row < chunks * chunk_rows; row += 8) {",
                   "  for (int row = gw; row < 0; row += 8) {")],
     "loads_once": [(PRODUCER, """    const bool ld = k < kStages;
     mbar_expect_tx(&full[stage], ld ? bytes : 0);
     if (ld) load(ring_a + stage * kA, ring_b + stage * kB, k, &full[stage]);
 """)],
-    "thread_stores": [("(sub ? Wo % 2 == 0 : Wo % 4 == 0) && aligned(y)", "false")],
+    "thread_stores": [("mt_int8_y_by_tma(stride, phases, Wo, y_bf16) && aligned(y)", "false")],
     "quant_pad_c64": [("const int qc = Cp <= 64 ? 64 : 128;", "const int qc = 64;")],
     "quant_pad_c128": [("const int qc = Cp <= 64 ? 64 : 128;", "const int qc = 128;")],
     "no_stats": [("  if (p.psum != nullptr) {\n    const int c = threadIdx.x % 128, r0 = wg * 64;",
@@ -94,6 +100,9 @@ VARIANTS = {
                   "__launch_bounds__(kWThreads, 1)\n    conv_box_kernel")],
     "slab_128": [("const bool narrow = Cp <= 64;\n  const uint32_t slab",
                   "const bool narrow = false;\n  const uint32_t slab")],
+    "grid_m_fastest": [("const int mt = blockIdx.x / p.ntiles, nt = blockIdx.x % p.ntiles;",
+                        "const int mt = blockIdx.x % (gridDim.x / p.ntiles), "
+                        "nt = blockIdx.x / (gridDim.x / p.ntiles);")],
 }
 
 
@@ -113,8 +122,8 @@ def variant_sources() -> dict:
     return out
 
 
-def compile_variants() -> dict:
-    sources = variant_sources()
+def compile_variants(names=None) -> dict:
+    sources = {k: v for k, v in variant_sources().items() if names is None or k in names}
     OUT.mkdir(parents=True, exist_ok=True)
     for h in CSRC.glob("*.cuh"):
         shutil.copy(h, OUT / h.name)
@@ -140,15 +149,18 @@ def device_ms(call, n_sets: int, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the stride-2 and transposed convs of the AdaINModel int8 forward: (name, B,
-# C (= Cp), H, W, Co, stride, phases)
+# the stride-2 and transposed convs of the AdaINModel int8 forward and
+# BaseModel B's transposed convs: (name, B, C (= Cp), H, W, Co, stride, phases)
 PATH_CONVS = [("down0", 8, 64, 256, 256, 128, 2, False), ("down1", 8, 128, 128, 128, 256, 2, False),
-              ("up0", 8, 256, 64, 64, 128, 1, True), ("up1", 8, 128, 128, 128, 64, 1, True)]
+              ("up0", 8, 256, 64, 64, 128, 1, True), ("up1", 8, 128, 128, 128, 64, 1, True),
+              # BaseModel B's (DecoderConcat: 276 -> 138, 146 -> 73)
+              ("upB0", 8, 288, 64, 64, 138, 1, True), ("upB1", 8, 160, 128, 128, 73, 1, True)]
 
 
-def conv_case(lib, b, c, h, w, co, stride, phases, nhwc=False, stats=True):
-    """A timed call of ``lib``'s conv at one shape, on rotating buffers that
-    exceed L2, and the number of buffer sets."""
+def conv_case(lib, b, c, h, w, co, stride, phases, nhwc=False, stats=True, y_bf16=False):
+    """A timed call of ``lib``'s conv at one shape, y f32 or with ``y_bf16``
+    bf16, on rotating buffers that exceed L2, and the number of buffer
+    sets."""
     if phases:
         hp, wp, ho, wo, r, taps, kw = h + 1, w + 1, h, w, 4 * co, 4, 2
     else:
@@ -156,10 +168,11 @@ def conv_case(lib, b, c, h, w, co, stride, phases, nhwc=False, stats=True):
         ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     tiles = lib.mt_int8_stat_tiles(stride, int(phases), ho, wo, wp, ctypes.byref(ctypes.c_int64()))
     out = b * r * ho * wo
-    n_sets = max(2, -(-3 * 50 * 2**20 // (b * hp * wp * c + 4 * out)))
+    n_sets = max(2, -(-3 * 50 * 2**20 // (b * hp * wp * c + (2 if y_bf16 else 4) * out)))
     xq = [torch.randint(-127, 128, (b, hp, wp, c), dtype=torch.int8, device="cuda")
           for _ in range(n_sets)]
-    ys = [torch.empty(out, device="cuda") for _ in range(n_sets)]
+    ys = [torch.empty(out, device="cuda", dtype=torch.bfloat16 if y_bf16 else torch.float32)
+          for _ in range(n_sets)]
     ps = [torch.empty(2, b * tiles * r, dtype=torch.int64, device="cuda") for _ in range(n_sets)]
     wt = torch.randint(-127, 128, (r, taps, c), dtype=torch.int8, device="cuda")
     scale = torch.rand(r, device="cuda")
@@ -169,17 +182,20 @@ def conv_case(lib, b, c, h, w, co, stride, phases, nhwc=False, stats=True):
         err = lib.mt_int8_conv(xq[i].data_ptr(), wt.data_ptr(), scale.data_ptr(), None,
                                ys[i].data_ptr(), ps[i][0].data_ptr() if stats else None,
                                ps[i][1].data_ptr() if stats else None, b, hp, wp, c, r, taps, kw,
-                               stride, ho, wo, co, tiles, int(phases), int(nhwc), 0, stream)
+                               stride, ho, wo, co, tiles, int(phases), int(nhwc), int(y_bf16),
+                               stream)
         assert err == 0, err
     return call, n_sets
 
 
-def quant_pad_case(lib, b, c, h, w, prologue):
+def quant_pad_case(lib, b, c, h, w, prologue, x_bf16=False):
     """A timed call of ``lib``'s NCHW quantize-and-pad (reflect, pad 1, an
-    lrelu prologue) at one shape, on rotating buffers that exceed L2."""
+    lrelu prologue) at one shape, x f32 or with ``x_bf16`` bf16, on rotating
+    buffers that exceed L2."""
     cp = -(-c // 32) * 32
-    n_sets = max(2, -(-3 * 50 * 2**20 // (4 * b * c * h * w)))
-    xs = [torch.randn(b, c, h, w, device="cuda") for _ in range(n_sets)]
+    dtype = torch.bfloat16 if x_bf16 else torch.float32
+    n_sets = max(2, -(-3 * 50 * 2**20 // (dtype.itemsize * b * c * h * w)))
+    xs = [torch.randn(b, c, h, w, device="cuda", dtype=dtype) for _ in range(n_sets)]
     out = [torch.empty((b, h + 2, w + 2, cp), dtype=torch.int8, device="cuda")
            for _ in range(n_sets)]
     inv = torch.tensor([20.0], device="cuda")
@@ -190,7 +206,7 @@ def quant_pad_case(lib, b, c, h, w, prologue):
         err = lib.mt_int8_quant_pad(xs[i].data_ptr(), out[i].data_ptr(), inv.data_ptr(),
                                     pa.data_ptr() if prologue else None,
                                     pb.data_ptr() if prologue else None, 1, 0.01, b, c, h, w, cp,
-                                    h + 2, w + 2, 1, 1, 1, 0, stream)
+                                    h + 2, w + 2, 1, 1, 1, int(x_bf16), stream)
         assert err == 0, err
     return call, n_sets
 
@@ -202,7 +218,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    libs = compile_variants()
+    names = sys.argv[1:] or list(VARIANTS)
+    libs = compile_variants(set(names))
 
     def timed(case, lib, *args, **kw):
         call, n_sets = case(lib, *args, **kw)
@@ -210,13 +227,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         return ms
 
-    for name, lib in libs.items():
+    for name in names:
+        lib = libs[name]
         row = dict(variant=name, shape=[B, C, H, W], co=C)
         if name.startswith("quant_pad") or name == "base":
             row.update(quant_pad_ms=timed(quant_pad_case, lib, B, C, H, W, False),
                        quant_pad_prologue_ms=timed(quant_pad_case, lib, B, C, H, W, True),
                        # down0's: 64 channels, 258 padded columns
-                       down0_quant_pad_prologue_ms=timed(quant_pad_case, lib, 8, 64, 256, 256, True))
+                       down0_quant_pad_prologue_ms=timed(quant_pad_case, lib, 8, 64, 256, 256, True),
+                       down0_quant_pad_prologue_bf16_ms=timed(quant_pad_case, lib, 8, 64, 256, 256,
+                                                              True, x_bf16=True),
+                       quant_pad_bf16_ms=timed(quant_pad_case, lib, B, C, H, W, False,
+                                               x_bf16=True))
         if not name.startswith("quant_pad"):
             if name not in ("thread_stores", "no_stats", "no_y_staging", "box_n256", "slab_128"):
                 row.update(conv_nchw_ms=timed(conv_case, lib, B, C, H, W, C, 1, False, stats=False),
@@ -225,6 +247,7 @@ def main() -> int:
                                                     nhwc=True))
             for case, *shape in PATH_CONVS:
                 row[f"{case}_ms"] = timed(conv_case, lib, *shape)
+                row[f"{case}_bf16_ms"] = timed(conv_case, lib, *shape, y_bf16=True)
         print(json.dumps(row), flush=True)
     return 0
 
