@@ -37,6 +37,7 @@ from masterthesis_tpu_torch.arguments import AttributeDict
 from masterthesis_tpu_torch.models.blocks import BatchNorm2d
 from masterthesis_tpu_torch.models.functions import init_net, make_lr_schedule
 from masterthesis_tpu_torch.models.state import AdamState, TrainState
+from masterthesis_tpu_torch.utils import profiling
 
 
 def resolve_device(device=None) -> torch.device:
@@ -91,25 +92,26 @@ class Model:
         checkpoints of ``args.resume`` (and for training ``resume_opt``):
         with ``resume_opt`` and ``last_iter`` >= 0 the step is ``last_iter +
         1``, unless the optimizer file holds one."""
-        a = self.args
-        if seed is None:
-            seed = getattr(a, "seed", None) or 0
-        g = torch.Generator().manual_seed(int(seed))
-        init_type = getattr(a, "init_type", "normal")
-        init_gain = float(getattr(a, "init_gain", None) or 0.02)
-        for net in self.nets.values():
-            init_net(net, g, init_type, init_gain)
-        if self.is_train():
-            self.state = TrainState(0, {
-                name: AdamState.zeros(net.parameters()) for name, net in self.nets.items()
-            })
-            self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
-            last_iter = int(getattr(a, "last_iter", -1) or -1)
-            if getattr(a, "resume_opt", None) is not None and last_iter >= 0:
-                self.state.step = last_iter + 1
-            self.load(getattr(a, "resume", None), getattr(a, "resume_opt", None))
-        else:
-            self.load(getattr(a, "resume", None))
+        with profiling.span("mt.setup.initialize"):
+            a = self.args
+            if seed is None:
+                seed = getattr(a, "seed", None) or 0
+            g = torch.Generator().manual_seed(int(seed))
+            init_type = getattr(a, "init_type", "normal")
+            init_gain = float(getattr(a, "init_gain", None) or 0.02)
+            for net in self.nets.values():
+                init_net(net, g, init_type, init_gain)
+            if self.is_train():
+                self.state = TrainState(0, {
+                    name: AdamState.zeros(net.parameters()) for name, net in self.nets.items()
+                })
+                self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+                last_iter = int(getattr(a, "last_iter", -1) or -1)
+                if getattr(a, "resume_opt", None) is not None and last_iter >= 0:
+                    self.state.step = last_iter + 1
+                self.load(getattr(a, "resume", None), getattr(a, "resume_opt", None))
+            else:
+                self.load(getattr(a, "resume", None))
 
     def set_mesh(self, mesh) -> None:
         """Train data parallel over ``mesh``'s "data" axis
@@ -243,8 +245,9 @@ class Model:
         """Load one state_dict per net; every net and every key must be there."""
         if set(state_dicts) != set(self.nets):
             raise KeyError(f"state_dicts for {sorted(state_dicts)}, nets are {sorted(self.nets)}")
-        for name, net in self.nets.items():
-            net.load_state_dict(state_dicts[name], strict=True)
+        with profiling.span("mt.setup.load_params"):
+            for name, net in self.nets.items():
+                net.load_state_dict(state_dicts[name], strict=True)
 
 
 def find_adam(tree) -> dict:

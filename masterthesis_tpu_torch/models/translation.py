@@ -89,6 +89,7 @@ from masterthesis_tpu_torch.models.quantize import LEAF, extract_amax, int8_conv
 from masterthesis_tpu_torch.ops import qat, spectral
 from masterthesis_tpu_torch.ops.kernels.resblock_train import fused_train_trace
 from masterthesis_tpu_torch.parallel import mesh as pmesh
+from masterthesis_tpu_torch.utils import profiling
 
 INT8_NETS = ("content_encoder", "decoder")
 GEN_NETS = ("content_encoder", "style_encoder", "decoder")
@@ -226,19 +227,22 @@ class TranslationModel(Model):
         # the deferred-norm chain is the int8 serving forward's, never a QAT step's
         serving = (bool(self.quant and self.quant.get("content_encoder"))
                    and not qat.qat_trace_mode())
-        return self.nets.content_encoder(img, serving=serving, noise=noise)
+        with profiling.span("mt.encode_content"):
+            return self.nets.content_encoder(img, serving=serving, noise=noise)
 
     def encode_style(self, img: torch.Tensor, c: torch.Tensor, eps=None):
         """(z, mu, logvar); ``eps`` None gives z = mu. The plain encoder
         (``reparam`` off) ignores ``eps`` and gives (z, None, None)."""
-        if not self.reparam:
-            return self.nets.style_encoder(img, c), None, None
-        return self.nets.style_encoder(img, c, eps)
+        with profiling.span("mt.encode_style"):
+            if not self.reparam:
+                return self.nets.style_encoder(img, c), None, None
+            return self.nets.style_encoder(img, c, eps)
 
     def decode(self, z_c: torch.Tensor, z: torch.Tensor, c: torch.Tensor,
                masks: Optional[networks.MaskSource] = None) -> torch.Tensor:
         """``masks``: the dropout mask source of this decode (training), or None."""
-        return self.nets.decoder(z_c, z, c, masks)
+        with profiling.span("mt.decode"):
+            return self.nets.decoder(z_c, z, c, masks)
 
     def get_z_random(self, batch_size: int, generator: torch.Generator | None = None):
         device = self.device if generator is None else generator.device
@@ -267,28 +271,29 @@ class TranslationModel(Model):
         The pass runs in the compute dtype, as the JAX package's does; at
         bf16 the int8 convs then take and give bf16 activations.
         """
-        self.disable_int8()
-        convs = [m for name in INT8_NETS for m in int8_convs(self.nets[name]).values()]
-        cols = {name: None for name in INT8_NETS}
-        try:
-            with torch.inference_mode():
-                for img, c, z in zip(images, c_trgs, zs):
-                    img = self._tensor(img)
-                    if img.shape[0] == 0:
-                        continue
-                    for m in convs:
-                        m.calib_amax = torch.zeros((), device=self.device)
-                    z_c = self.nets.content_encoder(_nchw(img))
-                    self.nets.decoder(z_c, self._tensor(z), self._tensor(c))
-                    for name in INT8_NETS:
-                        cols[name] = merge_amax(cols[name], extract_amax(self.nets[name]))
-        finally:
-            for m in convs:
-                m.calib_amax = None
-        if cols["content_encoder"] is None:
-            raise ValueError("calibrate_int8: no calibration batch had any images")
-        self.load_int8(cols)
-        return self.quant
+        with profiling.span("mt.setup.calibrate_int8"):
+            self.disable_int8()
+            convs = [m for name in INT8_NETS for m in int8_convs(self.nets[name]).values()]
+            cols = {name: None for name in INT8_NETS}
+            try:
+                with torch.inference_mode():
+                    for img, c, z in zip(images, c_trgs, zs):
+                        img = self._tensor(img)
+                        if img.shape[0] == 0:
+                            continue
+                        for m in convs:
+                            m.calib_amax = torch.zeros((), device=self.device)
+                        z_c = self.nets.content_encoder(_nchw(img))
+                        self.nets.decoder(z_c, self._tensor(z), self._tensor(c))
+                        for name in INT8_NETS:
+                            cols[name] = merge_amax(cols[name], extract_amax(self.nets[name]))
+            finally:
+                for m in convs:
+                    m.calib_amax = None
+            if cols["content_encoder"] is None:
+                raise ValueError("calibrate_int8: no calibration batch had any images")
+            self.load_int8(cols)
+            return self.quant
 
     def load_int8(self, quant: dict) -> None:
         """Install an amax tree (one flat dict per net, e.g. from
@@ -511,13 +516,20 @@ class TranslationModel(Model):
         update, then per net their mean over the data ranks and one
         optimizer step."""
         params = {n: list(self.nets[n].parameters()) for n in names}
-        grads = torch.autograd.grad(loss, [p for n in names for p in params[n]],
-                                    grad_outputs=grad_outputs, allow_unused=True)
+        with profiling.span("mt.opt.grad"):
+            grads = torch.autograd.grad(loss, [p for n in names for p in params[n]],
+                                        grad_outputs=grad_outputs, allow_unused=True)
+        group = self._data_group()
         i = 0
         for n in names:
             k = len(params[n])
-            g = pmesh.mean_gradients(grads[i:i + k], self._data_group())
-            apply_updates(params[n], g, self.state.opt_state[n], lr, **self.optimizer_config(n))
+            g = grads[i:i + k]
+            if group is not None:
+                with profiling.span("mt.opt.allreduce"):
+                    g = pmesh.mean_gradients(g, group)
+            with profiling.span("mt.opt.adam", profiling.ON and {"net": n, "leaves": k}):
+                apply_updates(params[n], g, self.state.opt_state[n], lr,
+                              **self.optimizer_config(n))
             for m in self._qat_convs.get(n, ()):
                 m.drop_quant()  # QAT quantizes the new weights at its next forward
             i += k
@@ -666,8 +678,10 @@ class TranslationModel(Model):
 
     def _g1_loss(self, img, c_org, b, draws):
         """G phase 1 with D1's terms. Returns (total, logs)."""
-        total, img_fake, _, logs = self._g1_forward(img, c_org, b, draws)
-        adv, cls = self._g_adv_loss(img, img_fake, c_org, "discriminator1")
+        with profiling.span("mt.g1.forward"):
+            total, img_fake, _, logs = self._g1_forward(img, c_org, b, draws)
+        with profiling.span("mt.g.adv"):
+            adv, cls = self._g_adv_loss(img, img_fake, c_org, "discriminator1")
         total = total + adv + cls
         logs.update(g_adv=adv, g_cls=cls, total_g=total)
         return total, logs
@@ -714,13 +728,18 @@ class TranslationModel(Model):
         """The reference GAN step: D fakes from their own forward, D1, D2,
         then G phase 1 against the updated D1, then G phase 2."""
         z_sr = draws.normal("z_sr", (b, self.latent_dim), required=True)
-        img_fake, img_random = self._make_d_fakes(img, c_org, b, z_sr, draws)
-        self._update_d("discriminator1", img, img_fake, c_org, lr, logs, "d1", draws)
-        self._update_d("discriminator2", img, img_random, c_org, lr, logs, "d2", draws)
+        with profiling.span("mt.d.fakes"):
+            img_fake, img_random = self._make_d_fakes(img, c_org, b, z_sr, draws)
+        with profiling.span("mt.d1.update"):
+            self._update_d("discriminator1", img, img_fake, c_org, lr, logs, "d1", draws)
+        with profiling.span("mt.d2.update"):
+            self._update_d("discriminator2", img, img_random, c_org, lr, logs, "d2", draws)
         total, g_logs = self._g1_loss(img, c_org, b, draws)
-        self._update(GEN_NETS, total, lr)
+        with profiling.span("mt.g.update"):
+            self._update(GEN_NETS, total, lr)
         logs.update({k: v.detach() for k, v in g_logs.items()})
-        self._g2_phase(img, c_org, b, draws, lr, logs)
+        with profiling.span("mt.g2.phase"):
+            self._g2_phase(img, c_org, b, draws, lr, logs)
 
     def _fused_step(self, img, c_org, b, draws, lr, logs) -> None:
         """``--gan_step fused``: G phase 1's forward at the pre-update
@@ -733,21 +752,28 @@ class TranslationModel(Model):
         nothing that D1 or D2 update (the content discriminator, which it
         does hold, is not updated here): autograd's version counters would
         say so at the backward."""
-        aux, img_fake, (z_ca, z_cb), g_logs = self._g1_forward(img, c_org, b, draws)
-        self._update_d("discriminator1", img, img_fake.detach(), c_org, lr, logs, "d1", draws)
+        with profiling.span("mt.g1.forward"):
+            aux, img_fake, (z_ca, z_cb), g_logs = self._g1_forward(img, c_org, b, draws)
+        with profiling.span("mt.d1.update"):
+            self._update_d("discriminator1", img, img_fake.detach(), c_org, lr, logs, "d1",
+                           draws)
         z_sr = draws.normal("z_sr", (b, self.latent_dim), required=True)
-        with torch.no_grad():
+        with profiling.span("mt.d2.decode"), torch.no_grad():
             img_random = self._decode(torch.cat([z_cb, z_ca]), torch.cat([z_sr, z_sr]), c_org,
                                       draws, "d2.drop")
-        self._update_d("discriminator2", img, img_random, c_org, lr, logs, "d2", draws)
-        fake = img_fake.detach().requires_grad_(True)
-        adv, cls = self._g_adv_loss(img, fake, c_org, "discriminator1")
-        advcls = adv + cls
-        (fake_cot,) = torch.autograd.grad(advcls, fake)
-        self._update(GEN_NETS, [aux, img_fake], lr, [torch.ones_like(aux), fake_cot])
+        with profiling.span("mt.d2.update"):
+            self._update_d("discriminator2", img, img_random, c_org, lr, logs, "d2", draws)
+        with profiling.span("mt.g.adv"):
+            fake = img_fake.detach().requires_grad_(True)
+            adv, cls = self._g_adv_loss(img, fake, c_org, "discriminator1")
+            advcls = adv + cls
+            (fake_cot,) = torch.autograd.grad(advcls, fake)
+        with profiling.span("mt.g.update"):
+            self._update(GEN_NETS, [aux, img_fake], lr, [torch.ones_like(aux), fake_cot])
         g_logs.update(g_adv=adv, g_cls=cls, total_g=aux + advcls)
         logs.update({k: v.detach() for k, v in g_logs.items()})
-        self._g2_phase(img, c_org, b, draws, lr, logs)
+        with profiling.span("mt.g2.phase"):
+            self._g2_phase(img, c_org, b, draws, lr, logs)
 
     def main_step(self, batch, draws: Optional[StepDraws] = None) -> dict:
         """D1, D2, G phase 1, G phase 2, by ``args.gan_step`` ("reference"
@@ -788,21 +814,27 @@ class TranslationModel(Model):
         """One iteration: the content step where ``use_dis_content`` and
         ``global_iter % d_iter != 0``, else the main step. Returns its logs."""
         a = self.args
+        attrs = profiling.ON and {"iter": global_iter}
         if a.use_dis_content and global_iter % a.d_iter != 0:
-            self.loss = self.content_step(batch, draws)
+            with profiling.span("mt.train.content_step", attrs):
+                self.loss = self.content_step(batch, draws)
         else:
-            self.loss = self.main_step(batch, draws)
+            with profiling.span("mt.train.main_step", attrs):
+                self.loss = self.main_step(batch, draws)
         return self.loss
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
     def _timed(self, fn, *args):
+        """``fn`` on ``args`` as tensors, under the span of one request."""
         start = time.perf_counter()
-        with torch.inference_mode():
-            out = fn(*(None if a is None else self._tensor(a) for a in args))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with profiling.span("mt.serve.request", profiling.ON and {"images": len(args[0])}):
+            with torch.inference_mode():
+                out = fn(*(None if a is None else self._tensor(a) for a in args))
+            if self.device.type == "cuda":
+                with profiling.span("mt.serve.sync"):
+                    torch.cuda.synchronize(self.device)
         return out, time.perf_counter() - start, self._device_memory_gb()
 
     def _device_memory_gb(self) -> float:

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from masterthesis_tpu_torch.ops.kernels import build, library
+from masterthesis_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -97,24 +98,25 @@ def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float =
 
 def adain_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):
     """One launch of the kernel: :func:`adain` on a CUDA tensor."""
-    _check_x("adain", x)
-    _check_planes("adain", x, gamma=gamma, beta=beta)
-    b, c, h, w = x.shape
-    if h * w * x.element_size() > MAX_PLANE_BYTES:
-        raise ValueError(
-            f"adain: a {h}x{w} {x.dtype} plane does not fit in one block's shared memory"
-        )
-    out = torch.empty_like(x)
-    lib = _library()
-    fn = getattr(lib, f"mt_adain_{_DTYPES[x.dtype]}")
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            b * c, h * w, float(eps), build.stream_of(x),
-        )
-    build.check(lib, err, "adain")
-    adain.launches += 1
-    return out
+    with profiling.span("mt.k.adain"):
+        _check_x("adain", x)
+        _check_planes("adain", x, gamma=gamma, beta=beta)
+        b, c, h, w = x.shape
+        if h * w * x.element_size() > MAX_PLANE_BYTES:
+            raise ValueError(
+                f"adain: a {h}x{w} {x.dtype} plane does not fit in one block's shared memory"
+            )
+        out = torch.empty_like(x)
+        lib = _library()
+        fn = getattr(lib, f"mt_adain_{_DTYPES[x.dtype]}")
+        with torch.cuda.device(x.device):
+            err = fn(
+                x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+                b * c, h * w, float(eps), build.stream_of(x),
+            )
+        build.check(lib, err, "adain")
+        adain.launches += 1
+        return out
 
 
 def _adain_cpu(x, gamma, beta, eps):
@@ -137,20 +139,21 @@ def adain_stats(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, gamma: 
     shape and dtype (no gradient: the sharded forward serves)."""
     if x.device.type == "cpu":
         return adain_stats_plain(x, mean, rstd, gamma, beta)
-    _check_x("adain_stats", x)
-    _check_planes("adain_stats", x, mean=mean, rstd=rstd, gamma=gamma, beta=beta)
-    b, c, h, w = x.shape
-    out = torch.empty_like(x)
-    lib = _library()
-    fn = getattr(lib, f"mt_adain_stats_{_DTYPES[x.dtype]}")
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            out.data_ptr(), b * c, h * w, build.stream_of(x),
-        )
-    build.check(lib, err, "adain_stats")
-    adain_stats.launches += 1
-    return out
+    with profiling.span("mt.k.adain_stats"):
+        _check_x("adain_stats", x)
+        _check_planes("adain_stats", x, mean=mean, rstd=rstd, gamma=gamma, beta=beta)
+        b, c, h, w = x.shape
+        out = torch.empty_like(x)
+        lib = _library()
+        fn = getattr(lib, f"mt_adain_stats_{_DTYPES[x.dtype]}")
+        with torch.cuda.device(x.device):
+            err = fn(
+                x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                out.data_ptr(), b * c, h * w, build.stream_of(x),
+            )
+        build.check(lib, err, "adain_stats")
+        adain_stats.launches += 1
+        return out
 
 
 adain_stats.launches = 0

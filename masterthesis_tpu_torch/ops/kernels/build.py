@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from masterthesis_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("moments", "adain", "int8_conv", "head", "resblock_bf16")
@@ -61,9 +63,10 @@ def build(names=SOURCES) -> dict[str, str]:
     reports registers and spills there). Raises with that output if any
     compile fails.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {name: (CSRC / f"{name}.cu", library_path(name)) for name in names}
-    return compile_sources({name: job for name, job in jobs.items() if not job[1].exists()})
+    with profiling.span("mt.setup.build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = {name: (CSRC / f"{name}.cu", library_path(name)) for name in names}
+        return compile_sources({name: job for name, job in jobs.items() if not job[1].exists()})
 
 
 def compile_sources(jobs: dict[str, tuple[Path, Path]]) -> dict[str, str]:

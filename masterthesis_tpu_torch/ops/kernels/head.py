@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from masterthesis_tpu_torch.ops.kernels import build, library
+from masterthesis_tpu_torch.utils import profiling
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 MAX_OUT = 8  # output channels a thread keeps in registers (csrc/head.cu kMaxOut)
@@ -151,23 +152,24 @@ def _head_cpu(x, scale, shift, relu, alpha, weight, bias, tanh):
 def head_cuda(x, scale, shift, relu, alpha, weight, bias, tanh):
     """One launch of the kernel: :func:`head` on a CUDA tensor, the pending
     affine and the activation as the op passes them."""
-    pending, act = _op_args(scale, shift, relu, alpha, tanh)
-    weight, bias = _checked(x, pending, weight, bias)
-    b, c, h, w = x.shape
-    co = weight.shape[0]
-    tiling = head_tiling(h * w, x.dtype, x.data_ptr() % VECTOR_BYTES == 0)
-    out = torch.empty((b, co, h, w), device=x.device, dtype=x.dtype)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.mt_head(
-            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), int(relu), float(alpha),
-            weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, c, h * w, co, int(tanh), int(x.dtype == torch.bfloat16), tiling.runs,
-            tiling.blocks_per_sample, int(tiling.vector), build.stream_of(x),
-        )
-    build.check(lib, err, "head")
-    head.launches += 1
-    return out
+    with profiling.span("mt.k.head"):
+        pending, act = _op_args(scale, shift, relu, alpha, tanh)
+        weight, bias = _checked(x, pending, weight, bias)
+        b, c, h, w = x.shape
+        co = weight.shape[0]
+        tiling = head_tiling(h * w, x.dtype, x.data_ptr() % VECTOR_BYTES == 0)
+        out = torch.empty((b, co, h, w), device=x.device, dtype=x.dtype)
+        lib = _library()
+        with torch.cuda.device(x.device):
+            err = lib.mt_head(
+                x.data_ptr(), scale.data_ptr(), shift.data_ptr(), int(relu), float(alpha),
+                weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+                b, c, h * w, co, int(tanh), int(x.dtype == torch.bfloat16), tiling.runs,
+                tiling.blocks_per_sample, int(tiling.vector), build.stream_of(x),
+            )
+        build.check(lib, err, "head")
+        head.launches += 1
+        return out
 
 
 def _head_fake(x, scale, shift, relu, alpha, weight, bias, tanh):

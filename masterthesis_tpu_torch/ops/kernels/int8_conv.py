@@ -66,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from masterthesis_tpu_torch.ops.kernels import build, library
+from masterthesis_tpu_torch.utils import profiling
 
 INT8_MAX = 127.0
 K_ALIGN = 32  # channel padding of the int8 operands: one k32 step of the wgmma
@@ -593,6 +594,7 @@ def _op_pending(pre_scale, pre_shift, relu: bool, alpha: float) -> Optional[dict
 def _conv_impls(op: str):
     """The op's CPU, CUDA and fake implementations."""
     wrapper, what, stride, phases = _CONV_OPS[op]
+    span = f"mt.k.{op}"
 
     def cpu(x, w, scale, bias, inv_sx, pre_scale, pre_shift, relu, alpha, reflect, with_stats):
         qc = _op_quant(stride, phases, x, w, scale, bias, inv_sx, reflect)
@@ -600,13 +602,14 @@ def _conv_impls(op: str):
         return list(out) if with_stats else [out]
 
     def cuda(x, w, scale, bias, inv_sx, pre_scale, pre_shift, relu, alpha, reflect, with_stats):
-        qc = _op_quant(stride, phases, x, w, scale, bias, inv_sx, reflect)
-        _check_input(what, x, qc)
-        out = conv_padded_cuda(
-            quant_pad_cuda(x, qc, _op_pending(pre_scale, pre_shift, relu, alpha)), qc,
-            with_stats, out_dtype=x.dtype)
-        globals()[wrapper].launches += 1
-        return list(out) if with_stats else [out]
+        with profiling.span(span):
+            qc = _op_quant(stride, phases, x, w, scale, bias, inv_sx, reflect)
+            _check_input(what, x, qc)
+            out = conv_padded_cuda(
+                quant_pad_cuda(x, qc, _op_pending(pre_scale, pre_shift, relu, alpha)), qc,
+                with_stats, out_dtype=x.dtype)
+            globals()[wrapper].launches += 1
+            return list(out) if with_stats else [out]
 
     def fake(x, w, scale, bias, inv_sx, pre_scale, pre_shift, relu, alpha, reflect, with_stats):
         qc = _op_quant(stride, phases, x, w, scale, bias, inv_sx, reflect)
@@ -713,26 +716,27 @@ def resblock_cuda(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2,
                   gamma, beta, relu_mid, eps):
     """The seven launches of :func:`resblock` on a CUDA tensor, its convs as
     the op passes them."""
-    q1, q2 = _resblock_quants(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2,
-                              reflect2)
-    for qc in (q1, q2):
-        _check_input("int8 resblock", x, qc)
-    h1, a1, b1 = conv_padded_cuda(quant_pad_cuda(x, q1), q1, True, gamma, beta, eps, nhwc=True,
-                                  out_dtype=x.dtype)
-    mid = {"scale": a1, "shift": b1, "relu": relu_mid, "alpha": 0.0}
-    h2, a2, b2 = conv_padded_cuda(quant_pad_cuda(h1, q2, mid, nhwc=True), q2, True, gamma, beta,
-                                  eps, nhwc=True, out_dtype=x.dtype)
-    out = torch.empty_like(x)
-    b, c, h, w = x.shape
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.mt_int8_residual_nhwc(
-            x.data_ptr(), h2.data_ptr(), a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            b, c, h * w, int(x.dtype == torch.bfloat16), build.stream_of(x),
-        )
-    build.check(lib, err, "int8 residual")
-    resblock.launches += 1
-    return out
+    with profiling.span("mt.k.int8_resblock"):
+        q1, q2 = _resblock_quants(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2,
+                                  reflect2)
+        for qc in (q1, q2):
+            _check_input("int8 resblock", x, qc)
+        h1, a1, b1 = conv_padded_cuda(quant_pad_cuda(x, q1), q1, True, gamma, beta, eps,
+                                      nhwc=True, out_dtype=x.dtype)
+        mid = {"scale": a1, "shift": b1, "relu": relu_mid, "alpha": 0.0}
+        h2, a2, b2 = conv_padded_cuda(quant_pad_cuda(h1, q2, mid, nhwc=True), q2, True, gamma,
+                                      beta, eps, nhwc=True, out_dtype=x.dtype)
+        out = torch.empty_like(x)
+        b, c, h, w = x.shape
+        lib = _library()
+        with torch.cuda.device(x.device):
+            err = lib.mt_int8_residual_nhwc(
+                x.data_ptr(), h2.data_ptr(), a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                b, c, h * w, int(x.dtype == torch.bfloat16), build.stream_of(x),
+            )
+        build.check(lib, err, "int8 residual")
+        resblock.launches += 1
+        return out
 
 
 def _resblock_fake(x, *args):

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from masterthesis_tpu_torch.ops.kernels import build, library
+from masterthesis_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -47,23 +48,24 @@ def moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def moments_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel: :func:`moments` on a CUDA tensor."""
-    if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
-        raise ValueError(
-            f"moments takes a contiguous 4-D f32 or bf16 tensor, got {tuple(x.shape)} "
-            f"{x.dtype} contiguous={x.is_contiguous()}"
-        )
-    b, c, h, w = x.shape
-    if b * c >= 2**31:
-        raise ValueError(f"moments: {b * c} planes exceed the grid")
-    s = torch.empty((b, c), device=x.device, dtype=torch.float32)
-    sq = torch.empty_like(s)
-    lib = _library()
-    fn = getattr(lib, f"mt_moments_{_DTYPES[x.dtype]}")
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), s.data_ptr(), sq.data_ptr(), b * c, h * w, build.stream_of(x))
-    build.check(lib, err, "moments")
-    moments.launches += 1
-    return s, sq
+    with profiling.span("mt.k.moments"):
+        if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
+            raise ValueError(
+                f"moments takes a contiguous 4-D f32 or bf16 tensor, got {tuple(x.shape)} "
+                f"{x.dtype} contiguous={x.is_contiguous()}"
+            )
+        b, c, h, w = x.shape
+        if b * c >= 2**31:
+            raise ValueError(f"moments: {b * c} planes exceed the grid")
+        s = torch.empty((b, c), device=x.device, dtype=torch.float32)
+        sq = torch.empty_like(s)
+        lib = _library()
+        fn = getattr(lib, f"mt_moments_{_DTYPES[x.dtype]}")
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), s.data_ptr(), sq.data_ptr(), b * c, h * w, build.stream_of(x))
+        build.check(lib, err, "moments")
+        moments.launches += 1
+        return s, sq
 
 
 def _moments_cpu(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from masterthesis_tpu_torch.ops.kernels import build
+from masterthesis_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
@@ -287,27 +288,28 @@ def resblock_fwd(x, w1, w2, gamma, beta, padding_type="reflect", relu_mid=True, 
         raise ValueError("the fused resblock supports reflect/zero padding only")
     if x.device.type == "cpu":
         return resblock_fwd_plain(x, w1, w2, gamma, beta, padding_type, relu_mid, eps)
-    _check(x, w1, w2, gamma, beta, padding_type)
-    dtype = x.dtype
-    b, c, h, w = x.shape
-    reflect = int(padding_type == "reflect")
-    gamma, beta = _f32(gamma), _f32(beta)
-    run = _Launcher(dtype, x.device)
-    with torch.cuda.device(x.device):
-        x = x.detach().contiguous()
-        pad = torch.empty((b, h + 2, w + 2, c), device=x.device, dtype=dtype)
-        h1, h2 = (torch.empty((b, h, w, c), device=x.device, dtype=dtype) for _ in range(2))
-        out = torch.empty_like(x)
-        m1, r1, m2, r2 = (torch.empty((b, c), device=x.device) for _ in range(4))
-        run("pad", x, pad, None, None, None, None, 0, b, h, w, c, reflect, 0, 1)
-        run("conv", pad, _taps(w1, dtype), h1, b, h + 2, w + 2, c, c)
-        run("stats", h1, m1, r1, b, h * w, c, float(eps))
-        run("pad", h1, pad, m1, r1, gamma, beta, int(relu_mid), b, h, w, c, reflect, 0, 0)
-        run("conv", pad, _taps(w2, dtype), h2, b, h + 2, w + 2, c, c)
-        run("stats", h2, m2, r2, b, h * w, c, float(eps))
-        run("residual", x, h2, m2, r2, gamma, beta, out, b, h * w, c)
-    resblock_fwd.launches += 1
-    return out, h1, h2, torch.stack([m1, r1, m2, r2], dim=1)
+    with profiling.span("mt.k.resblock_fwd"):
+        _check(x, w1, w2, gamma, beta, padding_type)
+        dtype = x.dtype
+        b, c, h, w = x.shape
+        reflect = int(padding_type == "reflect")
+        gamma, beta = _f32(gamma), _f32(beta)
+        run = _Launcher(dtype, x.device)
+        with torch.cuda.device(x.device):
+            x = x.detach().contiguous()
+            pad = torch.empty((b, h + 2, w + 2, c), device=x.device, dtype=dtype)
+            h1, h2 = (torch.empty((b, h, w, c), device=x.device, dtype=dtype) for _ in range(2))
+            out = torch.empty_like(x)
+            m1, r1, m2, r2 = (torch.empty((b, c), device=x.device) for _ in range(4))
+            run("pad", x, pad, None, None, None, None, 0, b, h, w, c, reflect, 0, 1)
+            run("conv", pad, _taps(w1, dtype), h1, b, h + 2, w + 2, c, c)
+            run("stats", h1, m1, r1, b, h * w, c, float(eps))
+            run("pad", h1, pad, m1, r1, gamma, beta, int(relu_mid), b, h, w, c, reflect, 0, 0)
+            run("conv", pad, _taps(w2, dtype), h2, b, h + 2, w + 2, c, c)
+            run("stats", h2, m2, r2, b, h * w, c, float(eps))
+            run("residual", x, h2, m2, r2, gamma, beta, out, b, h * w, c)
+        resblock_fwd.launches += 1
+        return out, h1, h2, torch.stack([m1, r1, m2, r2], dim=1)
 
 
 resblock_fwd.launches = 0
@@ -321,44 +323,46 @@ def resblock_bwd(x, h1, h2, g, stats, w1, w2, gamma, beta, padding_type="reflect
     if x.device.type == "cpu":
         return resblock_bwd_plain(x, h1, h2, g, stats, w1, w2, gamma, beta, padding_type,
                                   relu_mid, eps)
-    _check(x, w1, w2, gamma, beta, padding_type)
-    dtype = x.dtype
-    b, c, h, w = x.shape
-    reflect = int(padding_type == "reflect")
-    relu = int(relu_mid)
-    gamma, beta = _f32(gamma), _f32(beta)
-    m1, r1, m2, r2 = (t.contiguous() for t in stats.unbind(dim=1))
-    run = _Launcher(dtype, x.device)
-    with torch.cuda.device(x.device):
-        x = x.detach().contiguous()
-        g = g.detach().to(dtype).contiguous()
-        gh = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
-        run("nhwc", g, gh, b, c, h, w)
-        sg, sgy, sd, sdy = (torch.empty((b, c), device=x.device) for _ in range(4))
-        # dh and the wgrad's conv inputs (padded, in a zero ring) share the
-        # (H+4, W+4) grid
-        dh = torch.empty((b, h + 4, w + 4, c), device=x.device, dtype=dtype)
-        wide = torch.empty_like(dh)
-        dp = torch.empty((b, h + 2, w + 2, c), device=x.device, dtype=dtype)
-        dw1, dw2 = (torch.empty((c, c, 3, 3), device=x.device) for _ in range(2))
-        dx = torch.empty_like(x)
-        # norm2: dh2 (padded by 2) from g
-        run("norm_bwd", gh, 0, reflect, h2, m2, r2, gamma, beta, 0, sg, sgy, None, b, h, w, c)
-        run("norm_bwd", gh, 0, reflect, h2, m2, r2, gamma, beta, 0, sg, sgy, dh, b, h, w, c)
-        # dW2 from a1 = relu(norm1(h1)), padded; da1 = dgrad of dh2, unfolded
-        run("pad", h1, wide, m1, r1, gamma, beta, relu, b, h, w, c, reflect, 1, 0)
-        run("wgrad", wide, dh, dw2, b, h, w, c, c)
-        run("conv", dh, _taps_flipped(w2, dtype), dp, b, h + 4, w + 4, c, c)
-        # norm1 through the pad adjoint and the relu mask: dh1 (padded by 2)
-        run("norm_bwd", dp, 1, reflect, h1, m1, r1, gamma, beta, relu, sd, sdy, None, b, h, w, c)
-        run("norm_bwd", dp, 1, reflect, h1, m1, r1, gamma, beta, relu, sd, sdy, dh, b, h, w, c)
-        # dW1 from pad(x); dx = g + the folded dgrad of dh1
-        run("pad", x, wide, None, None, None, None, 0, b, h, w, c, reflect, 1, 1)
-        run("wgrad", wide, dh, dw1, b, h, w, c, c)
-        run("conv", dh, _taps_flipped(w1, dtype), dp, b, h + 4, w + 4, c, c)
-        run("dx", g, dp, dx, b, h, w, c, reflect)
-    resblock_bwd.launches += 1
-    return dx, dw1, dw2, sgy + sdy, sg + sd
+    with profiling.span("mt.k.resblock_bwd"):
+        _check(x, w1, w2, gamma, beta, padding_type)
+        dtype = x.dtype
+        b, c, h, w = x.shape
+        reflect = int(padding_type == "reflect")
+        relu = int(relu_mid)
+        gamma, beta = _f32(gamma), _f32(beta)
+        m1, r1, m2, r2 = (t.contiguous() for t in stats.unbind(dim=1))
+        run = _Launcher(dtype, x.device)
+        with torch.cuda.device(x.device):
+            x = x.detach().contiguous()
+            g = g.detach().to(dtype).contiguous()
+            gh = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
+            run("nhwc", g, gh, b, c, h, w)
+            sg, sgy, sd, sdy = (torch.empty((b, c), device=x.device) for _ in range(4))
+            # dh and the wgrad's conv inputs (padded, in a zero ring) share the
+            # (H+4, W+4) grid
+            dh = torch.empty((b, h + 4, w + 4, c), device=x.device, dtype=dtype)
+            wide = torch.empty_like(dh)
+            dp = torch.empty((b, h + 2, w + 2, c), device=x.device, dtype=dtype)
+            dw1, dw2 = (torch.empty((c, c, 3, 3), device=x.device) for _ in range(2))
+            dx = torch.empty_like(x)
+            # norm2: dh2 (padded by 2) from g
+            run("norm_bwd", gh, 0, reflect, h2, m2, r2, gamma, beta, 0, sg, sgy, None, b, h, w, c)
+            run("norm_bwd", gh, 0, reflect, h2, m2, r2, gamma, beta, 0, sg, sgy, dh, b, h, w, c)
+            # dW2 from a1 = relu(norm1(h1)), padded; da1 = dgrad of dh2, unfolded
+            run("pad", h1, wide, m1, r1, gamma, beta, relu, b, h, w, c, reflect, 1, 0)
+            run("wgrad", wide, dh, dw2, b, h, w, c, c)
+            run("conv", dh, _taps_flipped(w2, dtype), dp, b, h + 4, w + 4, c, c)
+            # norm1 through the pad adjoint and the relu mask: dh1 (padded by 2)
+            run("norm_bwd", dp, 1, reflect, h1, m1, r1, gamma, beta, relu, sd, sdy, None,
+                b, h, w, c)
+            run("norm_bwd", dp, 1, reflect, h1, m1, r1, gamma, beta, relu, sd, sdy, dh, b, h, w, c)
+            # dW1 from pad(x); dx = g + the folded dgrad of dh1
+            run("pad", x, wide, None, None, None, None, 0, b, h, w, c, reflect, 1, 1)
+            run("wgrad", wide, dh, dw1, b, h, w, c, c)
+            run("conv", dh, _taps_flipped(w1, dtype), dp, b, h + 4, w + 4, c, c)
+            run("dx", g, dp, dx, b, h, w, c, reflect)
+        resblock_bwd.launches += 1
+        return dx, dw1, dw2, sgy + sdy, sg + sd
 
 
 resblock_bwd.launches = 0

@@ -1,34 +1,189 @@
 """Profiling and timing helpers.
 
-The port of ``masterthesis_tpu/utils/profiling.py``: a ``torch.profiler``
-trace (Chrome trace format, one file per trace in ``logdir``), a per-step
-timer that synchronizes the device at each sync point, device memory
-queries through ``torch.cuda``, the console section logger and the running
-mean.
+The port of ``masterthesis_tpu/utils/profiling.py``: the program's span
+recorder and its exporter (:func:`trace`), a per-step timer that
+synchronizes the device at each sync point, the console section logger and
+the running mean.
+
+The recorder. The program opens a span (:func:`span`) around each phase a
+request or a training iteration goes through, each hand-written kernel
+function's launches and each part of set-up; every name starts with
+``mt.``. While the recorder is off, which it is unless :func:`enable` was
+called, a span site costs one check of :data:`ON` and returns one shared
+null context: no clock read, no allocation. While it is on, each span is
+kept in memory as a tuple ``(name, start_ns, end_ns, thread, parent, root,
+attrs)``: ``time.time_ns()`` at its start and end (the clock of
+``torch.profiler``'s chrome traces, whose ``ts`` in microseconds is
+``(t_ns - baseTimeNanoseconds) / 1000``), the native id of the thread that
+opened it, the index of the innermost span open on that thread (-1 for
+none), the index of the outermost span open on the main thread (the request
+or iteration the span serves; the span itself where none is open) and its
+attributes (a dict, or None). Spans opened on another thread, such as
+autograd's backward thread on the card, keep their own parents and take the
+main thread's root. No span enters ``torch.profiler``'s trace.
+
+The launch counters are the kernel functions' own ``<function>.launches``
+attributes; :func:`counters` reads them by kernel name.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib
+import json
 import os
+import threading
 import time
 from typing import Optional
 
 import torch
 
+ON = False  # the recorder's switch, the one thing a span site checks
+
+# kernel name -> (module, function) whose ``launches`` attribute counts it
+KERNELS = {
+    "moments": ("masterthesis_tpu_torch.ops.kernels.moments", "moments"),
+    "adain": ("masterthesis_tpu_torch.ops.kernels.adain", "adain"),
+    "adain_stats": ("masterthesis_tpu_torch.ops.kernels.adain", "adain_stats"),
+    "int8_conv3x3": ("masterthesis_tpu_torch.ops.kernels.int8_conv", "conv3x3"),
+    "int8_downconv": ("masterthesis_tpu_torch.ops.kernels.int8_conv", "downconv"),
+    "int8_deconv": ("masterthesis_tpu_torch.ops.kernels.int8_conv", "deconv"),
+    "int8_resblock": ("masterthesis_tpu_torch.ops.kernels.int8_conv", "resblock"),
+    "head": ("masterthesis_tpu_torch.ops.kernels.head", "head"),
+    "resblock_fwd": ("masterthesis_tpu_torch.ops.kernels.resblock_train", "resblock_fwd"),
+    "resblock_bwd": ("masterthesis_tpu_torch.ops.kernels.resblock_train", "resblock_bwd"),
+}
+
+_records: list = []  # [name, start_ns, end_ns, thread, parent, root, attrs] per span
+# threading.get_ident() -> (native thread id, indices of its open spans, outermost first)
+_threads: dict = {}
+_lock = threading.Lock()
+_MAIN = threading.main_thread().ident
+
+
+class _Null:
+    """The span of a recorder that is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_NULL = _Null()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "record", "stack")
+
+    def __init__(self, name: str, attrs: Optional[dict]):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        ident = threading.get_ident()
+        thread = _threads.get(ident)
+        if thread is None:  # the native id once per thread: a system call
+            thread = _threads.setdefault(ident, (threading.get_native_id(), []))
+        native, stack = thread
+        with _lock:
+            index = len(_records)
+            main = _threads.get(_MAIN)
+            base = (main[1] if main else None) or stack
+            self.record = [self.name, time.time_ns(), None, native, stack[-1] if stack else -1,
+                           base[0] if base else index, self.attrs]
+            _records.append(self.record)
+        stack.append(index)
+        self.stack = stack
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.record[2] = time.time_ns()
+        self.stack.pop()
+        return None
+
+
+def span(name: str, attrs: Optional[dict] = None):
+    """A context manager that records the block as the span ``name`` while
+    the recorder is on. Build ``attrs`` only when it is, so that the site
+    allocates nothing while it is off: ``span("mt.x", ON and {"n": n})``."""
+    if not ON:
+        return _NULL
+    return _Span(name, attrs or None)
+
+
+def enable() -> None:
+    """Turn the recorder on."""
+    global ON
+    ON = True
+
+
+def disable() -> None:
+    """Turn the recorder off; what it recorded stays until :func:`drain`."""
+    global ON
+    ON = False
+
+
+def drain() -> list[tuple]:
+    """The spans recorded since the last drain, in the order they opened,
+    as tuples ``(name, start_ns, end_ns, thread, parent, root, attrs)``
+    (``end_ns`` None for a span still open); parent and root index this
+    list. Call it with no span open."""
+    global _records
+    with _lock:
+        out, _records = _records, []
+    return [tuple(r) for r in out]
+
+
+def counters() -> dict[str, int]:
+    """Each hand-written kernel function's launches so far, by kernel name."""
+    out = {}
+    for kernel, (module, function) in KERNELS.items():
+        out[kernel] = getattr(importlib.import_module(module), function).launches
+    return out
+
+
+def _chrome_events(spans: list[tuple], first: int = 0) -> list[dict]:
+    """``spans`` (as :func:`drain` gives them; ``first`` the index of the
+    first in the recorder's list) as chrome-trace complete events, ``ts`` in
+    microseconds of ``time.time_ns()``, parent and root as indices into
+    ``spans`` (-1: none among them)."""
+    pid = os.getpid()
+    at = lambda i: i - first if i >= first else -1  # noqa: E731
+    return [{"name": name, "ph": "X", "ts": start / 1e3, "dur": (end - start) / 1e3,
+             "pid": pid, "tid": thread,
+             "args": {"parent": at(parent), "root": at(root), **(attrs or {})}}
+            for name, start, end, thread, parent, root, attrs in spans if end is not None]
+
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Profile the block (host and, with a card, device activity) and write
-    ``logdir/trace.json``; yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    """Record the program's spans over the block and write them to
+    ``logdir/trace.json`` (chrome-trace format, with each kernel's launches
+    over the block under ``counters``). The recorder is left as it was
+    found: where it was on, the block's spans also stay to be drained;
+    where it was off, they go with the file. Drain nothing inside the
+    block."""
+    was_on = ON
+    with _lock:
+        first = len(_records)
+    launches = counters()
+    enable()
+    try:
+        yield
+    finally:
+        if not was_on:
+            disable()
+        with _lock:
+            spans = [tuple(r) for r in _records[first:]]
+            if not was_on:
+                del _records[first:]
+        after = counters()
+        os.makedirs(logdir, exist_ok=True)
+        with open(os.path.join(logdir, "trace.json"), "w") as f:
+            json.dump({"traceEvents": _chrome_events(spans, first), "displayTimeUnit": "ms",
+                       "counters": {k: after[k] - launches[k] for k in after}}, f)
 
 
 class StepTimer:
@@ -56,23 +211,6 @@ class StepTimer:
             self._start = time.perf_counter()
             return rate
         return None
-
-
-def device_memory_stats(device=None) -> dict:
-    """The card's memory in bytes (``bytes_in_use``, ``peak_bytes_in_use``,
-    ``bytes_reserved``); {} for the CPU or without a card."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type != "cuda" or not torch.cuda.is_available():
-        return {}
-    return {
-        "bytes_in_use": torch.cuda.memory_allocated(device),
-        "peak_bytes_in_use": torch.cuda.max_memory_allocated(device),
-        "bytes_reserved": torch.cuda.memory_reserved(device),
-    }
-
-
-def device_memory_gb(device=None) -> float:
-    return device_memory_stats(device).get("bytes_in_use", 0) / (1024**3)
 
 
 class TimerBlock:
