@@ -12,6 +12,8 @@ against its plain PyTorch version.
                                                # --only int8_train,export: 16 and 17;
                                                # --only distributed,checkpoint_orbax;
                                                # --only int8_breakdown
+                                               # --only dec_mix: kernel 11 and
+                                               # BaseModel A's bf16 paths
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -56,6 +58,15 @@ against its plain PyTorch version.
    BaseModel B's two deconvs, in f32 and in bf16, by its device time
    (torch.profiler's kernel records) beside its own bound, and kernels 7
    and 5 per forward in each dtype.
+   ``check_dec_mix``: the decoder mix (kernel 11, ``dec_mix``: BaseModel
+   A's norm, style concat, two 1x1 convs, relus and residual in one
+   launch) at the serving shape (64, 256, 64, 64) with 512 hidden
+   channels, without and with the residual, against its plain version
+   within two bf16 steps on at most 2 % of outputs, timed beside the plain
+   version, the composed chain it replaces (``library_ms``), the block's
+   route (``route_ms``) and its bound (bf16 operations over 989 TFLOP/s);
+   its kernels-line entry is per BaseModel A bf16 forward at B=64, with the
+   launches of 6 and 11.
 4. Builds AdaINModel with its own seeded init at 256px, dim 64, latent 8,
    4 domains, and in f32 and bf16 serves B=8 ``forward_random`` requests and
    one ``forward_reference`` with the launch counts set to 0 just before and
@@ -82,7 +93,9 @@ against its plain PyTorch version.
    transposed convs, 1 head, 9 moments; B 2 down convs, 8 resblocks (four
    at DecoderConcat's 268 channels), 2 transposed convs at 276 -> 138 and
    146 -> 73, 1 moments), with the same checks, and a small config-A model
-   on the card against the CPU, float and int8.
+   on the card against the CPU, float and int8. Config A in bf16 must
+   launch the decoder mix 8 times a forward, every other 0; the plain
+   versions include its own.
 7. ``train``: AdaINModel's training main path at the JAX package's
    flagship training config (``bench.py``: 256px, dim 64, latent 8, 4
    domains, batch 8 per side, bf16, the content discriminator with d_iter
@@ -181,7 +194,9 @@ against its plain PyTorch version.
    model and the int8 model at compute dtype f32 of the same weights, the
    counts checked per forward; outputs bf16, finite, in [-1, 1], above 25
    dB from the float bf16 forward, within 2^-7 of the plain versions'
-   forward. The bf16 kernel entries' launches are this phase's.
+   forward (BaseModel A, whose 8 decoder mixes a forward sum in another
+   order than their plain version: within 5e-2). The bf16 kernel entries'
+   launches are this phase's.
 12. ``sample_cli``: the sample CLI, ``TestArguments().parse(argv)`` and
    ``Sampler().run(args)`` on the card, from a ``Model.save`` checkpoint of
    the flagship AdaINModel (full width, seeded), over 8 seeded 540 x 960
@@ -372,10 +387,12 @@ from masterthesis_tpu_torch.evaluate import evaluate as evaluate_model
 from masterthesis_tpu_torch.metrics.inception import make_inception_extractor
 from masterthesis_tpu_torch.metrics.lpips import make_lpips_fn
 from masterthesis_tpu_torch.models import AdaINModel, BaseModel
+from masterthesis_tpu_torch.models.blocks import DecResnetBlock, concat_label
 from masterthesis_tpu_torch.models.translation import StepDraws
 from masterthesis_tpu_torch.ops import norms, qat
 from masterthesis_tpu_torch.ops.kernels import adain as kadain
 from masterthesis_tpu_torch.ops.kernels import build
+from masterthesis_tpu_torch.ops.kernels import dec_mix as kmix
 from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
 from masterthesis_tpu_torch.ops.kernels import library
@@ -472,6 +489,16 @@ PSNR_MIN_DB = 25.0  # the JAX package's own bar, tests/test_int8_serving.py
 # config (bench.py:180-185), with the reference GAN step and the whole-block
 # resblock kernels on the card
 BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense, published
+# the decoder mix (kernel 11, ``dec_mix``) at BaseModel A's serving shape:
+# (B, C, H, W) at B=64 with 512 hidden channels; a bf16 BaseModel A forward
+# (float or int8) launches it 8 times, two mixes in each of 4 DecResnetBlocks,
+# 4 with the residual. Against its plain version (the same bf16 operands,
+# sums in another order): two bf16 steps of the larger of the output and the
+# mix before the residual, and at most 2 % of the outputs moved (the bounds of
+# tests/test_torch_dec_mix_gpu.py)
+DEC_MIX_SHAPE, DEC_MIX_HIDDEN = (64, 256, 64, 64), 512
+DEC_MIX_PER_FORWARD = 8
+DEC_MIX_STEP_TOL, DEC_MIX_MOVED = 2.0**-6, 0.02
 TRAIN_ARGS = dict(crop_size=256, dim=64, latent_dim=8, num_domains=4, batch_size=B,
                   compute_dtype="bfloat16", use_dis_content=True, d_iter=3, gan_mode="vanilla",
                   gan_step="reference", fused_resblock="auto", seed=0)
@@ -1077,6 +1104,116 @@ def check_head(dtype_name: str = "f32") -> dict:
                      name="head" + ("" if dtype_name == "f32" else f"/{dtype_name}"))
 
 
+# ------------------------------------------------------------ decoder mix --
+
+
+def check_dec_mix() -> dict:
+    """The decoder mix (kernel 11) at DEC_MIX_SHAPE, without the residual
+    (a block's first mix) and with it (its second): the wrapper, one launch
+    a call, against ``dec_mix_plain`` on the same operands within
+    DEC_MIX_STEP_TOL and DEC_MIX_MOVED; then timed beside its plain version,
+    the composed chain it replaces in ``DecResnetBlock`` (instance norm,
+    style concat, the two 1x1 convs, relus, residual add: ``library_ms``),
+    the block's whole route (the moments launch, the operands and the
+    kernel: ``route_ms``) and its bound (bf16 operations over 989 TFLOP/s,
+    or x, r, y and the weights over 3.35 TB/s)."""
+    b, c, h, w = DEC_MIX_SHAPE
+    blk = DecResnetBlock(c, c, dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        for i, p in enumerate(blk.parameters()):
+            scale = p[0].numel() ** -0.5 if p.dim() > 1 else 0.1
+            p.copy_(_randn(p.shape, p.dtype, 1100 + i, scale))
+    a, bm, norm = blk.block2_a, blk.block2_b, blk.norm2
+    assert a.weight.shape[0] == DEC_MIX_HIDDEN
+
+    def make(j):  # channels with means and spreads of their own
+        x = (_randn(DEC_MIX_SHAPE, torch.float32, 1120 + j)
+             * _randn((1, c, 1, 1), torch.float32, 1130 + j, 0.5, 1.0)
+             + _randn((1, c, 1, 1), torch.float32, 1140 + j, 0.5)).bfloat16()
+        z = _randn((b, c), torch.float32, 1150 + j)
+        mean, var = norms.moments(x)
+        ops = kmix.operands(a.weight, a.bias, bm.weight, bm.bias, z, torch.bfloat16)
+        return (x, mean.flatten(1), torch.rsqrt(var + norm.eps).flatten(1), ops,
+                _randn(DEC_MIX_SHAPE, torch.bfloat16, 1160 + j), z)
+
+    numel = math.prod(DEC_MIX_SHAPE)
+    flops = 2 * b * h * w * (c * DEC_MIX_HIDDEN + DEC_MIX_HIDDEN * c)
+    rows = []
+    with torch.inference_mode():
+        sets = copies(make, 2 * numel)
+        for residual in (False, True):
+            def kernel(x, mean, rstd, ops, r, z):
+                return kmix.dec_mix(x, mean, rstd, *ops, r if residual else None)
+
+            def plain(x, mean, rstd, ops, r, z):
+                return kmix.dec_mix_plain(x, mean, rstd, *ops, r if residual else None)
+
+            def composed(x, mean, rstd, ops, r, z):
+                y = F.relu(bm(F.relu(a(concat_label(norm(x), z)))))
+                return r + y if residual else y
+
+            def route(x, mean, rstd, ops, r, z):
+                return blk._kernel_mix(a, bm, norm, x, z, r if residual else None)
+
+            before = kmix.dec_mix.launches
+            y = kernel(*sets[0])
+            assert kmix.dec_mix.launches == before + 1, "dec_mix: not one launch per call"
+            ref = plain(*sets[0]).float()
+            torch.cuda.synchronize()
+            assert y.shape == DEC_MIX_SHAPE and y.dtype == torch.bfloat16
+            diff = (y.float() - ref).abs()
+            scale = ref.abs()
+            if residual:
+                scale = torch.maximum(scale, (ref - sets[0][4].float()).abs())
+            worst = (diff / scale.clamp_min(1.0)).max().item()
+            err, moved = diff.max().item(), (diff > 0).float().mean().item()
+            comp_err = (composed(*sets[0]).float() - ref).abs().max().item()
+            del y, ref, diff, scale
+            assert worst <= DEC_MIX_STEP_TOL and moved <= DEC_MIX_MOVED, \
+                f"dec_mix residual={residual}: {worst} of the scale, {moved} moved"
+            b_ms, by = bound(2 * numel * (3 if residual else 2) + 4 * c * DEC_MIX_HIDDEN,
+                             flops, BF16_FLOPS)
+            ms = device_ms(kernel, sets)
+            rows.append(dict(
+                mix="mix2 (+ r)" if residual else "mix1", shape=list(DEC_MIX_SHAPE),
+                hidden=DEC_MIX_HIDDEN, per_forward=DEC_MIX_PER_FORWARD // 2, max_abs_err=err,
+                max_err_of_scale=worst, tol=DEC_MIX_STEP_TOL, share_differing=moved,
+                max_share=DEC_MIX_MOVED, max_abs_err_composed=comp_err, ms=ms,
+                plain_ms=device_ms(plain, sets, iters=5), library_ms=device_ms(composed, sets),
+                route_ms=device_ms(route, sets), bound_ms=b_ms, bound_by=by,
+                bound_share=b_ms / ms, tflop_per_s=flops / ms / 1e9))
+        del sets
+    del blk
+    torch.cuda.empty_cache()
+    entry = summarize("dec_mix", "bf16", rows, "models/blocks.py DecResnetBlock: norm, style "
+                      "concat, two 1x1 convs, relus, residual (XLA's in the JAX package)",
+                      "masterthesis_tpu_torch/csrc/dec_mix.cu",
+                      "the composed chain: instance norm, concat, cuBLAS 1x1 convs, ATen",
+                      per="BaseModel A bf16 forward at B=64, 256px, dim 64 (8 mixes)")
+    entry.update(ms_per_call={r["mix"]: r["ms"] for r in rows},
+                 bound_ms_per_call={r["mix"]: r["bound_ms"] for r in rows},
+                 library_ms_per_call={r["mix"]: r["library_ms"] for r in rows},
+                 route_ms_per_call={r["mix"]: r["route_ms"] for r in rows})
+    return entry
+
+
+def dec_mix_phase(card: str) -> dict:
+    """``--only dec_mix``: the kernel's check (``check_dec_mix``), then
+    BaseModel A's bf16 paths that launch it, float and int8 at bf16 compute
+    (``serve`` and ``_int8_serve_bf16`` of 6 and 11), each held to the same
+    forward through the plain versions, its own among them. Returns the
+    kernel's entry with the launches of those paths."""
+    entry = check_dec_mix()
+    serve("bf16", card, BaseModel, BASE_CONFIGS["A"], BASE_FLOAT_PER_FORWARD,
+          "base_serve/A", reps=2, mixes=DEC_MIX_PER_FORWARD)
+    launches = kmix.dec_mix.launches
+    model_cls, flags, per_forward, sizes = BF16_INT8_MODELS["BaseModel_A"]
+    got = _int8_serve_bf16(card, "BaseModel_A", model_cls, flags, per_forward, sizes)
+    entry["launches"] = launches + got["dec_mix"]
+    log(dict(phase="dec_mix", entry=entry))
+    return entry
+
+
 # ------------------------------------------------------ training resblock --
 
 
@@ -1449,7 +1586,7 @@ PLAIN = [
     (kmoments, "moments", kmoments.moments_plain), (kadain, "adain", kadain.adain_plain),
     (kq, "downconv", kq.conv_plain), (kq, "conv3x3", kq.conv_plain), (kq, "deconv", kq.conv_plain),
     (kq, "resblock", kq.resblock_plain), (khead, "head", khead.head_plain),
-    (kadain, "adain_stats", kadain.adain_stats_plain),
+    (kadain, "adain_stats", kadain.adain_stats_plain), (kmix, "dec_mix", kmix.dec_mix_plain),
 ]
 
 
@@ -1594,6 +1731,7 @@ def int8_serve(card: str, model_cls=AdaINModel, flags=None, per_forward=INT8_PER
     assert psnr > PSNR_MIN_DB, f"{phase}: int8 vs float PSNR {psnr} dB"
     err, share = _flips(outs["int8"], plain_out)
     assert err <= HEAD_TOL, f"{phase}: int8 kernels vs plain: max {err}, share {share}"
+    assert kmix.dec_mix.launches == 0, f"{phase}: the decoder mix launched at f32 compute"
     log(dict(
         phase=phase, model=model_cls.__name__, flags=flags or {}, card=card, batch=B,
         requests=len(secs["int8"]) + 2,
@@ -1611,20 +1749,23 @@ def int8_serve(card: str, model_cls=AdaINModel, flags=None, per_forward=INT8_PER
 
 def serve(dtype_name: str, card: str, model_cls=AdaINModel, flags=None,
           per_forward=(MOMENTS_PER_FORWARD, ADAIN_PER_FORWARD), phase="serve",
-          reps=3) -> tuple[int, int]:
+          reps=3, mixes: int = 0) -> tuple[int, int]:
     """A float main path in one dtype; returns its (moments, adain) launch
-    counts."""
+    counts. Every forward must also launch the decoder mix ``mixes`` times
+    (its count is set to 0 first and left for the caller to read)."""
     args = default_test_args(compute_dtype=compute_dtype(dtype_name), **(flags or {}), **ARGS)
     model = model_cls(args)
     _, dev = request_inputs(ARGS, seed=1)
     shape = (B, ARGS["crop_size"], ARGS["crop_size"], 3)
 
     def kernel_request():
-        before = counts()
+        before, mixed = counts(), kmix.dec_mix.launches
         out, seconds, mem = model.forward_random(dev["img"], dev["z"], dev["c"])
         after = counts()
         delta = (after[0] - before[0], after[1] - before[1])
         assert delta == per_forward, f"{phase}: launches per forward {delta}"
+        mixed = kmix.dec_mix.launches - mixed
+        assert mixed == mixes, f"{phase}: decoder mix launches per forward {mixed}"
         return out, seconds, mem
 
     def plain_request():
@@ -1633,6 +1774,7 @@ def serve(dtype_name: str, card: str, model_cls=AdaINModel, flags=None,
 
     kmoments.moments.launches = 0
     kadain.adain.launches = 0
+    kmix.dec_mix.launches = 0
     kernel_request()  # warm-up: cuDNN picks its algorithms
     plain_request()
     secs = {"kernel": [], "plain": []}
@@ -1642,11 +1784,12 @@ def serve(dtype_name: str, card: str, model_cls=AdaINModel, flags=None,
             out, seconds, mem = kernel_request() if kind == "kernel" else plain_request()
             secs[kind].append(seconds)
             outs[kind] = out
-    before = counts()
+    before, mixed = counts(), kmix.dec_mix.launches
     gen = torch.Generator(device="cuda").manual_seed(2)
     ref_out, ref_s, _ = model.forward_reference(dev["img"], dev["ref"], dev["c"], generator=gen)
     launches = counts()  # the whole run: warm-up, the random requests, 1 reference
     assert (launches[0] - before[0], launches[1] - before[1]) == per_forward
+    assert kmix.dec_mix.launches - mixed == mixes, f"{phase}: decoder mix launches"
 
     for kind, out in outs.items():
         check_image(out, shape, f"{phase} forward_random {dtype_name} {kind}")
@@ -1661,8 +1804,8 @@ def serve(dtype_name: str, card: str, model_cls=AdaINModel, flags=None,
         request_s=secs["kernel"], request_s_plain=secs["plain"],
         reference_request_s=ref_s, memory_reserved_gb=mem,
         max_abs_err_vs_plain=err, tol=MODEL_TOL[dtype_name],
-        launches=dict(moments=launches[0], adain=launches[1]),
-        per_forward=dict(moments=per_forward[0], adain=per_forward[1]),
+        launches=dict(moments=launches[0], adain=launches[1], dec_mix=kmix.dec_mix.launches),
+        per_forward=dict(moments=per_forward[0], adain=per_forward[1], dec_mix=mixes),
     ))
     del model
     torch.cuda.empty_cache()
@@ -1673,19 +1816,22 @@ def base_serve(card: str) -> dict:
     """BaseModel's main paths: configs A and B, each served in f32 and bf16
     (checked against the plain versions on the card) and in int8 (in turns
     with the f32 float model), with the counts checked per forward. Returns
-    the int8 launches of both configs, by kernel."""
+    the int8 launches of both configs, by kernel, and the decoder mix's
+    (``dec_mix``: 8 a bf16 forward of config A, 0 in f32 and in B)."""
     check_small_against_cpu("f32", BaseModel, BASE_CONFIGS["A"])
     check_small_int8_against_cpu(BaseModel, BASE_CONFIGS["A"])
-    launched = {}
+    launched, mixed = {}, 0
     for name, flags in BASE_CONFIGS.items():
         for dtype_name in DTYPES:
             serve(dtype_name, card, BaseModel, flags, BASE_FLOAT_PER_FORWARD,
-                  f"base_serve/{name}", reps=2)
+                  f"base_serve/{name}", reps=2,
+                  mixes=DEC_MIX_PER_FORWARD if (name, dtype_name) == ("A", "bf16") else 0)
+            mixed += kmix.dec_mix.launches
         got = int8_serve(card, BaseModel, flags, BASE_INT8_PER_FORWARD[name],
                          f"base_int8_serve/{name}", reps=2)
         launched = {k: launched.get(k, 0) + v for k, v in got.items()}
         torch.cuda.empty_cache()
-    return launched
+    return launched | {"dec_mix": mixed}
 
 
 # bf16 compute under int8 (``int8_serve_bf16``): bench.py's two serving
@@ -1703,6 +1849,8 @@ BF16_INT8_MODELS = {
         "int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 0, "int8_deconv": 2, "head": 0,
         "moments": 3}, (B,)),
 }
+# the decoder mix's launches per bf16 int8 forward, by model (0 elsewhere)
+DEC_MIX_INT8_BF16 = {"BaseModel_A": DEC_MIX_PER_FORWARD}
 
 
 def _int8_serve_bf16(card, name, model_cls, flags, per_forward, sizes, reps=2) -> dict:
@@ -1710,11 +1858,16 @@ def _int8_serve_bf16(card, name, model_cls, flags, per_forward, sizes, reps=2) -
     batches, its requests timed in turns with the float bf16 model of the
     same weights and with the int8 path at compute dtype f32 (float,
     int8 f32, int8 bf16, int8 bf16, int8 f32, float), at each batch size.
-    Every bf16 int8 forward must launch ``per_forward``; its output is
-    bf16, finite, in [-1, 1], above 25 dB from the float bf16 forward, and
-    within ``khead.BF16_TOL`` of the same forward through the plain
-    versions (kernels 4-7 are bit-equal to theirs; the head's sum order
-    differs). Returns the int8 kernels' launches."""
+    Every bf16 int8 forward must launch ``per_forward`` and the decoder
+    mix DEC_MIX_INT8_BF16's count; its output is bf16, finite, in [-1, 1],
+    above 25 dB from the float bf16 forward, and within ``khead.BF16_TOL``
+    of the same forward through the plain versions (kernels 4-7 are
+    bit-equal to theirs; the head's sum order differs). A forward through
+    the decoder mix is held to MODEL_TOL's bf16 bound there instead: the
+    mix and its plain version sum in another order, and a hidden value a
+    bf16 step apart can move an int8 operand of the next conv by one level
+    (tests/test_torch_dec_mix_gpu.py holds the same forward to it). Returns
+    the int8 kernels' launches and the decoder mix's (``dec_mix``)."""
     phase = f"int8_serve_bf16/{name}"
     common = dict(**(flags or {}), **ARGS)
     model_f = model_cls(default_test_args(compute_dtype="bfloat16", **common))
@@ -1727,15 +1880,19 @@ def _int8_serve_bf16(card, name, model_cls, flags, per_forward, sizes, reps=2) -
     calibrate_s = time.perf_counter() - t0
     model_q32.calibrate_int8(*calib)
     zero_counts()
-    launched = dict.fromkeys(per_forward, 0)
+    mixes = DEC_MIX_INT8_BF16.get(name, 0)
+    launched = dict.fromkeys(per_forward, 0) | {"dec_mix": 0}
 
     def checked(fn):
-        before = int8_counts()
+        before, mixed = int8_counts(), kmix.dec_mix.launches
         out = fn()
         delta = {k: v - before[k] for k, v in int8_counts().items()}
         assert delta == per_forward, f"{phase}: int8 launches per forward {delta}"
+        mixed = kmix.dec_mix.launches - mixed
+        assert mixed == mixes, f"{phase}: decoder mix launches per forward {mixed}"
         for k, v in delta.items():
             launched[k] += v
+        launched["dec_mix"] += mixed
         return out
 
     for bs in sizes:
@@ -1774,9 +1931,10 @@ def _int8_serve_bf16(card, name, model_cls, flags, per_forward, sizes, reps=2) -
             with plain_kernels():
                 plain_out, plain_s, _ = model_q.forward_random(*x)
             err, share = _flips(outs["int8"], plain_out)
-            assert err <= khead.BF16_TOL, f"{phase}: kernels vs plain: max {err}, share {share}"
+            tol = MODEL_TOL["bf16"] if mixes else khead.BF16_TOL
+            assert err <= tol, f"{phase}: kernels vs plain: max {err}, share {share}"
             extra = dict(max_abs_err_vs_plain=err, share_differing_vs_plain=share,
-                         tol=khead.BF16_TOL, plain_request_s=plain_s)
+                         tol=tol, plain_request_s=plain_s)
         log(dict(
             phase=phase, card=card, batch=bs, requests_per_kind=2 * reps,
             img_per_s=bs * len(secs["int8"]) / sum(secs["int8"]),
@@ -1787,7 +1945,7 @@ def _int8_serve_bf16(card, name, model_cls, flags, per_forward, sizes, reps=2) -
             amax_leaves={k: len(v) for k, v in quant.items()}, peak_allocated_gb=peak_gb,
             psnr_vs_float_bf16_db=psnr_float, psnr_vs_int8_f32_db=psnr(outs["int8"],
                                                                        outs["int8_f32"]),
-            psnr_min_db=PSNR_MIN_DB, per_forward=per_forward, **extra,
+            psnr_min_db=PSNR_MIN_DB, per_forward=per_forward | {"dec_mix": mixes}, **extra,
         ))
     del model_f, model_q, model_q32
     torch.cuda.empty_cache()
@@ -4513,7 +4671,8 @@ def main(argv) -> int:
     if argv[:1] == ["--only"]:
         phases = {"int8_breakdown": int8_breakdown, "distributed": lambda: distributed(card, t0),
                   "int8_train": lambda: int8_train(card), "export": lambda: export_phase(card),
-                  "checkpoint_orbax": lambda: checkpoint_orbax(card)}
+                  "checkpoint_orbax": lambda: checkpoint_orbax(card),
+                  "dec_mix": lambda: dec_mix_phase(card)}
         for name in argv[1].split(","):
             phases[name]()
             log(dict(phase="seconds", upto=name, seconds=time.perf_counter() - t0))
@@ -4536,6 +4695,7 @@ def main(argv) -> int:
                  bound_ms=bf16_e["bound_ms"], f32_bound_ms=f32_e["bound_ms"],
                  below_f32=bf16_e["ms"] < f32_e["ms"],
                  below_cudnn=bf16_e["ms"] < bf16_e["bf16_cudnn_ms"]))
+    dec_mix_entry = check_dec_mix()
     check_cli_shapes()
     int8_breakdown()
     torch.cuda.empty_cache()
@@ -4561,6 +4721,8 @@ def main(argv) -> int:
     for e in bf16_entries:
         e["launches"] = launched[e["name"].split("/")[0]]
     entries += bf16_entries
+    dec_mix_entry["launches"] = base_launched["dec_mix"] + launched["dec_mix"]
+    entries.append(dec_mix_entry)
     log(dict(phase="seconds", upto="int8_serve_bf16", seconds=time.perf_counter() - t0))
     sample_cli(card)
     log(dict(phase="seconds", upto="sample_cli", seconds=time.perf_counter() - t0))

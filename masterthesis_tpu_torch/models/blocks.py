@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from masterthesis_tpu_torch.ops import norms, qat
+from masterthesis_tpu_torch.ops.kernels import dec_mix as kmix
 from masterthesis_tpu_torch.ops.kernels import head as khead
 from masterthesis_tpu_torch.ops.kernels import int8_conv as kint8
 from masterthesis_tpu_torch.ops.kernels import resblock_train as krb
@@ -626,8 +627,14 @@ class DecResnetBlock(nn.Module):
     (``norm1`` and ``norm2`` are separate modules), so int8 runs them
     through :func:`kint8.conv3x3` without prologue or statistics, and the
     norms take a moments launch each. ``dropout``: the block applies its
-    caller's mask after ``mix2`` (:func:`dropout`); it routes nothing, as
-    this block has no whole-block kernel."""
+    caller's mask after ``mix2`` (:func:`dropout`).
+
+    Serving in bf16 (float or int8 at bf16 compute), each norm and mix,
+    with the residual add in the second, is one :func:`kmix.dec_mix` after
+    the norm's moments launch, where :meth:`_takes_kernel` finds that it
+    computes what the composed path does; elsewhere (f32, gradients,
+    dropout masks, calibration, QAT, widths the kernel does not take) the
+    block composes."""
 
     def __init__(self, features: int, style_dim: int, dropout: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -643,11 +650,38 @@ class DecResnetBlock(nn.Module):
         self.block2_a = Conv2d(cat, cat, 1, dtype=dtype)
         self.block2_b = Conv2d(cat, features, 1, dtype=dtype)
 
+    def _takes_kernel(self, x, h, z, mask) -> bool:
+        """Whether the mixes take the kernel, given the block's input x, its
+        first conv's output h and the style chunk z: x and h bf16 and the
+        1x1 convs computing in bf16, no gradient needed of x, h, z or any
+        mix conv's parameter, no mask, no 1x1 conv recording its amax, no
+        QAT step, and widths the kernel takes."""
+        mixes = (self.block1_a, self.block1_b, self.block2_a, self.block2_b)
+        params = (p for c in mixes for p in c.parameters())
+        return (mask is None and x.dtype == h.dtype == self.block1_a.dtype == torch.bfloat16
+                and not (torch.is_grad_enabled()
+                         and any(t.requires_grad for t in (x, h, z, *params)))
+                and all(c.calib_amax is None for c in mixes) and not qat.qat_trace_mode()
+                and kmix.takes(h.shape[1], self.block1_a.weight.shape[0]))
+
+    @staticmethod
+    def _kernel_mix(a, b, norm, h, z, r=None):
+        """One norm and mix (+ r) as :func:`kmix.dec_mix`, after the norm's
+        moments launch."""
+        mean, var = norms.moments(h)
+        rstd = torch.rsqrt(var + norm.eps)
+        return kmix.dec_mix(h, mean.flatten(1), rstd.flatten(1),
+                            *kmix.operands(a.weight, a.bias, b.weight, b.bias, z, a.dtype), r)
+
     def forward(self, x, z, mask: Optional[torch.Tensor] = None):
         def mix(a, b, h):
             return F.relu(b(F.relu(a(concat_label(h, z)))))
 
-        h = mix(self.block1_a, self.block1_b, self.norm1(self.conv1(x)))
+        h = self.conv1(x)
+        if self._takes_kernel(x, h, z, mask):
+            h = self.conv2(self._kernel_mix(self.block1_a, self.block1_b, self.norm1, h, z))
+            return self._kernel_mix(self.block2_a, self.block2_b, self.norm2, h, z, x)
+        h = mix(self.block1_a, self.block1_b, self.norm1(h))
         return x + dropout(mix(self.block2_a, self.block2_b, self.norm2(self.conv2(h))), mask)
 
 

@@ -26,7 +26,7 @@ from masterthesis_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("moments", "adain", "int8_conv", "head", "resblock_bf16")
+SOURCES = ("moments", "adain", "int8_conv", "head", "resblock_bf16", "dec_mix")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

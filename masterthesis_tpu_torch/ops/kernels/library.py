@@ -8,7 +8,8 @@ the low-level ``torch.library.Library`` API:
   ``adain.py``);
 - ``int8_conv3x3`` (kernel 4), ``int8_downconv`` (7), ``int8_deconv`` (5)
   and ``int8_resblock`` (6's seven launches), ``int8_conv.py``;
-- ``head`` (kernel 8, ``head.py``).
+- ``head`` (kernel 8, ``head.py``);
+- ``dec_mix`` (BaseModel's decoder mix, ``dec_mix.py``; no Pallas kernel).
 
 Each op has a CUDA implementation (the kernel module's launch on
 ``torch.cuda.current_stream``, which counts the launch), a CPU
@@ -70,4 +71,4 @@ def call(name: str, x: torch.Tensor, *args):
 
 
 # the kernel modules register their ops at import
-from masterthesis_tpu_torch.ops.kernels import adain, head, int8_conv, moments  # noqa: E402,F401
+from masterthesis_tpu_torch.ops.kernels import adain, dec_mix, head, int8_conv, moments  # noqa: E402,E501,F401

