@@ -1236,11 +1236,17 @@ extern "C" int64_t mt_int8_stat_tiles(int64_t stride, int phases, int64_t Ho, in
   return ((Ho + by - 1) / by) * ((Wo + bx - 1) / bx);
 }
 
+// The rows of one N tile of mt_int8_conv (stride, phases): 256 (kWN) for
+// stride 1 without phases, else kBoxNW.
+extern "C" int64_t mt_int8_n_tile(int64_t stride, int phases) {
+  return stride == 1 && !phases ? kWN : kBoxNW;
+}
+
 // The output rows of each conv launch of mt_int8_conv, in launch order, in
-// rows[0..1]; returns the number of launches: the full N tiles (256 wide for
-// stride 1 without phases, else kBoxNW) in one launch, then a tail tile.
+// rows[0..1]; returns the number of launches: the full N tiles in one
+// launch, then a tail tile.
 extern "C" int mt_int8_conv_launches(int64_t stride, int phases, int64_t R, int64_t* rows) {
-  const int64_t nw = stride == 1 && !phases ? kWN : kBoxNW;
+  const int64_t nw = mt_int8_n_tile(stride, phases);
   int n = 0;
   if (R >= nw) rows[n++] = R / nw * nw;
   if (R % nw != 0) rows[n++] = R % nw;

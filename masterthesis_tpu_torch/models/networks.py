@@ -42,6 +42,7 @@ from masterthesis_tpu_torch.models.blocks import (
     global_avg_pool,
     split_pending,
 )
+from masterthesis_tpu_torch.utils import profiling
 
 MAX_FILTER_SIZE = 256
 
@@ -286,7 +287,12 @@ class DecoderConcat(nn.Module):
     or with ``nearest``/``pixelshuffle`` a 7x7 ``ConvBlock``).
     With dim 256, latent 8 and 4 domains the widths are 268 (resblocks),
     276 -> 138, 146 -> 73 and 81 -> 3. ``dropout`` goes to the ``dec1_*``
-    blocks, not to ``dec_share``, as in the JAX package."""
+    blocks, not to ``dec_share``, as in the JAX package.
+
+    Each of the five concats ([h, c], [h, c, z] and the three [h, z]) runs
+    under the span ``mt.decode.concat`` (``channels`` out, ``height``) and
+    adds the bytes it writes to the counter ``decode.concat_bytes`` while
+    the program's recorder is on (``utils/profiling.py``)."""
 
     def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 3,
                  num_domains: int = 2, latent_dim: int = 8, up_type: str = "transpose",
@@ -311,15 +317,25 @@ class DecoderConcat(nn.Module):
             self.dec4 = ConvBlock(nch // 2 + latent_dim, output_dim, 7, 1, 3, activation="tanh",
                                   dtype=dtype)
 
+    @staticmethod
+    def _concat(h, code):
+        if not profiling.ON:
+            return concat_label(h, code)
+        with profiling.span("mt.decode.concat",
+                            {"channels": h.shape[1] + code.shape[1], "height": h.shape[2]}):
+            out = concat_label(h, code)
+        profiling.add("decode.concat_bytes", out.numel() * out.element_size())
+        return out
+
     def forward(self, x, z, c, masks: Optional[MaskSource] = None):
-        h = concat_label(concat_label(self.dec_share(x), c), z)
+        h = self._concat(self._concat(self.dec_share(x), c), z)
         for i in range(self.n_blocks):
             name = f"dec1_{i}"
             block = getattr(self, name)
             h = block(h, _mask(masks, name, block, h))
-        h = self.dec2(concat_label(h, z))
-        h = self.dec3(concat_label(h, z))
-        return self.dec4(concat_label(h, z))
+        h = self.dec2(self._concat(h, z))
+        h = self.dec3(self._concat(h, z))
+        return self.dec4(self._concat(h, z))
 
 
 class Discriminator(nn.Module):

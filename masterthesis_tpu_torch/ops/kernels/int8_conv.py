@@ -47,7 +47,10 @@ plain version, which does the same arithmetic with torch ops: the integer
 conv runs in float64, which is exact (|acc| <= 9 * Cp * 127^2, far below
 2^53; f32 would not be, past 2^24). On a CUDA tensor it launches the
 kernels or raises. Each wrapper counts its calls that launch the kernels in
-``<wrapper>.launches``.
+``<wrapper>.launches``; while the program's span recorder is on, beside it,
+the conv launches of those calls that ran a tail N tile
+(:func:`tail_launches`) in the recorder's counter
+``<op>.tail_launches`` (``profiling.totals()``).
 
 The weights quantize on their own device (:func:`quantize_weight`), bit for
 bit as on the CPU, so that training with int8 forwards (``ops/qat.py``) can
@@ -366,6 +369,7 @@ SIGNATURES = {
     "mt_int8_quant_pad_nhwc": ([_P, _P, _P, _P, _P, _I32, _F32] + [_I64] * 9 + [_I32, _I32, _P],
                                _I32),
     "mt_int8_stat_tiles": ([_I64, _I32, _I64, _I64, _I64, _P], _I64),
+    "mt_int8_n_tile": ([_I64, _I32], _I64),
     "mt_int8_conv_launches": ([_I64, _I32, _I64, _P], _I32),
     "mt_int8_y_by_tma": ([_I64, _I32, _I64, _I32], _I32),
     "mt_int8_conv": ([_P] * 7 + [_I64] * 12 + [_I32, _I32, _I32, _P], _I32),
@@ -482,6 +486,19 @@ def conv_launches(qc: QuantConv) -> tuple[int, ...]:
     the library splits its N tiles: the full tiles in one launch, a tail
     tile in another. Loads the library."""
     return _launches(qc.stride, int(qc.phases == 4), qc.w.shape[0])
+
+
+@functools.cache
+def _tail_launches(stride: int, phases: int, r: int) -> int:
+    tile = _library().mt_int8_n_tile(stride, phases)
+    return sum(1 for rows in _launches(stride, phases, r) if rows % tile)
+
+
+def tail_launches(qc: QuantConv) -> int:
+    """How many of ``qc``'s conv launches (:func:`conv_launches`) run a tail
+    N tile: a launch whose rows are not a multiple of the library's N tile.
+    Loads the library."""
+    return _tail_launches(qc.stride, int(qc.phases == 4), qc.w.shape[0])
 
 
 @functools.cache
@@ -609,6 +626,8 @@ def _conv_impls(op: str):
                 quant_pad_cuda(x, qc, _op_pending(pre_scale, pre_shift, relu, alpha)), qc,
                 with_stats, out_dtype=x.dtype)
             globals()[wrapper].launches += 1
+            if profiling.ON:
+                profiling.add(f"{op}.tail_launches", tail_launches(qc))
             return list(out) if with_stats else [out]
 
     def fake(x, w, scale, bias, inv_sx, pre_scale, pre_shift, relu, alpha, reflect, with_stats):
@@ -736,6 +755,8 @@ def resblock_cuda(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2,
             )
         build.check(lib, err, "int8 residual")
         resblock.launches += 1
+        if profiling.ON:
+            profiling.add("int8_resblock.tail_launches", tail_launches(q1) + tail_launches(q2))
         return out
 
 

@@ -23,7 +23,16 @@ autograd's backward thread on the card, keep their own parents and take the
 main thread's root. No span enters ``torch.profiler``'s trace.
 
 The launch counters are the kernel functions' own ``<function>.launches``
-attributes; :func:`counters` reads them by kernel name.
+attributes; :func:`counters` reads them by kernel name. The program's other
+counters are named totals that a site adds to (:func:`add`) only while the
+recorder is on, so that a site costs one check of :data:`ON` while it is
+off; :func:`totals` reads them:
+
+- ``decode.concat_bytes``: the bytes that ``DecoderConcat``'s channel
+  concats write (``models/networks.py``);
+- ``<kernel>.tail_launches``: the conv launches of an int8 kernel function
+  (``int8_conv3x3``, ``int8_downconv``, ``int8_deconv``, ``int8_resblock``)
+  that ran a tail N tile (``ops/kernels/int8_conv.py``).
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ KERNELS = {
 }
 
 _records: list = []  # [name, start_ns, end_ns, thread, parent, root, attrs] per span
+_counts: dict = {}  # counter name -> total, see add()
 # threading.get_ident() -> (native thread id, indices of its open spans, outermost first)
 _threads: dict = {}
 _lock = threading.Lock()
@@ -135,6 +145,19 @@ def drain() -> list[tuple]:
     with _lock:
         out, _records = _records, []
     return [tuple(r) for r in out]
+
+
+def add(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name``. A site calls it only while the
+    recorder is on: ``if profiling.ON: profiling.add("x.bytes", n)``."""
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def totals() -> dict[str, int]:
+    """Each counter of :func:`add` so far, by name."""
+    with _lock:
+        return dict(_counts)
 
 
 def counters() -> dict[str, int]:

@@ -16,8 +16,12 @@ recorder stays off and the run is the harness's traced run: the pair gives
 the recorder's cost. Prints one JSON line: the harness's per-layer metrics,
 ``correct`` and what it compared, the program's readings and clock check,
 the idle gaps by span and by phase, the set-up spans, the kernels' launch
-counters, the number of ``mt.`` events in every profiler trace the run wrote
-(0 expected), and the card with its power limit.
+counters, the recorder's named counters (``profiling.totals()``) over the
+device window, per request of it (serving, ``per_request``: among them
+``concat_bytes_per_request.serve``, the bytes DecoderConcat's concats write,
+and ``tail_launches_per_request.serve``, the int8 conv launches that ran a
+tail N tile), the number of ``mt.`` events in every profiler trace the run
+wrote (0 expected), and the card with its power limit.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ class SpanTracer(trace.Tracer):
     stamps of its synchronizes; the recorder is off in the kernel window."""
 
     kept: dict = {}
+    totals: dict = {}  # the recorder's named counters over the device window
     anchors: list = []  # before each of the harness's synchronizes
     inner: list = []  # before each runtime synchronize, inside torch.cuda.synchronize
     mt_events = 0
@@ -71,6 +76,7 @@ class SpanTracer(trace.Tracer):
         self.phase = "device"
         torch.cuda.synchronize = recorded_sync
         torch._C._cuda_synchronize = stamped_runtime_sync
+        counted = profiling.totals()
         try:
             cuda = torch.cuda.is_available()
             activity = ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU
@@ -83,6 +89,7 @@ class SpanTracer(trace.Tracer):
             torch.cuda.synchronize = sync
             torch._C._cuda_synchronize = runtime_sync
             self.phase = None
+        SpanTracer.totals = {k: n - counted.get(k, 0) for k, n in profiling.totals().items()}
         with gzip.open(path, "rt") as f:
             SpanTracer.kept = json.load(f)
         path.unlink()
@@ -124,6 +131,18 @@ def clock_detail(chrome: dict, recorded: list) -> dict:
 
 def mt_count(chrome: dict) -> int:
     return sum(1 for e in chrome.get("traceEvents", []) if str(e.get("name", "")).startswith("mt."))
+
+
+def per_request(totals: dict, requests: int) -> dict:
+    """The device window's named counters per request, and the two that the
+    serve cells' metrics would read ({} for a window without requests)."""
+    if not requests:
+        return {}
+    out = {k: n / requests for k, n in sorted(totals.items())}
+    tails = sum(n for k, n in totals.items() if k.endswith(".tail_launches"))
+    out["concat_bytes_per_request.serve"] = totals.get("decode.concat_bytes", 0) / requests
+    out["tail_launches_per_request.serve"] = tails / requests
+    return out
 
 
 def card() -> str:
@@ -174,6 +193,8 @@ def main(argv=None) -> int:
         "roots": {k: [len(v), sum(v)] for k, v in program["roots"].items()},
         "setup_parts": {**program["setup_parts"], "build_s": result["build_s"]},
         "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+        "window_totals": SpanTracer.totals,
+        "per_request": per_request(SpanTracer.totals, len(s.spans.get("request", []))),
         "mt_events_in_profiler_traces": SpanTracer.mt_events,
     }
     text = json.dumps(line)
