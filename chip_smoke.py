@@ -13,7 +13,8 @@ against its plain PyTorch version.
                                                # --only distributed,checkpoint_orbax;
                                                # --only int8_breakdown
                                                # --only dec_mix: kernel 11 and
-                                               # BaseModel A's bf16 paths
+                                               # BaseModel A's bf16 paths;
+                                               # --only head: kernel 8's checks
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the TF32 settings, which it turns off: f32 here is full f32.
@@ -92,7 +93,8 @@ against its plain PyTorch version.
    A launches 2 down convs, 4 resblocks, 8 stride-1 convs (kernel 4), 2
    transposed convs, 1 head, 9 moments; B 2 down convs, 8 resblocks (four
    at DecoderConcat's 268 channels), 2 transposed convs at 276 -> 138 and
-   146 -> 73, 1 moments), with the same checks, and a small config-A model
+   146 -> 73, 1 head with z's per-image term, 1 moments), with the same
+   checks, and a small config-A model
    on the card against the CPU, float and int8. Config A in bf16 must
    launch the decoder mix 8 times a forward, every other 0; the plain
    versions include its own.
@@ -184,10 +186,11 @@ against its plain PyTorch version.
    take and give bf16). First kernels 4-8 in bf16 at the int8 forwards'
    shapes, as in 3 (kernels 4-7 equal to their plain versions, y and
    statistics; the head within 2^-7, two bf16 steps, its sum over C in
-   another order; the head also timed at B=64 and at the sample CLI's
-   (4, 64, 540, 960), each shape's ``bound_share`` beside its ms, and held
-   to its plain version in f32 and bf16 at two ragged shapes, one launch
-   per call), and at the sample CLI's 540 x 960 shapes at one image
+   another order; the head also timed at B=64, at BaseModel B's
+   (64, 73, 256, 256) with z's per-image term (the entry's ``term``) and at
+   the sample CLI's (4, 64, 540, 960), each shape's ``bound_share`` beside
+   its ms, and held to its plain version in f32 and bf16 at three ragged
+   shapes, the last with a term, one launch per call), and at the sample CLI's 540 x 960 shapes at one image
    (``int8_bf16_540x960``: a bottleneck of 135 rows). Then AdaINModel (B = 8
    and 64), BaseModel A (kernel 4) and B, and AdaINModel with ``--dec_norm
    instance``, each calibrated and served in turns with the float bf16
@@ -432,19 +435,24 @@ DECONV_SHAPES = [((B, 256, 64, 64), 128, 1), ((B, 128, 128, 128), 64, 1)]
 # BaseModel B's deconvs (DecoderConcat: 276 -> 138, Cp 288, R 552; 146 -> 73,
 # Cp 160, R 292), one each per forward
 DECONV_B_SHAPES = [((B, 276, 64, 64), 138, 1), ((B, 146, 128, 128), 73, 1)]
-# kernel 8 by dtype: (NCHW input, Co, launches per forward at B=8, route).
-# The B=64 and 540 x 960 rows are other serving paths' shapes (int8 at bf16
-# compute at B=64; the sample CLI, B=4): timed beside, not in the per-forward sum
+# kernel 8 by dtype: (NCHW input, Co, launches per forward at B=8, route,
+# with a per-image term). The B=64 and 540 x 960 rows are other serving
+# paths' shapes (int8 at bf16 compute at B=64, AdaINModel's and BaseModel A's
+# head and BaseModel B's with z's term; the sample CLI, B=4): timed beside,
+# not in the per-forward sum
 HEAD_SHAPES = {
-    "f32": [((B, 64, 256, 256), 3, 1, "int8 forward, f32 compute, B=8")],
-    "bf16": [((B, 64, 256, 256), 3, 1, "int8 forward, bf16 compute, B=8"),
-             ((64, 64, 256, 256), 3, 0, "int8_serve_bf16, B=64"),
-             ((4, 64, 540, 960), 3, 0, "sample CLI, 540x960, B=4")],
+    "f32": [((B, 64, 256, 256), 3, 1, "int8 forward, f32 compute, B=8", False)],
+    "bf16": [((B, 64, 256, 256), 3, 1, "int8 forward, bf16 compute, B=8", False),
+             ((64, 64, 256, 256), 3, 0, "int8_serve_bf16, B=64", False),
+             ((64, 73, 256, 256), 3, 0, "base_b int8_serve, B=64, per-image term", True),
+             ((4, 64, 540, 960), 3, 0, "sample CLI, 540x960, B=4", False)],
 }
 # and held to its plain version at ragged shapes: odd B, hw off the 16-byte
 # vector (scalar runs) or on it with a cut warp group, C off the channel
-# batch, Co 5 with a bias, relu with alpha 0.2, no activation
-HEAD_RAGGED = [((3, 21, 37, 53), 5), ((3, 20, 37, 56), 5)]
+# batch, Co 5 or 7 with a bias, relu with alpha 0.2, no activation; the
+# last with a per-image term
+HEAD_RAGGED = [((3, 21, 37, 53), 5, False), ((3, 20, 37, 56), 5, False),
+               ((5, 19, 29, 41), 7, True)]
 CONV3X3_SHAPES = [((B, 256, 64, 64), 256, 8)]  # BaseModel A: conv1/conv2 of 4 DecResnetBlocks
 # kernels 4 and 6 are also held to their plain versions at DecoderConcat's
 # unaligned width and at a ragged shape that reaches every edge of the
@@ -471,8 +479,9 @@ BASE_FLOAT_PER_FORWARD = (21, 0)
 BASE_INT8_PER_FORWARD = {
     "A": {"int8_downconv": 2, "int8_resblock": 4, "int8_conv3x3": 8, "int8_deconv": 2, "head": 1,
           "moments": 9},
-    # dec_share and dec1_0..2 at C=268 run kernel 6; the 1x1 dec4 stays float
-    "B": {"int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 0, "int8_deconv": 2, "head": 0,
+    # dec_share and dec1_0..2 at C=268 run kernel 6; dec3's LayerNorm and the
+    # 1x1 dec4 run kernel 8, z's share of its sum as a per-image term
+    "B": {"int8_downconv": 2, "int8_resblock": 8, "int8_conv3x3": 0, "int8_deconv": 2, "head": 1,
           "moments": 1},
 }
 # The int8 chain on the card against the CPU: the float stem conv and the
@@ -1046,20 +1055,23 @@ def check_head(dtype_name: str = "f32") -> dict:
     per call: within 1e-5 of its plain version in f32, within
     ``khead.BF16_TOL`` (two bf16 steps of an output in [-1, 1], from sums in
     another order) in bf16; each shape timed beside its bound
-    (``bound_share``: bound ms over ms). Then at HEAD_RAGGED, where outputs
-    leave [-1, 1] (no tanh), within two bf16 steps of each output."""
+    (``bound_share``: bound ms over ms). A row with a term passes the same
+    seeded (B, Co) f32 t to both. Then at HEAD_RAGGED, where outputs leave
+    [-1, 1] (no tanh), within two bf16 steps of each output. The entry's
+    ``term`` holds the term rows' times per call beside their bounds."""
     dtype = DTYPES[dtype_name]
     esize = torch.finfo(dtype).bits // 8
     tol = HEAD_TOL if dtype_name == "f32" else khead.BF16_TOL
     rows = []
-    for i, (shape, co, per_forward, route) in enumerate(HEAD_SHAPES[dtype_name]):
+    for i, (shape, co, per_forward, route, term) in enumerate(HEAD_SHAPES[dtype_name]):
         b, c, h, w = shape
         numel = math.prod(shape)
         sets = copies(lambda j: (_randn(shape, dtype, 700 + 10 * i + j),), esize * numel)
         pending = _card_pending(b, c, 800 + i, 0.0)
         weight = _card_weight((co, c), 801 + i, 0.1)
-        y = _head_launch(sets[0][0], pending, weight)
-        ref = khead.head_plain(sets[0][0], pending, weight)
+        t = _card_weight((b, co), 802 + i, 0.5) if term else None
+        y = _head_launch(sets[0][0], pending, weight, None, "tanh", t)
+        ref = khead.head_plain(sets[0][0], pending, weight, None, "tanh", t)
         torch.cuda.synchronize()
         assert y.dtype == dtype, f"head {shape}: out is {y.dtype}, not {dtype}"
         diff = (y.float() - ref.float()).abs()
@@ -1067,28 +1079,31 @@ def check_head(dtype_name: str = "f32") -> dict:
         del y, ref, diff
         assert err <= tol, f"head {shape}: error {err} > {tol}"
         macs = b * h * w * c * co
-        b_ms, by = bound(esize * (numel + b * co * h * w) + 8 * b * c + 4 * co * c, 2 * macs)
+        b_ms, by = bound(esize * (numel + b * co * h * w) + 8 * b * c + 4 * co * c
+                         + (4 * b * co if term else 0), 2 * macs)
         wb = weight.bfloat16()[:, :, None, None]
-        bf_sets = [(t[0].bfloat16(),) for t in sets]
-        ms = device_ms(lambda t: khead.head(t, pending, weight), sets)
+        bf_sets = [(s[0].bfloat16(),) for s in sets]
+        ms = device_ms(lambda s: khead.head(s, pending, weight, None, "tanh", t), sets)
         rows.append(dict(
-            shape=list(shape), co=co, route=route, per_forward=per_forward, max_abs_err=err,
-            tol=tol, share_differing=share, macs=macs, ms=ms,
-            plain_ms=device_ms(lambda t: khead.head_plain(t, pending, weight), sets, iters=10),
+            shape=list(shape), co=co, route=route, per_forward=per_forward, term=term,
+            max_abs_err=err, tol=tol, share_differing=share, macs=macs, ms=ms,
+            plain_ms=device_ms(lambda s: khead.head_plain(s, pending, weight, None, "tanh", t),
+                               sets, iters=10),
             # context only: a 1x1 conv alone (no LN affine, relu or tanh) on bf16
-            bf16_cudnn_ms=device_ms(lambda t: torch.tanh(F.conv2d(t, wb)), bf_sets),
+            bf16_cudnn_ms=device_ms(lambda s: torch.tanh(F.conv2d(s, wb)), bf_sets),
             library_ms=None, bound_ms=b_ms, bound_by=by, bound_share=b_ms / ms,
         ))
         del sets, bf_sets
         torch.cuda.empty_cache()
     ragged = []
-    for i, (shape, co) in enumerate(HEAD_RAGGED):
+    for i, (shape, co, term) in enumerate(HEAD_RAGGED):
         b, c = shape[:2]
         x = _randn(shape, dtype, 760 + i)
         pending = _card_pending(b, c, 770 + i, 0.2)
         weight, bias = _card_weight((co, c), 780 + i, 0.2), _card_weight((co,), 790 + i, 0.1)
-        y = _head_launch(x, pending, weight, bias, None)
-        ref = khead.head_plain(x, pending, weight, bias, None).float()
+        t = _card_weight((b, co), 795 + i, 0.5) if term else None
+        y = _head_launch(x, pending, weight, bias, None, t)
+        ref = khead.head_plain(x, pending, weight, bias, None, t).float()
         torch.cuda.synchronize()
         err = (y.float() - ref).abs().max().item()
         # f32: sums in another order; bf16: two bf16 steps of each output,
@@ -1096,12 +1111,18 @@ def check_head(dtype_name: str = "f32") -> dict:
         bad = (y.float() - ref).abs() > (HEAD_TOL if dtype_name == "f32" else
                                          khead.BF16_TOL * (1 + 2 * ref.abs()))
         assert not bad.any().item(), f"head {shape} ({dtype_name}): error {err}"
-        ragged.append(dict(shape=list(shape), co=co, bias=True, alpha=0.2, act=None,
+        ragged.append(dict(shape=list(shape), co=co, bias=True, alpha=0.2, act=None, term=term,
                            max_abs_err=err, max_abs_out=ref.abs().max().item()))
     log(dict(phase="head_ragged", dtype=dtype_name, cases=ragged))
-    return summarize("head", dtype_name, rows, "masterthesis_tpu/ops/pallas/conv_int8.py:1429",
-                     "masterthesis_tpu_torch/csrc/head.cu", None,
-                     name="head" + ("" if dtype_name == "f32" else f"/{dtype_name}"))
+    entry = summarize("head", dtype_name, rows, "masterthesis_tpu/ops/pallas/conv_int8.py:1429",
+                      "masterthesis_tpu_torch/csrc/head.cu", None,
+                      name="head" + ("" if dtype_name == "f32" else f"/{dtype_name}"))
+    terms = [dict(shape=r["shape"], route=r["route"], ms_per_call=r["ms"],
+                  bound_ms_per_call=r["bound_ms"], bound_share=r["bound_share"],
+                  max_abs_err=r["max_abs_err"], tol=r["tol"]) for r in rows if r["term"]]
+    if terms:
+        entry["term"] = terms
+    return entry
 
 
 # ------------------------------------------------------------ decoder mix --
@@ -4672,7 +4693,8 @@ def main(argv) -> int:
         phases = {"int8_breakdown": int8_breakdown, "distributed": lambda: distributed(card, t0),
                   "int8_train": lambda: int8_train(card), "export": lambda: export_phase(card),
                   "checkpoint_orbax": lambda: checkpoint_orbax(card),
-                  "dec_mix": lambda: dec_mix_phase(card)}
+                  "dec_mix": lambda: dec_mix_phase(card),
+                  "head": lambda: log(dict(phase="head", entries=[check_head(d) for d in DTYPES]))}
         for name in argv[1].split(","):
             phases[name]()
             log(dict(phase="seconds", upto=name, seconds=time.perf_counter() - t0))

@@ -1,5 +1,9 @@
 // The int8 decoder's last step: the deferred LayerNorm affine of the last
 // upsample, relu, the 1x1 conv C -> Co, bias and tanh, in one pass.
+// Optionally a per-image term t (B, Co) joins each pixel's f32 sum over C
+// before it is rounded: the share of the 1x1 conv of channels that are the
+// same at every pixel of an image (DecoderConcat's z, which the kernel
+// takes as t = W_z z in place of a concat of z's planes).
 //
 // Replaces masterthesis_tpu/ops/pallas/conv_int8.py pallas_packed_head
 // (:1429). The TPU kernel reads the lane-packed deconv output and computes a
@@ -47,7 +51,9 @@
 // torch's x * a + b is. In bf16 the kernel rounds where the JAX package's
 // CPU route does (blocks.py _packed_head off the TPU): the affine and relu to
 // bf16, the weights and bias to bf16, the f32 sum over C to bf16, the bias
-// add to bf16, and tanh of that to bf16.
+// add to bf16, and tanh of that to bf16. The term is added to the f32 sum
+// after the last channel; without one the kernel adds 0, which leaves every
+// sum as it was.
 #include <type_traits>
 
 #include "common.cuh"
@@ -66,6 +72,7 @@ struct HeadArgs {
   const float* pb;    // (B, C) shift
   const float* w;     // (Co, C)
   const float* bias;  // (Co,) or null
+  const float* term;  // (B, Co) or null
   void* out;
   int64_t hw;
   int64_t runs;  // runs per plane, whole warp groups
@@ -146,17 +153,19 @@ __device__ __forceinline__ void add_plane(float (&v)[E], float2 ab, const float4
   }
 }
 
-// A run's Co sums out: rounded to T, the bias added and rounded, tanh; one
-// 16-byte store per plane (vector), else one element per pixel below hw
+// A run's Co sums out: the image's term added, rounded to T, the bias added
+// and rounded, tanh; one 16-byte store per plane (vector), else one element
+// per pixel below hw
 template <typename T, int kCo, bool kVector, int E>
 __device__ __forceinline__ void store_run(float (&acc)[kCo][E], const HeadArgs& p,
-                                          const float (&bo)[kCo], T* os, int64_t r) {
+                                          const float (&bo)[kCo], const float (&to)[kCo], T* os,
+                                          int64_t r) {
 #pragma unroll
   for (int o = 0; o < kCo; ++o) {
     if (o < p.Co) {
       float y[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) y[e] = acc[o][e];
+      for (int e = 0; e < E; ++e) y[e] = __fadd_rn(acc[o][e], to[o]);
       round_pairs<T>(y);
       if (p.bias != nullptr) {
 #pragma unroll
@@ -249,6 +258,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) head_kernel(const HeadAr
   for (int o = 0; o < kCo; ++o) {
     bo[o] = (p.bias != nullptr && o < p.Co) ? round_to<T>(p.bias[o]) : 0.f;
   }
+  float to[kCo];
+#pragma unroll
+  for (int o = 0; o < kCo; ++o) {
+    to[o] = (p.term != nullptr && o < p.Co) ? p.term[static_cast<int64_t>(b) * p.Co + o] : 0.f;
+  }
   __syncthreads();
 
   float acc[kCo][E];
@@ -284,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) head_kernel(const HeadAr
     }
   }
   if constexpr (kVector) cp_async_wait<0>();  // no copy outlives the thread
-  if (live) store_run<T, kCo, kVector>(acc, p, bo, os, r);
+  if (live) store_run<T, kCo, kVector>(acc, p, bo, to, os, r);
 }
 
 template <int kCo, bool kVector>
@@ -321,13 +335,13 @@ int launch(const HeadArgs& a, int vector, int64_t B, int64_t blocks, cudaStream_
 }  // namespace
 
 // x: (B, C, hw) f32, or bf16 with bf16; pa, pb: (B, C) f32; w: (Co, C) f32;
-// bias: (Co,) f32 or null; out: (B, Co, hw) of x's type. Co <= 8. The tiling
-// (ops/kernels/head.py head_tiling): runs per plane, blocks per sample (the
-// grid is (blocks, B), one run per thread), and vector (1: hw a multiple of
-// the 16-byte vector and x 16-byte aligned).
+// bias: (Co,) f32 or null; term: (B, Co) f32 or null; out: (B, Co, hw) of x's
+// type. Co <= 8. The tiling (ops/kernels/head.py head_tiling): runs per
+// plane, blocks per sample (the grid is (blocks, B), one run per thread), and
+// vector (1: hw a multiple of the 16-byte vector and x 16-byte aligned).
 extern "C" int mt_head(const void* x, const void* pa, const void* pb, int relu, float alpha,
-                       const void* w, const void* bias, void* out, int64_t B, int64_t C,
-                       int64_t hw, int64_t Co, int act_tanh, int bf16, int64_t runs,
+                       const void* w, const void* bias, const void* term, void* out, int64_t B,
+                       int64_t C, int64_t hw, int64_t Co, int act_tanh, int bf16, int64_t runs,
                        int64_t blocks, int vector, void* stream) {
   if (Co > kMaxOut || B >= 65536 || blocks >= (1LL << 31) || blocks * kThreads < runs ||
       runs % 32 != 0) {
@@ -335,7 +349,8 @@ extern "C" int mt_head(const void* x, const void* pa, const void* pb, int relu, 
   }
   if (B == 0 || hw == 0 || Co == 0) return static_cast<int>(cudaGetLastError());
   HeadArgs a{x, static_cast<const float*>(pa), static_cast<const float*>(pb),
-             static_cast<const float*>(w), static_cast<const float*>(bias), out, hw, runs,
+             static_cast<const float*>(w), static_cast<const float*>(bias),
+             static_cast<const float*>(term), out, hw, runs,
              static_cast<int>(C), static_cast<int>(Co), relu, alpha, act_tanh};
   auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(a, vector, B, blocks, s)

@@ -445,7 +445,10 @@ class UpsampleBlock(nn.Module):
     int8 serving of ``transpose``: with ``defer_norm`` an int8 upsample hands
     its LayerNorm (+ relu) on as ``(y, pending)``; a 1x1 block without a norm
     (the tanh head) takes a pending LayerNorm in one :func:`khead.head`
-    launch.
+    launch. Such a head given a per-image ``code`` (N, K) reads it as the
+    last K input channels, the same at every pixel (``DecoderConcat``'s z):
+    their share of the 1x1 sum is :func:`khead.head`'s per-image term ``t``,
+    in place of a concat of the code's planes.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
@@ -475,7 +478,8 @@ class UpsampleBlock(nn.Module):
             y = self.norm(y)
         return self.act(y) if self.act is not None else y
 
-    def forward(self, x, pending: Optional[dict] = None, defer_norm: bool = False):
+    def forward(self, x, pending: Optional[dict] = None, defer_norm: bool = False,
+                code: Optional[torch.Tensor] = None):
         if not self.transpose:
             if pending is not None:
                 x = apply_pending(x, pending, self.dtype)
@@ -484,9 +488,15 @@ class UpsampleBlock(nn.Module):
             return self._finish(depth_to_space(self.conv(x)))
         if (pending is not None and self.norm is None and self.conv.kernel_size == 1
                 and self.conv.stride == 1 and self.activation in khead.ACTS):
-            w = self.conv.weight[:, :, 0, 0].t().float().contiguous()
+            w = self.conv.weight[:, :, 0, 0].t().float()
             bias = None if self.conv.bias is None else self.conv.bias.float()
-            return khead.head(x, pending, w, bias, self.activation).to(self.dtype)
+            t, c = None, x.shape[1]
+            if code is not None:  # rounded as concat_label and the conv round them
+                t = (code.to(x.dtype).float() @ w[:, c:].to(x.dtype).float().t()).contiguous()
+            return khead.head(x, pending, w[:, :c].contiguous(), bias, self.activation,
+                              t).to(self.dtype)
+        if code is not None:
+            raise ValueError("UpsampleBlock: a code goes only to a 1x1 head with a pending norm")
         out = self.conv(x, pending)
         if isinstance(out, tuple):
             y, s1, s2 = out

@@ -289,10 +289,19 @@ class DecoderConcat(nn.Module):
     276 -> 138, 146 -> 73 and 81 -> 3. ``dropout`` goes to the ``dec1_*``
     blocks, not to ``dec_share``, as in the JAX package.
 
-    Each of the five concats ([h, c], [h, c, z] and the three [h, z]) runs
-    under the span ``mt.decode.concat`` (``channels`` out, ``height``) and
-    adds the bytes it writes to the counter ``decode.concat_bytes`` while
-    the program's recorder is on (``utils/profiling.py``)."""
+    int8 serving with transposed ups and a LayerNorm: ``dec3`` hands its
+    LayerNorm and relu to the head, kernel 8 (as ``_DecoderTail`` does), and
+    ``dec4``, given z as its ``code``, takes the z channels' share of its
+    1x1 sum as one term per image, ``t = z W_z^T`` (``khead.head``'s ``t``),
+    in place of the last [h, z] concat. Every other route (float, training,
+    QAT, calibration, ``nearest``/``pixelshuffle``) concatenates z before
+    ``dec4``.
+
+    Each concat ([h, c], [h, c, z] and the [h, z]: four on the int8 route
+    above, five elsewhere) runs under the span ``mt.decode.concat``
+    (``channels`` out, ``height``) and adds the bytes it writes to the
+    counter ``decode.concat_bytes`` while the program's recorder is on
+    (``utils/profiling.py``)."""
 
     def __init__(self, output_dim: int = 3, dim: int = 256, n_blocks: int = 3,
                  num_domains: int = 2, latent_dim: int = 8, up_type: str = "transpose",
@@ -316,6 +325,9 @@ class DecoderConcat(nn.Module):
         else:
             self.dec4 = ConvBlock(nch // 2 + latent_dim, output_dim, 7, 1, 3, activation="tanh",
                                   dtype=dtype)
+        # int8 serving: dec3 defers its norm to kernel 8 (inert on the float
+        # path: only an int8 upsample returns the statistics to defer)
+        self.fusible = "transpose" in up_type and norm == "layer" and activation in ("relu", None)
 
     @staticmethod
     def _concat(h, code):
@@ -334,8 +346,8 @@ class DecoderConcat(nn.Module):
             block = getattr(self, name)
             h = block(h, _mask(masks, name, block, h))
         h = self.dec2(self._concat(h, z))
-        h = self.dec3(self._concat(h, z))
-        return self.dec4(self._concat(h, z))
+        h, pending = split_pending(self.dec3(self._concat(h, z), defer_norm=self.fusible))
+        return self.dec4(self._concat(h, z)) if pending is None else self.dec4(h, pending, code=z)
 
 
 class Discriminator(nn.Module):

@@ -9,6 +9,13 @@ the 1x1 conv C -> Co, bias and tanh. The TPU kernel's lane-packed layout is
 not ported: the port's upsample writes NCHW, which the kernel reads as it is.
 ``head.launches`` counts the kernel's launches.
 
+An optional per-image term ``t`` (B, Co) f32 joins each pixel's f32 sum over
+C before any rounding: the share of the 1x1 conv of input channels that are
+constant over each image. ``DecoderConcat`` passes its z channels so, as
+``t = z W_z^T``, in place of concatenating z's planes after x. While the
+program's recorder is on, the calls with a term add to the counter
+``head.term_launches``.
+
 The kernel's grid and the pixels each thread takes are computed here, by
 :func:`head_tiling`, so that the CPU tests can check that every pixel of
 every plane is covered once: a thread takes one run, a 16-byte vector of
@@ -19,10 +26,10 @@ x and the output are f32 or bf16. In bf16 both versions round where the
 JAX package's CPU route does (``blocks.py`` ``_packed_head`` off the TPU:
 ``apply_pending`` to bf16, a bf16 1x1 conv, a bf16 bias add, tanh): the
 affine and relu to bf16, the weights and bias to bf16, the f32 sum over the
-channels to bf16, the bias add to bf16, tanh to bf16. The kernel sums the
-channels in another order than the plain version's conv, so in bf16 an
-output can differ by a bf16 rounding step of the pre-tanh value (see
-:data:`BF16_TOL`).
+channels (with ``t``) to bf16, the bias add to bf16, tanh to bf16. The
+kernel sums the channels in another order than the plain version's conv, so
+in bf16 an output can differ by a bf16 rounding step of the pre-tanh value
+(see :data:`BF16_TOL`).
 """
 from __future__ import annotations
 
@@ -71,9 +78,12 @@ def head_tiling(hw: int, dtype: torch.dtype, aligned: bool = True) -> HeadTiling
 
 
 def head_plain(x: torch.Tensor, pending: dict, weight: torch.Tensor,
-               bias: Optional[torch.Tensor] = None, act: Optional[str] = "tanh"):
+               bias: Optional[torch.Tensor] = None, act: Optional[str] = "tanh",
+               t: Optional[torch.Tensor] = None):
     """x (B, C, H, W) f32 or bf16; pending {"scale", "shift" (B, C), "relu",
-    "alpha"}; weight (Co, C); bias (Co,) or None -> (B, Co, H, W) in x's dtype."""
+    "alpha"}; weight (Co, C); bias (Co,) or None; t (B, Co) f32 or None, added
+    to the f32 sum over C -> (B, Co, H, W) in x's dtype."""
+    term = None if t is None else t.float()[:, :, None, None]
     w = weight.float()
     b = None if bias is None else bias.float()
     if x.dtype == torch.bfloat16:  # weights and bias as bf16 values, as the kernel rounds them
@@ -83,9 +93,14 @@ def head_plain(x: torch.Tensor, pending: dict, weight: torch.Tensor,
     if pending.get("relu"):
         y = torch.maximum(y, float(pending.get("alpha", 0.0)) * y)
     if x.dtype == torch.float32:
-        y = F.conv2d(y, w[:, :, None, None], b)
+        if term is None:
+            y = F.conv2d(y, w[:, :, None, None], b)
+        else:
+            y = F.conv2d(y, w[:, :, None, None]) + term
+            y = y if b is None else y + b[:, None, None]
         return torch.tanh(y) if act == "tanh" else y
-    y = F.conv2d(y.to(x.dtype).float(), w[:, :, None, None]).to(x.dtype)
+    y = F.conv2d(y.to(x.dtype).float(), w[:, :, None, None])
+    y = (y if term is None else y + term).to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)[:, None, None]
     return torch.tanh(y) if act == "tanh" else y
@@ -94,17 +109,17 @@ def head_plain(x: torch.Tensor, pending: dict, weight: torch.Tensor,
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("head")
-    lib.mt_head.argtypes = [_P, _P, _P, _I32, _F32, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32,
-                            _I64, _I64, _I32, _P]
+    lib.mt_head.argtypes = [_P, _P, _P, _I32, _F32, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                            _I32, _I64, _I64, _I32, _P]
     lib.mt_head.restype = ctypes.c_int
     return lib
 
 
 def _checked(x: torch.Tensor, pending: dict, weight: torch.Tensor,
-             bias: Optional[torch.Tensor]):
+             bias: Optional[torch.Tensor], t: Optional[torch.Tensor] = None):
     """The f32 weight and bias the kernel takes (it rounds them to bf16
     values itself for a bf16 x, as it stages them), after every check of
-    what it cannot take; raises ValueError first."""
+    what it cannot take, the term's among them; raises ValueError first."""
     b, c, h, w = x.shape
     co = weight.shape[0]
     if co > MAX_OUT:
@@ -117,6 +132,8 @@ def _checked(x: torch.Tensor, pending: dict, weight: torch.Tensor,
               ("weight", weight, (co, c))]
     if bias is not None:
         checks.append(("bias", bias, (co,)))
+    if t is not None:
+        checks.append(("t", t, (b, co)))
     for name, t, shape in checks:
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != x.device:
@@ -128,7 +145,8 @@ def _checked(x: torch.Tensor, pending: dict, weight: torch.Tensor,
 
 
 def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
-         bias: Optional[torch.Tensor] = None, act: Optional[str] = "tanh"):
+         bias: Optional[torch.Tensor] = None, act: Optional[str] = "tanh",
+         t: Optional[torch.Tensor] = None):
     """:func:`head_plain` on the card, in one launch. Forward only."""
     if act not in ACTS:
         raise ValueError(f"head: activation {act!r} is not one of {ACTS}")
@@ -136,25 +154,27 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
         raise RuntimeError("head has no backward; call it under torch.inference_mode()")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"head runs on CPU or CUDA tensors, not {x.device}")
+    if t is not None and profiling.ON:
+        profiling.add("head.term_launches", 1)
     return library.call("head", x, pending["scale"], pending["shift"], bool(pending.get("relu")),
-                        float(pending.get("alpha", 0.0)), weight, bias, act == "tanh")
+                        float(pending.get("alpha", 0.0)), weight, bias, act == "tanh", t)
 
 
 def _op_args(scale, shift, relu, alpha, tanh):
     return {"scale": scale, "shift": shift, "relu": relu, "alpha": alpha}, "tanh" if tanh else None
 
 
-def _head_cpu(x, scale, shift, relu, alpha, weight, bias, tanh):
+def _head_cpu(x, scale, shift, relu, alpha, weight, bias, tanh, t=None):
     pending, act = _op_args(scale, shift, relu, alpha, tanh)
-    return head_plain(x, pending, weight, bias, act)
+    return head_plain(x, pending, weight, bias, act, t)
 
 
-def head_cuda(x, scale, shift, relu, alpha, weight, bias, tanh):
+def head_cuda(x, scale, shift, relu, alpha, weight, bias, tanh, t=None):
     """One launch of the kernel: :func:`head` on a CUDA tensor, the pending
-    affine and the activation as the op passes them."""
+    affine, the activation and the per-image term as the op passes them."""
     with profiling.span("mt.k.head"):
         pending, act = _op_args(scale, shift, relu, alpha, tanh)
-        weight, bias = _checked(x, pending, weight, bias)
+        weight, bias = _checked(x, pending, weight, bias, t)
         b, c, h, w = x.shape
         co = weight.shape[0]
         tiling = head_tiling(h * w, x.dtype, x.data_ptr() % VECTOR_BYTES == 0)
@@ -163,7 +183,8 @@ def head_cuda(x, scale, shift, relu, alpha, weight, bias, tanh):
         with torch.cuda.device(x.device):
             err = lib.mt_head(
                 x.data_ptr(), scale.data_ptr(), shift.data_ptr(), int(relu), float(alpha),
-                weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+                weight.data_ptr(), None if bias is None else bias.data_ptr(),
+                None if t is None else t.data_ptr(), out.data_ptr(),
                 b, c, h * w, co, int(tanh), int(x.dtype == torch.bfloat16), tiling.runs,
                 tiling.blocks_per_sample, int(tiling.vector), build.stream_of(x),
             )
@@ -172,11 +193,12 @@ def head_cuda(x, scale, shift, relu, alpha, weight, bias, tanh):
         return out
 
 
-def _head_fake(x, scale, shift, relu, alpha, weight, bias, tanh):
+def _head_fake(x, scale, shift, relu, alpha, weight, bias, tanh, t=None):
     return x.new_empty((x.shape[0], weight.shape[0], x.shape[2], x.shape[3]))
 
 
 head.launches = 0
+# t defaults to None, so that a bundle exported before the term replays
 library.register(
     "head", "(Tensor x, Tensor scale, Tensor shift, bool relu, float alpha, Tensor weight, "
-    "Tensor? bias, bool tanh) -> Tensor", _head_cpu, head_cuda, _head_fake)
+    "Tensor? bias, bool tanh, Tensor? t=None) -> Tensor", _head_cpu, head_cuda, _head_fake)

@@ -32,7 +32,9 @@ off; :func:`totals` reads them:
   concats write (``models/networks.py``);
 - ``<kernel>.tail_launches``: the conv launches of an int8 kernel function
   (``int8_conv3x3``, ``int8_downconv``, ``int8_deconv``, ``int8_resblock``)
-  that ran a tail N tile (``ops/kernels/int8_conv.py``).
+  that ran a tail N tile (``ops/kernels/int8_conv.py``);
+- ``head.term_launches``: the head's calls (kernel 8) with a per-image term
+  (``ops/kernels/head.py``).
 """
 from __future__ import annotations
 

@@ -22,6 +22,13 @@ under the same state_dict keys:
   roundings. Over seeds 10-21 an image moved by 0-0.0166 RMS, up to 0.12 at
   one output; the int4 reference lies 0.247-0.354 RMS from the int8 one.
 - the control: ``Arith(bits=4)`` in the program's place fails that bound.
+- the int8 route that hands ``dec3``'s LayerNorm and relu to the head
+  (kernel 8's plain version, z's share of the 1x1 sum as a per-image term)
+  against the same model with that route off (``fusible`` False: the
+  LayerNorm applied, z concatenated, ``dec4`` as a conv): f32 within the
+  f32 bound above, bf16 within ``head.BF16_TOL`` (the same rounding points;
+  the sums over the channels in other orders). The counters then read one
+  call with a term and the last concat's bytes fewer.
 
 The card test (``gpu``, skipped here) counts the int8 conv launches that run
 a tail N tile in one forward of each configuration at full width.
@@ -41,6 +48,7 @@ sys.path.insert(0, str(ROOT))
 
 from masterthesis_tpu_torch.arguments import default_test_args  # noqa: E402
 from masterthesis_tpu_torch.models import AdaINModel, BaseModel  # noqa: E402
+from masterthesis_tpu_torch.ops.kernels import head as khead  # noqa: E402
 from masterthesis_tpu_torch.utils import profiling  # noqa: E402
 from portbench import common, readings  # noqa: E402
 from portbench import run as pbrun  # noqa: E402
@@ -163,6 +171,63 @@ def test_the_concat_spans_and_their_bytes(dtype, recorder):
     size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
     want = sum(B * c * h * h * size for c, h in CONCATS)
     assert profiling.totals()["decode.concat_bytes"] - before == want
+
+
+def _int8_model(seed: int, dtype: str):
+    model, _ = _model(seed, dtype)
+    calib, b = _batches(seed, 2)
+    model.calibrate_int8([calib["img"]], [calib["c"]], [calib["z"]])
+    return model, b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_int8_route_through_the_head_matches_the_unfused_route(dtype, monkeypatch):
+    model, b = _int8_model(16, dtype)
+    dec = model.nets.decoder
+    assert dec.fusible
+    calls = []
+    real = khead.head
+    monkeypatch.setattr(khead, "head", lambda *a: calls.append(a) or real(*a))
+    got, _, _ = model.forward_random(b["img"], b["z"], b["c"])
+    assert len(calls) == 1 and calls[0][5].shape == (B, 3)
+    monkeypatch.setattr(dec, "fusible", False)
+    want, _, _ = model.forward_random(b["img"], b["z"], b["c"])
+    assert len(calls) == 1
+    tol = 1e-4 * max(1.0, float(want.abs().max())) if dtype == "float32" else khead.BF16_TOL
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("block", ["dec3", "dec4"])
+def test_a_code_goes_only_to_a_head_with_a_pending_norm(block):
+    """An upsample that would not take the code as kernel 8's term (a
+    transposed 3x3 conv; the head with no pending norm) refuses it rather
+    than drop z's channels."""
+    dec = _model(18)[0].nets.decoder
+    up = getattr(dec, block)
+    x = torch.zeros(B, up.conv.weight.shape[0], 4, 4)
+    with pytest.raises(ValueError, match="code"):
+        up(x, code=torch.zeros(B, LATENT))
+
+
+@pytest.mark.parametrize("path", ["float", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_head_term_and_concat_counters_by_route(dtype, path, recorder):
+    """One head call with a term and four concats a forward on the int8
+    route; none and five on the float route."""
+    model, b = _int8_model(17, dtype) if path == "int8" else (_model(17, dtype)[0],
+                                                              _batches(17, 1)[0])
+    before = profiling.totals()
+    profiling.drain()
+    model.forward_random(b["img"], b["z"], b["c"])
+    concats = [s for s in profiling.drain() if s[0] == "mt.decode.concat"]
+    after = profiling.totals()
+    size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    kept = CONCATS[:-1] if path == "int8" else CONCATS
+    assert [(s[6]["channels"], s[6]["height"]) for s in concats] == kept
+    got = {k: after.get(k, 0) - before.get(k, 0)
+           for k in ("head.term_launches", "decode.concat_bytes")}
+    assert got == {"head.term_launches": int(path == "int8"),
+                   "decode.concat_bytes": sum(B * c * h * h * size for c, h in kept)}
 
 
 def test_with_the_recorder_off_the_concats_record_and_count_nothing():

@@ -50,12 +50,14 @@ SHAPE = dict(crop_size=SIZE, dim=8, latent_dim=LATENT, num_domains=K, batch_size
 CONFIGS = {"A": {}, "B": dict(concat=True, reparam=True)}
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
-# kernel launches per forward, as the JAX package routes them
+# kernel launches per forward, as the JAX package routes them, but for B's
+# int8 head: the port hands dec3's LayerNorm and relu, and z's share of the
+# 1x1 sum, to kernel 8, where the JAX package concatenates z before a float conv
 ROUTES = {
     ("A", "float"): dict(moments=21, adain=0, downconv=0, resblock=0, conv3x3=0, deconv=0, head=0),
     ("A", "int8"): dict(moments=9, adain=0, downconv=2, resblock=4, conv3x3=8, deconv=2, head=1),
     ("B", "float"): dict(moments=21, adain=0, downconv=0, resblock=0, conv3x3=0, deconv=0, head=0),
-    ("B", "int8"): dict(moments=1, adain=0, downconv=2, resblock=8, conv3x3=0, deconv=2, head=0),
+    ("B", "int8"): dict(moments=1, adain=0, downconv=2, resblock=8, conv3x3=0, deconv=2, head=1),
 }
 
 

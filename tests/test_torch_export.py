@@ -191,6 +191,7 @@ def _op_cases():
         ("adain", (x, gamma, beta, 1e-5)),
         ("head", (x, *pre, True, 0.0, randn(3, 12, scale=0.2), randn(3, scale=0.1), True)),
         ("head", (x.to(torch.bfloat16), *pre, False, 0.0, randn(3, 12, scale=0.2), None, False)),
+        ("head", (x, *pre, True, 0.0, randn(3, 12, scale=0.2), None, True, randn(2, 3))),
         ("int8_resblock", (x, *q(res1), True, *q(res2), True, gamma, beta, True, 1e-5)),
     ]
     xb = x.to(torch.bfloat16)

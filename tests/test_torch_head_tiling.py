@@ -2,7 +2,8 @@
 CPU: the index math of ``csrc/head.cu`` emulated in numpy, so that a grid
 that misses or repeats a pixel shows here, where the kernel cannot run; and
 the wrapper's checks of what the kernel cannot take, which raise before any
-launch. Needs no JAX and no card.
+launch; and the plain version's per-image term, against the same conv over
+the term's channels concatenated. Needs no JAX and no card.
 
 The grid is (blocks_per_sample, B); thread t of block (bx, b) takes run
 r = bx * THREADS + t of sample b if r < runs. A vector run r covers pixels
@@ -100,12 +101,14 @@ def _args(b=2, c=6, h=5, w=7, co=3, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("case", ["co9", "f16", "f64", "strided", "scale_shape", "shift_dtype",
-                                  "weight_shape", "bias_shape", "scale_device", "grid"])
+                                  "weight_shape", "bias_shape", "scale_device", "grid",
+                                  "t_shape", "t_dtype", "t_strided", "t_device"])
 def test_wrapper_raises_before_any_launch(case):
     """The checks the wrapper makes on a CUDA tensor before it computes a
     tiling or launches, here on CPU tensors (a meta tensor for the device
     check)."""
     x, pending, weight, bias = _args()
+    t = None
     if case == "co9":
         x, pending, weight, bias = _args(co=9)
     elif case in ("f16", "f64"):
@@ -124,9 +127,17 @@ def test_wrapper_raises_before_any_launch(case):
         pending["scale"] = pending["scale"].to("meta")
     elif case == "grid":
         x, pending, weight, bias = _args(b=2**16, c=1, h=1, w=1)
+    elif case == "t_shape":
+        t = torch.zeros(3, 2)
+    elif case == "t_dtype":
+        t = torch.zeros(2, 3, dtype=torch.bfloat16)
+    elif case == "t_strided":
+        t = torch.zeros(3, 2).t()
+    elif case == "t_device":
+        t = torch.zeros(2, 3, device="meta")
     before = khead.head.launches
     with pytest.raises(ValueError):
-        khead._checked(x, pending, weight, bias)
+        khead._checked(x, pending, weight, bias, t)
     assert khead.head.launches == before
 
 
@@ -148,3 +159,40 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         khead.head(x.to("meta"), pending, weight, bias)
     assert khead.head.launches == before
+
+
+def _seeded(shape, gen, scale=1.0):
+    return torch.randn(shape, generator=gen) * scale
+
+
+@pytest.mark.parametrize("dtype_name", DTYPES)
+@pytest.mark.parametrize("b,c,latent,h,w,co", [(2, 13, 4, 6, 5, 3), (3, 9, 8, 4, 7, 5)])
+def test_plain_term_is_the_conv_over_the_concatenated_channels(dtype_name, b, c, latent, h, w,
+                                                               co):
+    """head_plain with t = z W_z^T equals head_plain without a term on [relu
+    of the affine of x, z's planes] with the whole (Co, C + latent) weight
+    and an identity affine: f32 within 1e-5, bf16 within BF16_TOL (the sums
+    over the channels run in other orders). z and W_z are rounded as the
+    concat and the bf16 conv round them."""
+    dtype = DTYPES[dtype_name]
+    gen = torch.Generator().manual_seed(b * 100 + c)
+    x = _seeded((b, c, h, w), gen).to(dtype)
+    pending = {"scale": _seeded((b, c), gen).abs() + 0.5, "shift": _seeded((b, c), gen, 0.3),
+               "relu": True, "alpha": 0.0}
+    weight = _seeded((co, c + latent), gen, 0.3)
+    z = _seeded((b, latent), gen)
+    t = z.to(dtype).float() @ weight[:, c:].to(dtype).float().t()
+    got = khead.head_plain(x, pending, weight[:, :c], None, "tanh", t)
+    h_in = torch.relu(x.float() * pending["scale"][:, :, None, None]
+                      + pending["shift"][:, :, None, None]).to(dtype)
+    cat = torch.cat([h_in, z[:, :, None, None].expand(b, latent, h, w).to(dtype)], dim=1)
+    identity = {"scale": torch.ones(b, c + latent), "shift": torch.zeros(b, c + latent),
+                "relu": False, "alpha": 0.0}
+    want = khead.head_plain(cat, identity, weight, None, "tanh")
+    assert got.dtype == dtype and got.shape == (b, co, h, w)
+    tol = 1e-5 if dtype == torch.float32 else khead.BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    # a zero term adds nothing
+    assert torch.equal(khead.head_plain(x, pending, weight[:, :c], None, "tanh"),
+                       khead.head_plain(x, pending, weight[:, :c], None, "tanh",
+                                        torch.zeros(b, co)))

@@ -241,6 +241,54 @@ def test_head_kernel_matches_plain(cuda, shape, co, bias, alpha, act, dtype):
                                atol=tol[0], rtol=tol[1])
 
 
+# the per-image term (DecoderConcat's z share of its 1x1 sum): BaseModel B's
+# head at its serving shape, (64, 73, 256, 256) -> 3, and two ragged shapes
+# (scalar runs; a cut warp group, with a bias and no activation)
+TERM_CASES = [((64, 73, 256, 256), 3, False, "tanh"), ((3, 21, 37, 53), 5, True, "tanh"),
+              ((3, 20, 37, 56), 5, True, None)]
+
+
+def _head_tol(dtype, act):
+    return (1e-5, 0.0) if dtype == torch.float32 else \
+        (khead.BF16_TOL, 0.0 if act == "tanh" else 2 * khead.BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,co,bias,act", TERM_CASES)
+def test_head_kernel_with_a_term_matches_plain(cuda, shape, co, bias, act, dtype):
+    """Kernel 8 with t against its plain version (on the card: cuDNN's f32
+    1x1 conv, TF32 off), in one launch."""
+    b, c, h, w = shape
+    x = _randn(shape, 40).to(dtype).to(cuda)
+    p = _to(_pending(b, c, 41), cuda)
+    wt = _randn((co, c), 42, 0.2).to(cuda)
+    bs = _randn((co,), 43, 0.1).to(cuda) if bias else None
+    t = _randn((b, co), 44, 0.5).to(cuda)
+    before = khead.head.launches
+    y = khead.head(x, p, wt, bs, act, t)
+    torch.cuda.synchronize()
+    assert khead.head.launches == before + 1 and y.dtype == dtype
+    atol, rtol = _head_tol(dtype, act)
+    torch.testing.assert_close(y.float(), khead.head_plain(x, p, wt, bs, act, t).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_head_kernel_without_a_term_is_unchanged_at_the_serving_shape(cuda, dtype):
+    """The launch without a term (AdaINModel's and BaseModel A's head at
+    (64, 64, 256, 256) -> 3) within the plain version's tolerance, and a
+    zero term equal to it bit for bit: the kernel adds 0 where none is given."""
+    b, c, h, w = 64, 64, 256, 256
+    x = _randn((b, c, h, w), 45).to(dtype).to(cuda)
+    p = _to(_pending(b, c, 46), cuda)
+    wt = _randn((3, c), 47, 0.2).to(cuda)
+    y = khead.head(x, p, wt)
+    atol, rtol = _head_tol(dtype, "tanh")
+    torch.testing.assert_close(y.float(), khead.head_plain(x, p, wt).float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(y, khead.head(x, p, wt, None, "tanh", torch.zeros(b, 3, device=cuda)))
+
+
 SMALL = dict(crop_size=32, dim=8, latent_dim=4, num_domains=4, batch_size=2, seed=0)
 
 
@@ -301,3 +349,6 @@ def test_int8_kernels_refuse_what_they_cannot_take(cuda):
         kq.quant_conv(_randn((4, 4, 3, 3), 0), None, 1.0, 2, "replicate")
     with pytest.raises(ValueError):
         khead.head(x, _to(_pending(1, 8, 3), cuda), torch.zeros(9, 8, device=cuda))
+    with pytest.raises(ValueError):  # a term on the CPU
+        khead.head(x, _to(_pending(1, 8, 3), cuda), torch.zeros(3, 8, device=cuda), None,
+                   "tanh", torch.zeros(1, 3))
