@@ -814,9 +814,8 @@ def _check_exact(x, qc, pending) -> dict:
 
 def _card_pending(b, c, seed, alpha):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return {"scale": torch.rand((b, c), generator=g, device="cuda") + 0.5,
-            "shift": torch.randn((b, c), generator=g, device="cuda") * 0.3,
-            "relu": True, "alpha": alpha}
+    return kq.Pending(torch.rand((b, c), generator=g, device="cuda") + 0.5,
+                      torch.randn((b, c), generator=g, device="cuda") * 0.3, True, alpha)
 
 
 def _card_weight(shape, seed, scale=0.05):
@@ -1006,7 +1005,7 @@ def check_int8_resblock(dtype_name: str = "f32") -> dict:
         # conv2's operands, fed the plain version's prologue affine
         h1, s1, sq1 = kq.conv_plain(x, q1, None, True)
         a1, b1 = kq.norm_affine_plain(s1, sq1, h * w, gamma, beta)
-        mid = {"scale": a1, "shift": b1, "relu": True, "alpha": 0.0}
+        mid = kq.Pending(a1, b1, True, 0.0)
         q2 = kq.quant_conv(w2, None, kq.prologue_plain(h1, mid).abs().amax(), 1, "reflect")
         exact2 = _check_exact(h1, q2, mid)
         y = kq.resblock(x, q1, q2, gamma, beta)

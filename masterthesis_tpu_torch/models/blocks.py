@@ -15,10 +15,14 @@ set, a conv records the running max |input| (after any pending affine), as
 the JAX convs sow ``amax_in``; the installed ``amax_in`` then routes the
 3x3 pad-1 convs (stride 1 and 2), the resblocks and the k3/s2/p1/op1
 transposed convs through ``ops/kernels/int8_conv.py``, and the 1x1 head after a deferred
-LayerNorm through ``ops/kernels/head.py``. A block that gets ``defer_norm``
-returns ``(y, pending)``: its norm and activation as a per-(sample, channel)
-affine ``{"scale", "shift", "relu", "alpha"}`` that the next conv applies in
-its quantize prologue.
+LayerNorm through ``ops/kernels/head.py``. A norm is deferred only into a
+consumer that takes it in a kernel: its block, called with ``defer_norm``,
+returns ``(y, pending)``, pending its norm and activation as a
+:class:`kint8.Pending` (or None where it applied them), and every other
+consumer of a pending norm applies it inline (:meth:`kint8.Pending.apply`).
+The content encoder asks for it where the next down's conv runs int8
+(``_Int8State.int8``); the decoders always ask, and an upsample defers only
+from its int8 transposed conv's statistics.
 
 int8 training (``--int8_train``, ``TranslationModel.calibrate_quant_train``).
 A conv holds a second amax, ``train_amax``, apart from the serving
@@ -179,17 +183,6 @@ def make_norm(name: Optional[str], features: int):
     raise NotImplementedError(f"norm type '{name}' is not supported at the moment")
 
 
-def apply_pending(x: torch.Tensor, pending: dict, dtype: torch.dtype) -> torch.Tensor:
-    """Apply a deferred norm affine (+ relu/lrelu) inline, where no kernel
-    prologue takes it."""
-    return kint8.prologue_plain(x, pending).to(dtype)
-
-
-def split_pending(out):
-    """(y, pending) from a block that may or may not have deferred its norm."""
-    return out if isinstance(out, tuple) else (out, None)
-
-
 class _Int8State(nn.Module):
     """Calibration and int8 state of a conv. ``calib_amax`` is the running
     amax while calibrating; ``amax_in`` (a non-persistent buffer, so outside
@@ -290,18 +283,18 @@ class Conv2d(_Int8State):
         return kint8.quant_conv(self.weight, self.bias, self.amax_in, self.stride,
                                 self.padding_type, scales)
 
-    def forward(self, x, pending: Optional[dict] = None):
+    def forward(self, x, pending: Optional[kint8.Pending] = None):
         """``pending``: a deferred norm from the previous block, applied in
         the int8 kernel's prologue or else inline. Returns y, or
         (y, sum, sumsq) from an int8 conv with ``serving_stats``."""
         if self.calib_amax is not None:
-            self.record_amax(apply_pending(x, pending, self.dtype) if pending is not None else x)
+            self.record_amax(pending.apply(x, self.dtype) if pending is not None else x)
         eligible = (self.kernel_size, self.padding) == (3, 1) and self.stride in (1, 2)
         if self.int8 and eligible:
             conv = kint8.conv3x3 if self.stride == 1 else kint8.downconv
             return conv(x, self.quant(), pending, self.serving_stats)
         if pending is not None:
-            x = apply_pending(x, pending, self.dtype)
+            x = pending.apply(x, self.dtype)
         if (qat.qat_trace_mode() and self.train_amax is not None and eligible and self.sn is None
                 and ("conv" if self.stride == 1 else "stride2") in qat.qat_scope()):
             return qat.int8_conv3x3_ste(x, self.weight, self.bias, self.train_amax,
@@ -341,13 +334,13 @@ class ConvTranspose2d(_Int8State):
     def _make_quant(self, scales=None) -> kint8.QuantConv:
         return kint8.quant_deconv(self.weight, self.bias, self.amax_in, scales)
 
-    def forward(self, x, pending: Optional[dict] = None):
+    def forward(self, x, pending: Optional[kint8.Pending] = None):
         if self.calibrates:
             self.record_amax(x)
             if self.int8:
                 return kint8.deconv(x, self.quant(), pending, self.serving_stats)
         if pending is not None:
-            x = apply_pending(x, pending, self.dtype)
+            x = pending.apply(x, self.dtype)
         if (self.calibrates and qat.qat_trace_mode() and self.train_amax is not None
                 and "deconv" in qat.qat_scope()):
             return qat.int8_deconv_ste(x, self.weight, self.bias, self.train_amax, self.dtype,
@@ -379,10 +372,11 @@ class ConvBlock(nn.Module):
     ``use_bias`` defaults to False, as in the JAX ConvBlock: the resblock
     convs and the 1x1 head have no bias, the stem, downs and ups ask for one.
 
-    ``defer_norm`` (the int8 content encoder): an instance norm followed by
-    relu/lrelu or nothing is not applied but returned as ``(y, pending)``.
-    Its statistics come from the int8 down conv, or from one moments launch
-    after a float conv (the 7x7 stem).
+    ``defer_norm`` (the int8 content encoder): the block returns ``(y,
+    pending)``. An instance norm followed by relu/lrelu or nothing is not
+    applied but is the pending :class:`kint8.Pending`, its statistics from
+    the int8 conv, or from one moments launch after a float conv (the 7x7
+    stem); any other block applies its own and hands on None.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
@@ -397,7 +391,7 @@ class ConvBlock(nn.Module):
         self.norm = make_norm(norm, features)
         self.act = get_activation(activation)
 
-    def forward(self, x, pending: Optional[dict] = None, defer_norm: bool = False):
+    def forward(self, x, pending: Optional[kint8.Pending] = None, defer_norm: bool = False):
         out = self.conv(x, pending)
         stats = None
         if isinstance(out, tuple):
@@ -406,9 +400,8 @@ class ConvBlock(nn.Module):
             stats = (s1 / n, (s2 / n - (s1 / n).square()).clamp_min(0.0))
         else:
             y = out
-        deferable = defer_norm and self.norm_type == "instance" and (
-            self.activation in (None, "relu", "lrelu")
-        )
+        deferable = (defer_norm and self.norm_type == "instance"
+                     and self.activation in (None, "relu", "lrelu"))
         if deferable and stats is None:
             mean, var = norms.moments(y)
             stats = (mean.flatten(1), var.flatten(1))
@@ -416,14 +409,13 @@ class ConvBlock(nn.Module):
             mean, var = stats
             a = torch.rsqrt(var + norms.EPS)
             if deferable:
-                return y, {
-                    "scale": a, "shift": -mean * a, "relu": self.activation is not None,
-                    "alpha": 0.01 if self.activation == "lrelu" else 0.0,
-                }
-            y = apply_pending(y, {"scale": a, "shift": -mean * a}, self.dtype)
+                return y, kint8.Pending(a, -mean * a, self.activation is not None,
+                                        0.01 if self.activation == "lrelu" else 0.0)
+            y = kint8.Pending(a, -mean * a, False, 0.0).apply(y, self.dtype)
         elif self.norm is not None:
             y = self.norm(y)
-        return self.act(y) if self.act is not None else y
+        y = self.act(y) if self.act is not None else y
+        return (y, None) if defer_norm else y
 
 
 class UpsampleBlock(nn.Module):
@@ -442,13 +434,15 @@ class UpsampleBlock(nn.Module):
     block's norm runs after the upsample (a pending affine reaching such a
     block is applied inline first).
 
-    int8 serving of ``transpose``: with ``defer_norm`` an int8 upsample hands
-    its LayerNorm (+ relu) on as ``(y, pending)``; a 1x1 block without a norm
-    (the tanh head) takes a pending LayerNorm in one :func:`khead.head`
-    launch. Such a head given a per-image ``code`` (N, K) reads it as the
-    last K input channels, the same at every pixel (``DecoderConcat``'s z):
-    their share of the 1x1 sum is :func:`khead.head`'s per-image term ``t``,
-    in place of a concat of the code's planes.
+    ``defer_norm``: the block returns ``(y, pending)``. An int8 transposed
+    upsample hands its LayerNorm (+ relu) on as the pending
+    :class:`kint8.Pending`; any other applies its own and hands on None. A
+    1x1 block without a norm (the tanh head) takes a pending LayerNorm in
+    one :func:`khead.head` launch. Such a head given a per-image ``code``
+    (N, K) reads it as the last K input channels, the same at every pixel
+    (``DecoderConcat``'s z): their share of the 1x1 sum is
+    :func:`khead.head`'s per-image term ``t``, in place of a concat of the
+    code's planes.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
@@ -473,39 +467,43 @@ class UpsampleBlock(nn.Module):
         self.norm = make_norm(norm, features)
         self.act = get_activation(activation)
 
-    def _finish(self, y):
+    def _finish(self, y, stats=None):
         if self.norm is not None:
-            y = self.norm(y)
+            y = self.norm(y) if stats is None else self.norm(y, stats=stats)
         return self.act(y) if self.act is not None else y
 
-    def forward(self, x, pending: Optional[dict] = None, defer_norm: bool = False,
+    def forward(self, x, pending: Optional[kint8.Pending] = None, defer_norm: bool = False,
                 code: Optional[torch.Tensor] = None):
         if not self.transpose:
             if pending is not None:
-                x = apply_pending(x, pending, self.dtype)
+                x = pending.apply(x, self.dtype)
             if "nearest" in self.up_type:
-                return self._finish(self.conv(upsample_nearest(x)))
-            return self._finish(depth_to_space(self.conv(x)))
-        if (pending is not None and self.norm is None and self.conv.kernel_size == 1
+                y = self._finish(self.conv(upsample_nearest(x)))
+            else:
+                y = self._finish(depth_to_space(self.conv(x)))
+        elif (pending is not None and self.norm is None and self.conv.kernel_size == 1
                 and self.conv.stride == 1 and self.activation in khead.ACTS):
             w = self.conv.weight[:, :, 0, 0].t().float()
             bias = None if self.conv.bias is None else self.conv.bias.float()
             t, c = None, x.shape[1]
             if code is not None:  # rounded as concat_label and the conv round them
                 t = (code.to(x.dtype).float() @ w[:, c:].to(x.dtype).float().t()).contiguous()
-            return khead.head(x, pending, w[:, :c].contiguous(), bias, self.activation,
-                              t).to(self.dtype)
-        if code is not None:
+            y = khead.head(x, pending, w[:, :c].contiguous(), bias, self.activation,
+                           t).to(self.dtype)
+        elif code is not None:
             raise ValueError("UpsampleBlock: a code goes only to a 1x1 head with a pending norm")
-        out = self.conv(x, pending)
-        if isinstance(out, tuple):
-            y, s1, s2 = out
-            if defer_norm and isinstance(self.norm, LayerNorm) and self.activation in ("relu", None):
+        else:
+            out = self.conv(x, pending)
+            if not isinstance(out, tuple):
+                y = self._finish(out)
+            elif (defer_norm and isinstance(self.norm, LayerNorm)
+                  and self.activation in ("relu", None)):
+                y, s1, s2 = out
                 a, b = self.norm(y, stats=(s1, s2), defer=True)
-                return y, {"scale": a, "shift": b, "relu": self.activation == "relu", "alpha": 0.0}
-            y = self.norm(y, stats=(s1, s2))
-            return self.act(y) if self.act is not None else y
-        return self._finish(out)
+                return y, kint8.Pending(a, b, self.activation == "relu", 0.0)
+            else:
+                y = self._finish(out[0], out[1:])
+        return (y, None) if defer_norm else y
 
 
 class DownResnetBlock(nn.Module):

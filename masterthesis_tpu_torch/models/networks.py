@@ -35,12 +35,10 @@ from masterthesis_tpu_torch.models.blocks import (
     GaussianNoise,
     ResnetBlock,
     UpsampleBlock,
-    apply_pending,
     avg_pool2d,
     concat_label,
     get_activation,
     global_avg_pool,
-    split_pending,
 )
 from masterthesis_tpu_torch.utils import profiling
 
@@ -83,17 +81,17 @@ class ContentEncoder(nn.Module):
             h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
         return n, self.output_dim, h, w
 
-    def forward(self, x, serving: bool = False, noise: Optional[torch.Tensor] = None):
-        """``serving``: the int8 chain. The stem and the downs defer their
-        instance norm and activation into the next down conv's quantize
-        prologue, with the downs' statistics from their kernels; the last
-        down's is applied inline before the resblocks. ``noise``: the training
-        noise on the code (:meth:`code_shape`), or None."""
-        h, pending = split_pending(self.stem(x, defer_norm=serving))
-        for i in range(self.num_downs):
-            h, pending = split_pending(getattr(self, f"down{i}")(h, pending, defer_norm=serving))
-        if pending is not None:
-            h = apply_pending(h, pending, h.dtype)
+    def forward(self, x, noise: Optional[torch.Tensor] = None):
+        """The stem and each down defer their instance norm and activation
+        into the next down's quantize prologue where that down's conv runs
+        int8 (int8 serving), with the downs' statistics from their kernels;
+        the last down applies its own. ``noise``: the training noise on the
+        code (:meth:`code_shape`), or None."""
+        blocks = [self.stem] + [getattr(self, f"down{i}") for i in range(self.num_downs)]
+        h, pending = x, None
+        for block, consumer in zip(blocks, blocks[1:] + [None]):
+            defer = consumer is not None and consumer.conv.int8
+            h, pending = block(h, pending, defer_norm=True) if defer else (block(h, pending), None)
         for i in range(self.n_blocks):
             h = getattr(self, f"res{i}")(h)
         return self.noise(h, noise)
@@ -197,20 +195,19 @@ class _DecoderTail(nn.Module):
             ))
             d //= 2
         self.num_ups = num_ups
-        # int8 serving: each transposed upsample hands its LayerNorm + relu to
-        # the next kernel's prologue, the last one to the head's (inert on the
-        # float path: only an int8 upsample returns the statistics to defer);
-        # the other up types apply their norms unfused, as in the JAX package
-        self.fusible = "transpose" in up_type and norm == "layer" and activation in ("relu", None)
         if "transpose" in up_type:
             self.head = UpsampleBlock(d, output_dim, 1, 1, 0, activation="tanh", dtype=dtype)
         else:
             self.head = ConvBlock(d, output_dim, 7, 1, 3, activation="tanh", dtype=dtype)
 
     def forward(self, h):
+        """int8 serving: each int8 transposed upsample hands its LayerNorm +
+        relu to the next one's quantize prologue, the last one to the head,
+        kernel 8; every other upsample applies its own (as in the JAX package
+        for the other up types)."""
         pending = None
         for i in range(self.num_ups):
-            h, pending = split_pending(getattr(self, f"up{i}")(h, pending, defer_norm=self.fusible))
+            h, pending = getattr(self, f"up{i}")(h, pending, defer_norm=True)
         return self.head(h, pending)
 
 
@@ -325,9 +322,6 @@ class DecoderConcat(nn.Module):
         else:
             self.dec4 = ConvBlock(nch // 2 + latent_dim, output_dim, 7, 1, 3, activation="tanh",
                                   dtype=dtype)
-        # int8 serving: dec3 defers its norm to kernel 8 (inert on the float
-        # path: only an int8 upsample returns the statistics to defer)
-        self.fusible = "transpose" in up_type and norm == "layer" and activation in ("relu", None)
 
     @staticmethod
     def _concat(h, code):
@@ -346,7 +340,7 @@ class DecoderConcat(nn.Module):
             block = getattr(self, name)
             h = block(h, _mask(masks, name, block, h))
         h = self.dec2(self._concat(h, z))
-        h, pending = split_pending(self.dec3(self._concat(h, z), defer_norm=self.fusible))
+        h, pending = self.dec3(self._concat(h, z), defer_norm=True)
         return self.dec4(self._concat(h, z)) if pending is None else self.dec4(h, pending, code=z)
 
 

@@ -224,11 +224,8 @@ class TranslationModel(Model):
 
     # NCHW building blocks
     def encode_content(self, img: torch.Tensor, noise=None) -> torch.Tensor:
-        # the deferred-norm chain is the int8 serving forward's, never a QAT step's
-        serving = (bool(self.quant and self.quant.get("content_encoder"))
-                   and not qat.qat_trace_mode())
         with profiling.span("mt.encode_content"):
-            return self.nets.content_encoder(img, serving=serving, noise=noise)
+            return self.nets.content_encoder(img, noise=noise)
 
     def encode_style(self, img: torch.Tensor, c: torch.Tensor, eps=None):
         """(z, mu, logvar); ``eps`` None gives z = mu. The plain encoder

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from masterthesis_tpu_torch.ops.kernels import build, library
+from masterthesis_tpu_torch.ops.kernels.int8_conv import Pending
 from masterthesis_tpu_torch.utils import profiling
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
@@ -77,21 +78,19 @@ def head_tiling(hw: int, dtype: torch.dtype, aligned: bool = True) -> HeadTiling
     return HeadTiling(elems, aligned and hw % elems == 0, runs, math.ceil(runs / THREADS))
 
 
-def head_plain(x: torch.Tensor, pending: dict, weight: torch.Tensor,
+def head_plain(x: torch.Tensor, pending: Pending, weight: torch.Tensor,
                bias: Optional[torch.Tensor] = None, act: Optional[str] = "tanh",
                t: Optional[torch.Tensor] = None):
-    """x (B, C, H, W) f32 or bf16; pending {"scale", "shift" (B, C), "relu",
-    "alpha"}; weight (Co, C); bias (Co,) or None; t (B, Co) f32 or None, added
-    to the f32 sum over C -> (B, Co, H, W) in x's dtype."""
+    """x (B, C, H, W) f32 or bf16; pending the deferred norm on x; weight
+    (Co, C); bias (Co,) or None; t (B, Co) f32 or None, added to the f32 sum
+    over C -> (B, Co, H, W) in x's dtype."""
     term = None if t is None else t.float()[:, :, None, None]
     w = weight.float()
     b = None if bias is None else bias.float()
     if x.dtype == torch.bfloat16:  # weights and bias as bf16 values, as the kernel rounds them
         w = w.to(torch.bfloat16).float()
         b = None if b is None else b.to(torch.bfloat16).float()
-    y = x.float() * pending["scale"][:, :, None, None] + pending["shift"][:, :, None, None]
-    if pending.get("relu"):
-        y = torch.maximum(y, float(pending.get("alpha", 0.0)) * y)
+    y = pending.apply(x)
     if x.dtype == torch.float32:
         if term is None:
             y = F.conv2d(y, w[:, :, None, None], b)
@@ -115,7 +114,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _checked(x: torch.Tensor, pending: dict, weight: torch.Tensor,
+def _checked(x: torch.Tensor, pending: Pending, weight: torch.Tensor,
              bias: Optional[torch.Tensor], t: Optional[torch.Tensor] = None):
     """The f32 weight and bias the kernel takes (it rounds them to bf16
     values itself for a bf16 x, as it stages them), after every check of
@@ -128,7 +127,7 @@ def _checked(x: torch.Tensor, pending: dict, weight: torch.Tensor,
         raise ValueError(f"head: x must be contiguous f32 or bf16, got {x.dtype}")
     weight = weight.float().contiguous()
     bias = None if bias is None else bias.float()
-    checks = [("scale", pending["scale"], (b, c)), ("shift", pending["shift"], (b, c)),
+    checks = [("scale", pending.scale, (b, c)), ("shift", pending.shift, (b, c)),
               ("weight", weight, (co, c))]
     if bias is not None:
         checks.append(("bias", bias, (co,)))
@@ -144,7 +143,7 @@ def _checked(x: torch.Tensor, pending: dict, weight: torch.Tensor,
     return weight, bias
 
 
-def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
+def head(x: torch.Tensor, pending: Pending, weight: torch.Tensor,
          bias: Optional[torch.Tensor] = None, act: Optional[str] = "tanh",
          t: Optional[torch.Tensor] = None):
     """:func:`head_plain` on the card, in one launch. Forward only."""
@@ -156,25 +155,20 @@ def head(x: torch.Tensor, pending: dict, weight: torch.Tensor,
         raise ValueError(f"head runs on CPU or CUDA tensors, not {x.device}")
     if t is not None and profiling.ON:
         profiling.add("head.term_launches", 1)
-    return library.call("head", x, pending["scale"], pending["shift"], bool(pending.get("relu")),
-                        float(pending.get("alpha", 0.0)), weight, bias, act == "tanh", t)
-
-
-def _op_args(scale, shift, relu, alpha, tanh):
-    return {"scale": scale, "shift": shift, "relu": relu, "alpha": alpha}, "tanh" if tanh else None
+    return library.call("head", x, pending.scale, pending.shift, pending.relu, pending.alpha,
+                        weight, bias, act == "tanh", t)
 
 
 def _head_cpu(x, scale, shift, relu, alpha, weight, bias, tanh, t=None):
-    pending, act = _op_args(scale, shift, relu, alpha, tanh)
-    return head_plain(x, pending, weight, bias, act, t)
+    return head_plain(x, Pending(scale, shift, relu, alpha), weight, bias,
+                      "tanh" if tanh else None, t)
 
 
 def head_cuda(x, scale, shift, relu, alpha, weight, bias, tanh, t=None):
     """One launch of the kernel: :func:`head` on a CUDA tensor, the pending
     affine, the activation and the per-image term as the op passes them."""
     with profiling.span("mt.k.head"):
-        pending, act = _op_args(scale, shift, relu, alpha, tanh)
-        weight, bias = _checked(x, pending, weight, bias, t)
+        weight, bias = _checked(x, Pending(scale, shift, relu, alpha), weight, bias, t)
         b, c, h, w = x.shape
         co = weight.shape[0]
         tiling = head_tiling(h * w, x.dtype, x.data_ptr() % VECTOR_BYTES == 0)

@@ -229,15 +229,34 @@ def quant_deconv(weight: torch.Tensor, bias, amax, scales=None) -> QuantConv:
 # ------------------------------------------------------------ plain path --
 
 
-def prologue_plain(x: torch.Tensor, pending: Optional[dict]) -> torch.Tensor:
-    """The deferred per-(sample, channel) affine and relu/lrelu, f32."""
-    y = x.float()
-    if pending is not None:
-        y = y * pending["scale"][:, :, None, None]
-        y = y + pending["shift"][:, :, None, None]
-        if pending.get("relu"):
-            y = torch.maximum(y, float(pending.get("alpha", 0.0)) * y)
-    return y
+@dataclass(frozen=True, slots=True)
+class Pending:
+    """A norm its block did not apply: the per-(sample, channel) affine
+    ``scale``, ``shift`` (B, C) f32, then with ``relu`` max(y, alpha y)
+    (relu or leaky relu). The int8 convs and the head (``head.py``) apply it
+    in their prologue, any other consumer inline (:meth:`apply`)."""
+
+    scale: torch.Tensor
+    shift: torch.Tensor
+    relu: bool
+    alpha: float
+
+    def apply(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The affine and activation on NCHW x in f32, rounded once to
+        ``dtype``: the plain version of every prologue."""
+        y = x.float() * self.scale[:, :, None, None] + self.shift[:, :, None, None]
+        if self.relu:
+            y = torch.maximum(y, self.alpha * y)
+        return y.to(dtype)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        """A field by name, as ``portbench/work.py`` reads scale and shift."""
+        return getattr(self, name)
+
+
+def prologue_plain(x: torch.Tensor, pending: Optional[Pending]) -> torch.Tensor:
+    """x as an int8 conv quantizes it, in f32: after ``pending`` if any."""
+    return x.float() if pending is None else pending.apply(x)
 
 
 def padded_size(qc: QuantConv, h: int, w: int) -> tuple[int, int]:
@@ -252,7 +271,8 @@ def padded_size(qc: QuantConv, h: int, w: int) -> tuple[int, int]:
     return hp, wp
 
 
-def quant_pad_plain(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None) -> torch.Tensor:
+def quant_pad_plain(x: torch.Tensor, qc: QuantConv,
+                    pending: Optional[Pending] = None) -> torch.Tensor:
     """NCHW float -> padded NHWC int8 (B, Hp, Wp, Cp), as the kernel writes it."""
     q = _quantize(prologue_plain(x, pending), qc.inv_sx)
     t, b, l, r = qc.pad
@@ -322,7 +342,7 @@ def conv_padded_plain(xq: torch.Tensor, qc: QuantConv, with_stats: bool = False,
     return (y, *stats_plain(acc, qc))
 
 
-def conv_plain(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
+def conv_plain(x: torch.Tensor, qc: QuantConv, pending: Optional[Pending] = None,
                with_stats: bool = False):
     """The quantize-and-pad and the conv; y in x's dtype."""
     return conv_padded_plain(quant_pad_plain(x, qc, pending), qc, with_stats, x.dtype)
@@ -354,8 +374,7 @@ def resblock_plain(x, q1: QuantConv, q2: QuantConv, gamma, beta, relu_mid: bool 
     n = x.shape[2] * x.shape[3]
     h1, s1, sq1 = conv_plain(x, q1, None, True)
     a1, b1 = norm_affine_plain(s1, sq1, n, gamma, beta, eps)
-    mid = {"scale": a1, "shift": b1, "relu": relu_mid, "alpha": 0.0}
-    h2, s2, sq2 = conv_plain(h1, q2, mid, True)
+    h2, s2, sq2 = conv_plain(h1, q2, Pending(a1, b1, relu_mid, 0.0), True)
     a2, b2 = norm_affine_plain(s2, sq2, n, gamma, beta, eps)
     return residual_plain(x, h2, a2, b2)
 
@@ -426,7 +445,7 @@ def _check_input(what: str, x: torch.Tensor, qc: QuantConv) -> None:
         raise ValueError(f"{what}: reflect padding needs H, W > 1, got {tuple(x.shape)}")
 
 
-def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
+def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[Pending] = None,
                    nhwc: bool = False) -> torch.Tensor:
     """The quantize-and-pad launch: :func:`quant_pad_plain` on the card, of
     NCHW ``x``, or with ``nhwc`` of (B, H, W, C) ``x`` (what
@@ -440,13 +459,10 @@ def quant_pad_cuda(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = Non
     t, _, l, _ = qc.pad
     hp, wp = padded_size(qc, h, w)
     out = torch.empty((b, hp, wp, qc.cp), device=x.device, dtype=torch.int8)
-    pa = pb = None
-    relu, alpha = 0, 0.0
+    pa, pb, relu, alpha = _op_args(pending)
     if pending is not None:
-        pa, pb = pending["scale"], pending["shift"]
         _check_f32("prologue scale", pa, (b, c), x.device)
         _check_f32("prologue shift", pb, (b, c), x.device)
-        relu, alpha = int(bool(pending.get("relu"))), float(pending.get("alpha", 0.0))
     lib = _library()
     launch = lib.mt_int8_quant_pad_nhwc if nhwc else lib.mt_int8_quant_pad
     with torch.cuda.device(x.device):
@@ -602,10 +618,16 @@ def _op_quant(stride: int, phases: int, x, w, scale, bias, inv_sx, reflect: bool
                      reflect, 1)
 
 
-def _op_pending(pre_scale, pre_shift, relu: bool, alpha: float) -> Optional[dict]:
-    if pre_scale is None:
-        return None
-    return {"scale": pre_scale, "shift": pre_shift, "relu": relu, "alpha": alpha}
+def _op_args(pending: Optional[Pending]) -> tuple:
+    """(pre_scale, pre_shift, relu, alpha): a deferred norm, or none, as the ops take it."""
+    if pending is None:
+        return None, None, False, 0.0
+    return pending.scale, pending.shift, pending.relu, pending.alpha
+
+
+def _op_pending(pre_scale, pre_shift, relu: bool, alpha: float) -> Optional[Pending]:
+    """The deferred norm that a conv op was given as its four arguments."""
+    return None if pre_scale is None else Pending(pre_scale, pre_shift, relu, alpha)
 
 
 def _conv_impls(op: str):
@@ -652,17 +674,12 @@ def _conv(op: str, x: torch.Tensor, qc: QuantConv, pending, with_stats: bool):
         raise ValueError(f"{what} runs on CPU or CUDA tensors, not {x.device}")
     if x.dim() != 4 or x.shape[1] != qc.cin:  # the op takes C from x
         raise ValueError(f"{what}: x must be (B, {qc.cin}, H, W), got {tuple(x.shape)}")
-    pre_scale = pre_shift = None
-    relu, alpha = False, 0.0
-    if pending is not None:
-        pre_scale, pre_shift = pending["scale"], pending["shift"]
-        relu, alpha = bool(pending.get("relu")), float(pending.get("alpha", 0.0))
-    out = library.call(op, x, qc.w, qc.scale, qc.bias, qc.inv_sx, pre_scale, pre_shift, relu,
-                       alpha, qc.reflect, with_stats)
+    out = library.call(op, x, qc.w, qc.scale, qc.bias, qc.inv_sx, *_op_args(pending), qc.reflect,
+                       with_stats)
     return tuple(out) if with_stats else out[0]
 
 
-def conv3x3(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
+def conv3x3(x: torch.Tensor, qc: QuantConv, pending: Optional[Pending] = None,
             with_stats: bool = False):
     """3x3/s1/p1 int8 conv of NCHW f32 or bf16 ``x`` -> y (B, Co, H, W) in x's dtype, and with
     ``with_stats`` its per-(sample, channel) (sum, sumsq). ``pending`` as in
@@ -673,18 +690,17 @@ def conv3x3(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
     return _conv("int8_conv3x3", x, qc, pending, with_stats)
 
 
-def downconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
+def downconv(x: torch.Tensor, qc: QuantConv, pending: Optional[Pending] = None,
              with_stats: bool = False):
     """3x3/s2/p1 int8 conv of NCHW f32 or bf16 ``x`` -> y (B, Co, H/2, W/2) in x's dtype, and
-    with ``with_stats`` its per-(sample, channel) (sum, sumsq). ``pending``
-    is the deferred norm {"scale", "shift" (B, C), "relu", "alpha"} applied
-    before quantizing."""
+    with ``with_stats`` its per-(sample, channel) (sum, sumsq). ``pending``:
+    a deferred norm (:class:`Pending`), applied before quantizing."""
     if qc.stride != 2 or qc.phases != 1:
         raise ValueError("downconv takes a stride-2 QuantConv")
     return _conv("int8_downconv", x, qc, pending, with_stats)
 
 
-def deconv(x: torch.Tensor, qc: QuantConv, pending: Optional[dict] = None,
+def deconv(x: torch.Tensor, qc: QuantConv, pending: Optional[Pending] = None,
            with_stats: bool = False):
     """ConvTranspose(3, 2, 1, 1) in int8: NCHW f32 or bf16 (B, C, H, W) -> y
     (B, Co, 2H, 2W) in x's dtype, and with ``with_stats`` (sum, sumsq) (B, Co) over
@@ -742,7 +758,7 @@ def resblock_cuda(x, w1, scale1, bias1, inv1, reflect1, w2, scale2, bias2, inv2,
             _check_input("int8 resblock", x, qc)
         h1, a1, b1 = conv_padded_cuda(quant_pad_cuda(x, q1), q1, True, gamma, beta, eps,
                                       nhwc=True, out_dtype=x.dtype)
-        mid = {"scale": a1, "shift": b1, "relu": relu_mid, "alpha": 0.0}
+        mid = Pending(a1, b1, relu_mid, 0.0)
         h2, a2, b2 = conv_padded_cuda(quant_pad_cuda(h1, q2, mid, nhwc=True), q2, True, gamma,
                                       beta, eps, nhwc=True, out_dtype=x.dtype)
         out = torch.empty_like(x)

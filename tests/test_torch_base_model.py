@@ -121,8 +121,8 @@ def test_conv3x3_plain_matches_jax(padding, relu, alpha, stats, c, co):
 
     qc = kq.quant_conv(torch.from_numpy(_conv(k)), torch.from_numpy(bias), amax, 1,
                        None if padding == "zero" else padding)
-    tp = None if p is None else {**p, "scale": torch.from_numpy(p["scale"]),
-                                 "shift": torch.from_numpy(p["shift"])}
+    tp = None if p is None else kq.Pending(torch.from_numpy(p["scale"]),
+                                           torch.from_numpy(p["shift"]), relu, alpha)
     xq = kq.quant_pad_plain(_nchw(x), qc, tp)
     assert xq.shape == (b, h + 2, w + 2, 32)
     np.testing.assert_array_equal(xq[:, 1:-1, 1:-1, :c].numpy(), np.asarray(xqj))
@@ -154,8 +154,7 @@ def test_conv3x3_plain_matches_the_pallas_kernel(padding, c, co):
         prologue_shift=jnp.asarray(pb), prologue_relu=True, with_stats=True)
     qc = kq.quant_conv(torch.from_numpy(_conv(k)), torch.from_numpy(bias), amax, 1,
                        None if padding == "zero" else padding)
-    pend = {"scale": torch.from_numpy(pa), "shift": torch.from_numpy(pb), "relu": True,
-            "alpha": 0.0}
+    pend = kq.Pending(torch.from_numpy(pa), torch.from_numpy(pb), True, 0.0)
     y, s1, s2 = kq.conv3x3(_nchw(x), qc, pend, with_stats=True)
     np.testing.assert_allclose(_nhwc(y), np.asarray(yj), rtol=0, atol=1e-6)
     _assert_stats((s1, s2), (s1j, s2j), yj)

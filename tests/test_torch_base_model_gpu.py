@@ -64,8 +64,8 @@ def _on(qc, device):
 
 
 def _pending(b, c, seed, alpha, device):
-    return {"scale": (_randn((b, c), seed).abs() + 0.5).to(device),
-            "shift": _randn((b, c), seed + 1, 0.3).to(device), "relu": True, "alpha": alpha}
+    return kq.Pending((_randn((b, c), seed).abs() + 0.5).to(device),
+                      _randn((b, c), seed + 1, 0.3).to(device), True, alpha)
 
 
 # (B, C, Co, H, W, padding, prologue alpha or None, with_stats): the flagship
@@ -88,7 +88,7 @@ def test_conv3x3_kernel_matches_plain(cuda, b, c, co, h, w, padding, alpha, stat
     qc = kq.quant_conv(_randn((co, c, 3, 3), 1, 0.1), _randn((co,), 2, 0.2), 2.5, 1, padding)
     x = _randn((b, c, h, w), 3, 1.5)
     p = None if alpha is None else _pending(b, c, 4, alpha, "cpu")
-    pc = None if p is None else {**p, "scale": p["scale"].to(cuda), "shift": p["shift"].to(cuda)}
+    pc = None if p is None else replace(p, scale=p.scale.to(cuda), shift=p.shift.to(cuda))
     # the operands and the int32 sums (unit scales: y holds them exactly)
     xq = kq.quant_pad_cuda(x.to(cuda), _on(qc, cuda), pc)
     assert torch.equal(xq.cpu(), kq.quant_pad_plain(x, qc, p))

@@ -41,9 +41,11 @@ from masterthesis_tpu.metrics import inception as jinception  # noqa: E402
 from masterthesis_tpu.metrics.inception import InceptionV3 as JaxInceptionV3  # noqa: E402
 from masterthesis_tpu.metrics.lpips import LPIPS as JaxLPIPS  # noqa: E402
 from masterthesis_tpu.models import AdaINModel as JaxAdaINModel  # noqa: E402
+from masterthesis_tpu import native as jnative  # noqa: E402
 from masterthesis_tpu.utils import AttributeDict  # noqa: E402
 from masterthesis_tpu_torch.arguments import default_test_args  # noqa: E402
 from masterthesis_tpu_torch.evaluate import Evaluator, parse_args  # noqa: E402
+from masterthesis_tpu_torch import native  # noqa: E402
 from masterthesis_tpu_torch.models import AdaINModel  # noqa: E402
 from masterthesis_tpu_torch.tools.convert_jax import params_from_jax, quant_from_jax  # noqa: E402
 
@@ -90,6 +92,24 @@ def _metric_npz(path, module, seed, *inputs):
         flat[k] = a.astype(np.float32)
     np.savez(path, **flat)
     return str(path)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pil_decoding():
+    """Both packages decode the JPEGs with PIL here. The JAX package builds
+    its native library in place at its first use, so under ``pytest -n`` a
+    worker whose first load meets another worker's half-written build takes
+    PIL for the rest of its run, while the port, which builds through a
+    temporary name, loads its own: the two then score other pixels (a
+    1.9e-4 relative gap in an LPIPS diversity, 4.9e-5 in an FID). Pinned,
+    both read the same pixels in every worker. So this file compares the
+    evaluate CLIs over PIL's decode only; the native decode route is held
+    to the JAX library's bytes in ``tests/test_torch_native.py`` alone."""
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jnative, native):
+            mp.setattr(module, "_lib", None)
+            mp.setattr(module, "_build_error", "off in this file: both packages decode with PIL")
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -12,11 +12,14 @@ l = r % 32 covers pixels 32 E g + l + 32 i (i < E). Pixels at or past hw are
 neither loaded nor stored. Every plane (b, c) of x and (b, o) of the output
 is offset by a multiple of hw, so covering one plane covers them all.
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
 
 from masterthesis_tpu_torch.ops.kernels import head as khead
+from masterthesis_tpu_torch.ops.kernels.int8_conv import Pending
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # the serving paths' shapes: AdaINModel / BaseModel A int8 at B=8, the
@@ -96,7 +99,7 @@ def test_vector_runs_are_16_byte_aligned_in_every_plane():
 
 def _args(b=2, c=6, h=5, w=7, co=3, dtype=torch.float32):
     x = torch.zeros((b, c, h, w), dtype=dtype)
-    pending = {"scale": torch.ones(b, c), "shift": torch.zeros(b, c), "relu": True, "alpha": 0.0}
+    pending = Pending(torch.ones(b, c), torch.zeros(b, c), True, 0.0)
     return x, pending, torch.ones(co, c), torch.zeros(co)
 
 
@@ -116,15 +119,15 @@ def test_wrapper_raises_before_any_launch(case):
     elif case == "strided":
         x = torch.zeros((2, 7, 5, 6)).transpose(1, 3)
     elif case == "scale_shape":
-        pending["scale"] = torch.ones(2, 5)
+        pending = replace(pending, scale=torch.ones(2, 5))
     elif case == "shift_dtype":
-        pending["shift"] = pending["shift"].double()
+        pending = replace(pending, shift=pending.shift.double())
     elif case == "weight_shape":
         weight = torch.ones(3, 5)
     elif case == "bias_shape":
         bias = torch.zeros(4)
     elif case == "scale_device":
-        pending["scale"] = pending["scale"].to("meta")
+        pending = replace(pending, scale=pending.scale.to("meta"))
     elif case == "grid":
         x, pending, weight, bias = _args(b=2**16, c=1, h=1, w=1)
     elif case == "t_shape":
@@ -177,17 +180,15 @@ def test_plain_term_is_the_conv_over_the_concatenated_channels(dtype_name, b, c,
     dtype = DTYPES[dtype_name]
     gen = torch.Generator().manual_seed(b * 100 + c)
     x = _seeded((b, c, h, w), gen).to(dtype)
-    pending = {"scale": _seeded((b, c), gen).abs() + 0.5, "shift": _seeded((b, c), gen, 0.3),
-               "relu": True, "alpha": 0.0}
+    pending = Pending(_seeded((b, c), gen).abs() + 0.5, _seeded((b, c), gen, 0.3), True, 0.0)
     weight = _seeded((co, c + latent), gen, 0.3)
     z = _seeded((b, latent), gen)
     t = z.to(dtype).float() @ weight[:, c:].to(dtype).float().t()
     got = khead.head_plain(x, pending, weight[:, :c], None, "tanh", t)
-    h_in = torch.relu(x.float() * pending["scale"][:, :, None, None]
-                      + pending["shift"][:, :, None, None]).to(dtype)
+    h_in = torch.relu(x.float() * pending.scale[:, :, None, None]
+                      + pending.shift[:, :, None, None]).to(dtype)
     cat = torch.cat([h_in, z[:, :, None, None].expand(b, latent, h, w).to(dtype)], dim=1)
-    identity = {"scale": torch.ones(b, c + latent), "shift": torch.zeros(b, c + latent),
-                "relu": False, "alpha": 0.0}
+    identity = Pending(torch.ones(b, c + latent), torch.zeros(b, c + latent), False, 0.0)
     want = khead.head_plain(cat, identity, weight, None, "tanh")
     assert got.dtype == dtype and got.shape == (b, co, h, w)
     tol = 1e-5 if dtype == torch.float32 else khead.BF16_TOL

@@ -69,7 +69,8 @@ def _pending(rng, b, c, relu, alpha):
 def _torch_pending(p):
     if p is None:
         return None
-    return {**p, "scale": torch.from_numpy(p["scale"]), "shift": torch.from_numpy(p["shift"])}
+    return kq.Pending(torch.from_numpy(p["scale"]), torch.from_numpy(p["shift"]), p["relu"],
+                      p["alpha"])
 
 
 def _jax_prologue(x, p):
@@ -443,31 +444,86 @@ def test_int8_needs_compute_dtype_float32(setup):
     assert y.dtype == torch.float32
 
 
+def _kernel_calls(fn, encoder):
+    """fn() under inference mode, its calls of the int8 wrappers, the head
+    and the moments kernel by name, and under "deferred" the names of the
+    encoder's blocks (stem, downs) that handed a deferred norm on."""
+    calls = dict.fromkeys(("downconv", "resblock", "conv3x3", "deconv", "head", "moments"), 0)
+    calls["deferred"] = []
+
+    def hook(module, args, out):
+        if isinstance(out, tuple) and isinstance(out[1], kq.Pending):
+            calls["deferred"].append(next(n for n, m in encoder.named_children() if m is module))
+
+    names = ["stem"] + [f"down{i}" for i in range(encoder.num_downs)]
+    hooks = [getattr(encoder, n).register_forward_hook(hook) for n in names]
+    try:
+        with pytest.MonkeyPatch.context() as mp, torch.inference_mode():
+            for module, names in ((kq, ("downconv", "resblock", "conv3x3", "deconv")),
+                                  (khead, ("head",)), (kmoments, ("moments",))):
+                for name in names:
+                    def wrapper(*a, _real=getattr(module, name), _name=name, **kw):
+                        calls[_name] += 1
+                        return _real(*a, **kw)
+                    mp.setattr(module, name, wrapper)
+            out = fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, calls
+
+
 @pytest.mark.parametrize("entry", ["forward_random", "forward_reference"])
-def test_every_int8_conv_goes_through_the_kernel_wrappers(setup, int8_model, entry, monkeypatch):
+def test_every_int8_conv_goes_through_the_kernel_wrappers(setup, int8_model, entry):
     """Per int8 forward: 2 down convs, 8 resblocks (4 encoder, 4 AdaIN),
     2 transposed convs and 1 head go through the four int8 wrappers, and the
     only norm statistics pass left is the stem's, one moments call. No
     stride-1 conv runs alone (kernel 4): all run inside their resblock. The
-    card counts the same launches (chip_smoke.py)."""
-    calls = dict.fromkeys(("downconv", "resblock", "conv3x3", "deconv", "head", "moments"), 0)
-
-    def counting(module, name):
-        real = getattr(module, name)
-
-        def wrapper(*a, **kw):
-            calls[name] += 1
-            return real(*a, **kw)
-        monkeypatch.setattr(module, name, wrapper)
-
-    for name in ("downconv", "resblock", "conv3x3", "deconv"):
-        counting(kq, name)
-    counting(khead, "head")
-    counting(kmoments, "moments")
+    stem and the first down hand their norms on to the next down's conv.
+    The card counts the same launches (chip_smoke.py)."""
     s = setup
     if entry == "forward_random":
-        int8_model.forward_random(s.inputs["img"], s.inputs["z"], s.inputs["c"])
+        forward = lambda: int8_model.forward_random(  # noqa: E731
+            s.inputs["img"], s.inputs["z"], s.inputs["c"])
     else:
-        int8_model.forward_reference(s.inputs["img"], s.inputs["ref"], s.inputs["c"])
+        forward = lambda: int8_model.forward_reference(  # noqa: E731
+            s.inputs["img"], s.inputs["ref"], s.inputs["c"])
+    _, calls = _kernel_calls(forward, int8_model.nets.content_encoder)
     assert calls == {"downconv": 2, "resblock": 8, "conv3x3": 0, "deconv": 2, "head": 1,
-                     "moments": 1}
+                     "moments": 1, "deferred": ["stem", "down0"]}
+
+
+def test_a_net_defers_its_norms_only_where_its_own_convs_run_int8(setup):
+    """The deferral follows the consuming conv's own int8 state. A tree that
+    installs the decoder only leaves the content encoder on its float
+    launches (no block hands a norm on, the instance norms take the moments
+    kernel, no int8 down conv runs) and its float output, bit for bit, while
+    the decoder hands its LayerNorms on to the transposed convs and the
+    head; a tree with the content encoder only runs the encoder's int8
+    chain (the stem and the first down hand their norms on to the next
+    down's conv; the stem's moments launch, two down convs, four resblocks)
+    and defers nothing into the float decoder."""
+    s = setup
+    enc = s.tm.nets.content_encoder
+    img = torch.from_numpy(s.inputs["img"]).permute(0, 3, 1, 2).contiguous()
+    encode = lambda: s.tm.encode_content(img)  # noqa: E731
+    inputs = (s.inputs["img"], s.inputs["z"], s.inputs["c"])
+    forward = lambda: s.tm.forward_random(*inputs)[0]  # noqa: E731
+    want, float_calls = _kernel_calls(encode, enc)
+    assert float_calls["deferred"] == [] and float_calls["downconv"] == 0
+    assert float_calls["moments"] == 11
+    tree = quant_from_jax(s.quant, s.tm)
+    try:
+        s.tm.load_int8({"decoder": tree["decoder"]})
+        got, calls = _kernel_calls(encode, enc)
+        assert calls == float_calls and torch.equal(got, want)
+        _, calls = _kernel_calls(forward, enc)
+        assert calls == {**float_calls, "resblock": 4, "deconv": 2, "head": 1}
+        s.tm.load_int8({"content_encoder": tree["content_encoder"]})
+        _, calls = _kernel_calls(encode, enc)
+        assert calls == {"downconv": 2, "resblock": 4, "conv3x3": 0, "deconv": 0, "head": 0,
+                         "moments": 1, "deferred": ["stem", "down0"]}
+        out, calls = _kernel_calls(forward, enc)
+        assert calls["deconv"] == calls["head"] == 0 and torch.isfinite(out).all()
+    finally:
+        s.tm.disable_int8()

@@ -100,7 +100,8 @@ def _pending(rng, b, c, relu, alpha):
 def _torch_pending(p):
     if p is None:
         return None
-    return {**p, "scale": torch.from_numpy(p["scale"]), "shift": torch.from_numpy(p["shift"])}
+    return kq.Pending(torch.from_numpy(p["scale"]), torch.from_numpy(p["shift"]), p["relu"],
+                      p["alpha"])
 
 
 def _prologue_kw(p, alpha=True):
@@ -255,7 +256,7 @@ def test_head_bf16_plain_rounds_its_operands():
     bb = torch.from_numpy(rng.standard_normal(2).astype(np.float32))
     xb = x.to(torch.bfloat16)
     got = khead.head_plain(xb, p, wt, bb)
-    v = (xb.float() * p["scale"][:, :, None, None] + p["shift"][:, :, None, None]).relu()
+    v = (xb.float() * p.scale[:, :, None, None] + p.shift[:, :, None, None]).relu()
     v = v.to(torch.bfloat16).float()
     s = torch.einsum("bchw,oc->bohw", v, wt.to(torch.bfloat16).float()).to(torch.bfloat16)
     want = torch.tanh(s + bb.to(torch.bfloat16)[:, None, None])

@@ -73,9 +73,8 @@ def _case(kind, b, c, co, h, w, dtype, device, seed):
     x = _randn((b, c, h, w), seed + 2, 1.5).to(device=device, dtype=dtype)
     pending = None
     if kind == "down":  # the stride-2 convs take the previous norm as a prologue
-        pending = {"scale": (_randn((b, c), seed + 3).abs() + 0.5).to(device),
-                   "shift": _randn((b, c), seed + 4, 0.3).to(device), "relu": True,
-                   "alpha": 0.01}
+        pending = kq.Pending((_randn((b, c), seed + 3).abs() + 0.5).to(device),
+                             _randn((b, c), seed + 4, 0.3).to(device), True, 0.01)
     amax = kq.prologue_plain(x, pending).abs().amax()
     qc = (kq.quant_deconv(weight.to(device), bias.to(device), amax) if kind == "deconv"
           else kq.quant_conv(weight.to(device), bias.to(device), amax, 2, "reflect"))

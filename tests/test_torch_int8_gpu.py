@@ -48,13 +48,12 @@ def _randn(shape, seed, scale=1.0):
 
 
 def _pending(b, c, seed, relu=True, alpha=0.0):
-    return {"scale": _randn((b, c), seed).abs() + 0.5, "shift": _randn((b, c), seed + 1, 0.3),
-            "relu": relu, "alpha": alpha}
+    return kq.Pending(_randn((b, c), seed).abs() + 0.5, _randn((b, c), seed + 1, 0.3), relu,
+                      alpha)
 
 
 def _to(p, device):
-    return None if p is None else {**p, "scale": p["scale"].to(device),
-                                   "shift": p["shift"].to(device)}
+    return None if p is None else replace(p, scale=p.scale.to(device), shift=p.shift.to(device))
 
 
 def _make(kind, c, co, seed, padding="reflect"):

@@ -20,6 +20,7 @@ from masterthesis_tpu.ops.pallas.moments import pallas_moments
 from masterthesis_tpu_torch.ops import norms
 from masterthesis_tpu_torch.ops.kernels import adain as kadain
 from masterthesis_tpu_torch.ops.kernels import head as khead
+from masterthesis_tpu_torch.ops.kernels import int8_conv as kq
 from masterthesis_tpu_torch.ops.kernels import moments as kmoments
 
 torch.set_num_threads(2)
@@ -144,7 +145,7 @@ def test_wrappers_raise_when_grad_is_required():
     AdaIN wrappers take a gradient-carrying input, whose gradient the
     ``ops/norms.py`` Functions supply."""
     x = torch.zeros(1, 2, 4, 4, requires_grad=True)
-    pending = {"scale": torch.ones(1, 2), "shift": torch.zeros(1, 2), "relu": True, "alpha": 0.0}
+    pending = kq.Pending(torch.ones(1, 2), torch.zeros(1, 2), True, 0.0)
     with pytest.raises(RuntimeError, match="backward"):
         khead.head(x, pending, torch.ones(3, 2))
     with torch.no_grad():

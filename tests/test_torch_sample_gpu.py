@@ -53,13 +53,12 @@ def _bf16(shape, seed):
 
 
 def _pending(b, c, seed, alpha=0.0):
-    return {"scale": _randn((b, c), seed).abs() + 0.5, "shift": _randn((b, c), seed + 1, 0.3),
-            "relu": True, "alpha": alpha}
+    return kq.Pending(_randn((b, c), seed).abs() + 0.5, _randn((b, c), seed + 1, 0.3), True,
+                      alpha)
 
 
 def _to(p, device):
-    return None if p is None else {**p, "scale": p["scale"].to(device),
-                                   "shift": p["shift"].to(device)}
+    return None if p is None else replace(p, scale=p.scale.to(device), shift=p.shift.to(device))
 
 
 def _on(qc, device):

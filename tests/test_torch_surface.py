@@ -161,8 +161,8 @@ def test_a_pending_affine_is_applied_before_a_nearest_upsample():
                       pending={k: jnp.asarray(v) if k in ("scale", "shift") else v
                                for k, v in pend.items()})
     with torch.inference_mode():
-        got = tmod(_nchw(x), {**pend, "scale": torch.from_numpy(pend["scale"]),
-                              "shift": torch.from_numpy(pend["shift"])})
+        got = tmod(_nchw(x), kq.Pending(torch.from_numpy(pend["scale"]),
+                                        torch.from_numpy(pend["shift"]), True, 0.0))
     _close(_nhwc(got), want, BLOCK_TOL[torch.float32])
 
 
